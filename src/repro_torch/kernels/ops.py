@@ -1,0 +1,26 @@
+"""Public entry points for the kernels.
+
+``impl="auto"`` launches the hand-written kernel for CUDA tensors and runs
+the plain PyTorch version for CPU tensors; ``"ref"`` always runs the plain
+version; ``"kernel"`` always launches the kernel and raises on CPU tensors.
+A CUDA tensor never falls back to the plain version.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import composite as composite_kernel
+from repro_torch.kernels import ref
+
+IMPLS = ("auto", "ref", "kernel")
+
+
+def composite(images: torch.Tensor, weights: torch.Tensor,
+              impl: str = "auto") -> torch.Tensor:
+    """Weighted temporal composite: [T,H,W,C] x [T,H,W] -> [H,W,C]."""
+    if impl not in IMPLS:
+        raise ValueError(f"impl={impl!r} not in {IMPLS}")
+    if impl == "ref" or (impl == "auto" and not images.is_cuda):
+        return ref.composite(images, weights)
+    return composite_kernel.composite(images, weights)

@@ -8,6 +8,12 @@ import pytest
 from repro.core import ChunkStore, Festivus, InMemoryObjectStore
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA sm_90 card and nvcc; skips "
+        "elsewhere (run on the card with `-m cuda`)")
+
+
 @pytest.fixture
 def store():
     return InMemoryObjectStore()

@@ -1,0 +1,83 @@
+"""The port stands alone: no module of ``repro_torch`` (nor chip_smoke.py)
+imports jax or any module of the JAX package ``repro``, at any depth, and
+its entry points do not fall back to the CPU when no card is present."""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.apps import composite as papp
+from repro_torch.configs.festivus_imagery import SMOKE
+from repro_torch.core import ChunkStore, Festivus, InMemoryObjectStore
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+PORT_FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _forbidden(module: str) -> bool:
+    return (module == "jax" or module.startswith("jax.")
+            or module == "repro" or module.startswith("repro."))
+
+
+def test_importing_every_port_module_loads_no_jax_and_no_repro():
+    modules = sorted(
+        ".".join(("repro_torch",) + p.relative_to(PORT).with_suffix("").parts)
+        .removesuffix(".__init__")
+        for p in PORT.rglob("*.py"))
+    code = (
+        "import importlib, json, sys\n"
+        f"mods = {modules!r}\n"
+        "for m in mods: importlib.import_module(m)\n"
+        "print(json.dumps(sorted(sys.modules)))\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu")
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=120,
+                         check=True).stdout
+    loaded = set(__import__("json").loads(out.strip().splitlines()[-1]))
+    assert set(modules) <= loaded
+    assert not sorted(m for m in loaded if _forbidden(m))
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=[str(p.relative_to(ROOT)) for p in PORT_FILES])
+def test_no_jax_or_repro_import_at_any_depth(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    bad = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            bad += [a.name for a in node.names if _forbidden(a.name)]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            if _forbidden(node.module or ""):
+                bad.append(node.module)
+        elif (isinstance(node, ast.Call)
+              and getattr(node.func, "attr", getattr(node.func, "id", ""))
+              in ("import_module", "__import__") and node.args
+              and isinstance(node.args[0], ast.Constant)
+              and _forbidden(str(node.args[0].value))):
+            bad.append(node.args[0].value)
+    assert not bad, f"{path.name} imports {bad}"
+
+
+def test_composite_tile_without_device_raises_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    stack = np.random.default_rng(0).random((2, 8, 8, 4), dtype=np.float32)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        papp.composite_tile(stack, SMOKE)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        papp.composite_tile(stack, SMOKE, impl="ref")
+
+
+def test_campaign_without_device_raises_before_any_work(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    store = InMemoryObjectStore()
+    cs = ChunkStore(Festivus(store), "bucket")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        papp.run_composite_campaign(cs, ["stacks/none"], SMOKE)
+    assert store.list("bucket/composite") == []
