@@ -1,7 +1,7 @@
 """Hand-written Hopper kernels for the port's hot spots.
 
 Each kernel has a CUDA source under ``csrc/``, a ctypes wrapper module
-(``composite.py``) that checks its inputs, launches on the current stream
+(``composite.py``, ``grad_mag.py``) that checks its inputs, launches on the current stream
 and counts its launches, and a plain PyTorch version in ``ref.py``.
 ``ops.py`` is the dispatch the applications call: CUDA tensors launch the
 kernel, CPU tensors run the plain version.  ``build.py`` compiles the

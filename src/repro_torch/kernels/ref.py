@@ -37,3 +37,41 @@ def composite_weights(cloud_score: torch.Tensor, nir: torch.Tensor,
     ndvi = (nir - red) / (nir + red + eps)
     verdancy = ndvi.clamp(0.0, 1.0)
     return (1.0 - cloud_score) * (0.25 + 0.75 * verdancy)
+
+
+# ---------------------------------------------------------------------------
+# Temporal-mean gradient magnitude (paper §V.B: field segmentation edges)
+# ---------------------------------------------------------------------------
+def grad_mag(images: torch.Tensor, valid: torch.Tensor,
+             eps: float = 1e-6) -> tuple[torch.Tensor, torch.Tensor]:
+    """Accumulated cloud-masked spatial gradient magnitude.
+
+    images [T, H, W, C], valid [T, H, W] bool (False = cloud/missing) ->
+    (grad_sum [H, W], count [H, W]), both f32.  East and south forward
+    differences; a difference counts only where both pixels are valid, and a
+    neighbour outside the frame is invalid.  mag = sqrt(sum_c dx^2 +
+    sum_c dy^2 + eps), grad_sum = sum_t mag * v, count = sum_t v.
+
+    The JAX oracle's operations, one timestep at a time with the sums in
+    f32, so no [T, H, W, C] temporary is made (at [16, 6144, 6144, 4] each
+    one is 9.7 GB)."""
+    T, H, W, _ = images.shape
+    grad_sum = torch.zeros((H, W), dtype=torch.float32, device=images.device)
+    count = torch.zeros_like(grad_sum)
+    for t in range(T):
+        x = images[t].float()
+        v = valid[t].float()
+        dx = torch.zeros_like(x)
+        dy = torch.zeros_like(x)
+        dx[:, :-1] = (x[:, 1:] - x[:, :-1]) * (v[:, 1:] * v[:, :-1])[..., None]
+        dy[:-1] = (x[1:] - x[:-1]) * (v[1:] * v[:-1])[..., None]
+        mag = torch.sqrt((dx * dx).sum(dim=-1) + (dy * dy).sum(dim=-1) + eps)
+        grad_sum += mag * v
+        count += v
+    return grad_sum, count
+
+
+def temporal_mean_gradient(images: torch.Tensor,
+                           valid: torch.Tensor) -> torch.Tensor:
+    g, c = grad_mag(images, valid)
+    return g / c.clamp_min(1.0)

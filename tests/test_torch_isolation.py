@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from repro_torch.apps import composite as papp
+from repro_torch.apps import segmentation as pseg
 from repro_torch.configs.festivus_imagery import SMOKE
 from repro_torch.core import ChunkStore, Festivus, InMemoryObjectStore
 
@@ -81,3 +82,27 @@ def test_campaign_without_device_raises_before_any_work(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         papp.run_composite_campaign(cs, ["stacks/none"], SMOKE)
     assert store.list("bucket/composite") == []
+
+
+def test_segment_tile_without_device_raises_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    rng = np.random.default_rng(0)
+    stack = rng.random((2, 8, 8, 4), dtype=np.float32)
+    valid = rng.random((2, 8, 8)) > 0.3
+    for impl in ("auto", "ref"):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            pseg.segment_tile(stack, valid, SMOKE, impl=impl)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        pseg.temporal_edges(stack, valid, SMOKE)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        pseg.connected_components(valid[0])
+
+
+def test_segmentation_campaign_without_device_raises_before_any_work(
+        monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    store = InMemoryObjectStore()
+    cs = ChunkStore(Festivus(store), "bucket")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        pseg.run_segmentation_campaign(cs, ["stacks/none"], SMOKE)
+    assert store.list("bucket/fields") == []
