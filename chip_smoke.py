@@ -6,12 +6,17 @@
 Phases, each printing one JSON line with its seconds:
 
 0. device and build: the card's name and power limit from ``nvidia-smi``,
-   the kernels compiled with ``nvcc`` from this checkout's sources, and the
-   rate of a 4 GiB device-to-device copy;
-1. every kernel (``composite``, ``grad_mag``) against its plain PyTorch
-   version on the card, at the main path's shapes and at ragged ones, with
-   the tolerance stated; the full-size cases are timed with CUDA events
-   (median of 10);
+   the matmul precision flags (TF32 and reduced-precision bf16 reductions
+   off, stated in the line), the kernels compiled with ``nvcc`` from this
+   checkout's sources, and the rate of a 4 GiB device-to-device copy;
+1. every kernel (``composite``, ``grad_mag``, ``flash_attention``) against
+   its plain PyTorch version on the card, at the main path's shapes and at
+   ragged ones, with the tolerance stated (and, for attention, a relative
+   L2 limit as well); the main path's cases, and every
+   attention case, are timed with CUDA events (median of 10; the
+   prefill_32k attention layer, median of 3), beside their bound and, for
+   bf16 attention at Sq == Sk, PyTorch's ``scaled_dot_product_attention``
+   on the same inputs;
 2. one full-size composite tile (``DEFAULT``: 4096 px, 4 bands, T = 16)
    through ``apps.composite.composite_tile``, held against ``impl="ref"``;
 3. the §V.C campaign: 4 tiles of 1024 px, T = 16, written by
@@ -25,10 +30,20 @@ Phases, each printing one JSON line with its seconds:
    step (each step timed), its fields against the ground truth;
 5. the §V.B campaign over phase 3's four stacks: ``run_segmentation_campaign``
    on 4 worker threads, byte-identical to the single-process path;
-6. summary: the ``kernels`` line, the peak device memory, the
+6. llama3-8b prefill at full width and depth (bf16 weights drawn on the
+   card from ``--seed``): ``make_prefill`` answers 4 requests of 2048
+   tokens; 32 ``flash_attention`` launches; logits held against the same
+   model with ``attention_impl="chunked"`` (the plain version); a profiler
+   breakdown of one prefill by kernel;
+7. llama3-8b generation: ``greedy_generate`` for 4 requests of 64 prompt
+   tokens and 32 new ones, twice (the tokens must be identical), and the
+   prompt's decode-path logits against ``make_prefill`` on the same prompt
+   (tests/test_models.py:115-126's criterion); a profiler breakdown of one
+   decode step;
+8. summary: the ``kernels`` line, the peak device memory, the
    ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.
 
-The launch counts are set to 0 just before each main-path phase (2-5)
+The launch counts are set to 0 just before each main-path run (phases 2-7)
 and read just after it.
 
 Any mismatch raises and the script exits nonzero.  Without CUDA, or run
@@ -52,17 +67,32 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 TOL = {"float32": 3e-5, "bfloat16": 2e-2}  # tests/test_kernels.py:45-47
 GRAD_TOL = {"float32": 1e-5, "bfloat16": 2e-2}  # tests/test_kernels.py:122
+#: flash attention's output against its plain version, relative L2 over the
+#: whole case: in bf16 a few ulps of the output's rounding, in f32 a few
+#: hundred f32 ulps.  The elementwise TOL alone is looser than a typical
+#: output at long Sk (random scores spread the softmax over ~Sk/e keys)
+FLASH_REL_L2 = {"float32": 1e-5, "bfloat16": 5e-3}
 EDGE_AGREEMENT = 0.999  # examples/field_segmentation.py:37
 MIN_PURITY = 0.8  # examples/field_segmentation.py:67
 #: NVIDIA's H100 SXM data sheet: HBM3 bytes/s and f32 operations/s outside
 #: the tensor cores, both at the 700 W power limit
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_OPS_PER_S = 67e12
+#: the same data sheet: dense bf16 operations/s on the tensor cores
+PEAK_BF16_OPS_PER_S = 989e12
 COPY_BYTES = 4 * 1024 ** 3
 #: the TPU kernel each CUDA kernel replaces (its ``*_fwd`` entry point)
 REPLACES = {"composite": "src/repro/kernels/composite.py:53",
-            "grad_mag": "src/repro/kernels/grad_mag.py:63"}
+            "grad_mag": "src/repro/kernels/grad_mag.py:63",
+            "flash_attention": "src/repro/kernels/flash_attention.py:93"}
 TIMED_RUNS = 10
+LLAMA = "llama3-8b"
+PREFILL_BATCH, PREFILL_LEN = 4, 2048
+GEN_BATCH, GEN_PROMPT, GEN_NEW = 4, 64, 32
+#: flash logits against the plain run's, relative L2 over [4, 2048, 128256]
+PREFILL_REL_L2 = 2e-2
+#: decode path against prefill: tests/test_models.py:115-126
+DECODE_AGREEMENT, DECODE_RTOL, DECODE_ATOL = 0.9, 0.15, 0.3
 
 
 def check(ok: bool, what: str) -> None:
@@ -109,8 +139,12 @@ def phase_device(torch, build) -> dict:
     return {"phase": "device", "nvidia_smi": smi,
             "kind": torch.cuda.get_device_name(0),
             "torch": torch.__version__, "cuda": torch.version.cuda,
+            "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+            "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32,
+            "bf16_reduced_precision_reduction":
+                torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction,
             "built": {n: round(i["seconds"], 3) for n, i in built.items()},
-            "ptxas": resources[:16], "copy_gib": COPY_BYTES / 1024 ** 3,
+            "ptxas": resources, "copy_gib": COPY_BYTES / 1024 ** 3,
             "copy_ms": copy_ms, "copy_bytes_per_s": copy_rate,
             "seconds": time.perf_counter() - t0}
 
@@ -290,6 +324,183 @@ def phase_grad_mag(torch, seed: int, copy_rate: float) -> dict:
         torch.cuda.empty_cache()
     return {"phase": "kernels.grad_mag", "cases": len(cases),
             "seconds": time.perf_counter() - t0, "results": cases}
+
+
+# name, (B, Hq, Hkv, Sq, Sk, D), causal, dtype, timed runs.  The main path
+# is one llama3-8b layer of phase 6's prefill; the 32k layer is
+# SHAPES["prefill_32k"] for one request; then tests/test_kernels.py:53-60
+# in f32 and bf16, and ragged lengths.
+FLASH_CASES = [
+    ("main_path", (4, 32, 8, 2048, 2048, 128), True, "bfloat16", TIMED_RUNS),
+    ("prefill_32k_layer", (1, 32, 8, 32768, 32768, 128), True, "bfloat16", 3),
+    *[(f"{name}_{dt}", shape, causal, dt, TIMED_RUNS)
+      for dt in ("float32", "bfloat16")
+      for name, shape, causal in [
+          ("gqa2", (2, 4, 2, 128, 128, 64), True),
+          ("mha_d128", (1, 8, 8, 256, 256, 128), True),
+          ("gqa4_sk_gt_sq", (1, 4, 1, 128, 384, 64), True),
+          ("bidirectional_d32", (2, 2, 2, 128, 128, 32), False),
+          ("gemma_d256", (1, 16, 2, 64, 64, 256), True),
+          ("ragged_1000", (1, 4, 2, 1000, 1000, 128), True),
+          ("one_row_sk777", (3, 5, 5, 1, 777, 64), True),
+          ("odd_heads", (3, 7, 7, 129, 129, 64), True)]],
+]
+
+
+def flash_bound(shape, causal: bool, x_bytes: int):
+    """Operations and bytes the function needs, and the least time: the
+    scores and the weighted sum, 4·D FLOP per visible (query, key) pair
+    (query i sees min(Sk, i + 1 + Sk - Sq) keys when causal), at the
+    inputs' type's peak; q, k, v read once and the output written once."""
+    B, Hq, Hkv, Sq, Sk, D = shape
+    seen = Sq * (Sk - Sq) + Sq * (Sq + 1) // 2 if causal else Sq * Sk
+    ops = 4 * D * B * Hq * seen
+    nbytes = x_bytes * (2 * B * Hq * Sq * D + 2 * B * Hkv * Sk * D)
+    peak = PEAK_BF16_OPS_PER_S if x_bytes == 2 else PEAK_F32_OPS_PER_S
+    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    ops_ms = ops / peak * 1e3
+    return nbytes, ops, max(bytes_ms, ops_ms), (
+        "bytes" if bytes_ms >= ops_ms else "operations")
+
+
+def sdpa_ms(torch, q, k, v, causal: bool, runs: int) -> float:
+    """PyTorch's ``scaled_dot_product_attention(..., enable_gqa=True)`` on
+    the same inputs, a yardstick only (the port never calls it), at
+    Sq == Sk, where its causal mask (top-left aligned) is the kernel's.  It
+    may pick among PyTorch's fused backends (cuDNN, flash) as it does by
+    default, but not fall back to one that materialises the [Sq, Sk]
+    scores."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+
+    with sdpa_kernel([SDPBackend.CUDNN_ATTENTION,
+                      SDPBackend.FLASH_ATTENTION]):
+        return median_ms(
+            torch, lambda: sdpa(q, k, v, is_causal=causal, enable_gqa=True),
+            runs=runs, warmup=1)
+
+
+def phase_flash(torch, seed: int, copy_rate: float) -> dict:
+    from repro_torch.kernels import flash_attention as kflash
+    from repro_torch.kernels import ref
+
+    t0 = time.perf_counter()
+    cases = []
+    for i, (name, shape, causal, xd, runs) in enumerate(FLASH_CASES):
+        dtype = getattr(torch, xd)
+        g = torch.Generator(device="cuda").manual_seed(seed * 1000 + 800 + i)
+        B, Hq, Hkv, Sq, Sk, D = shape
+        q = torch.randn((B, Hq, Sq, D), generator=g, device="cuda",
+                        dtype=dtype)
+        k = torch.randn((B, Hkv, Sk, D), generator=g, device="cuda",
+                        dtype=dtype)
+        # v as the attention layer hands it over: a transposed view
+        v = torch.randn((B, Sk, Hkv, D), generator=g, device="cuda",
+                        dtype=dtype).transpose(1, 2)
+        # the plain version ops.flash_attention takes on CPU tensors
+        plain = ref.attention_chunked if Sq >= 1024 else ref.attention
+        got = kflash.flash_attention(q, k, v, causal=causal)
+        want = plain(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        check(tuple(got.shape) == (B, Hq, Sq, D) and got.dtype == dtype
+              and got.is_contiguous(), f"flash {name}: shape or dtype")
+        check(bool(torch.isfinite(got).all()), f"flash {name}: non-finite")
+        tol = TOL[xd]
+        diff = got.float() - want.float()
+        err = float(diff.abs().max())
+        rel_l2 = float(torch.linalg.vector_norm(diff, dtype=torch.float64)
+                       / torch.linalg.vector_norm(want.float(),
+                                                  dtype=torch.float64))
+        del diff
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                   atol=tol, msg=f"flash_attention {name}")
+        check(rel_l2 < FLASH_REL_L2[xd],
+              f"flash {name}: relative L2 {rel_l2} >= {FLASH_REL_L2[xd]}")
+        del got, want
+        nbytes, ops, bound_ms, bound_by = flash_bound(
+            shape, causal, q.element_size())
+        ms = median_ms(torch, lambda: kflash.flash_attention(
+            q, k, v, causal=causal), runs=runs, warmup=1)
+        plain_ms = median_ms(torch, lambda: plain(q, k, v, causal=causal),
+                             runs=runs, warmup=1)
+        # SDPA's fused backends take bf16, and its causal mask is the
+        # kernel's only at Sq == Sk
+        library_ms = (sdpa_ms(torch, q, k, v, causal, runs)
+                      if Sq == Sk and xd == "bfloat16" else None)
+        case = {"name": name, "shape": [B, Hq, Hkv, Sq, Sk, D],
+                "causal": causal, "dtype": xd, "max_abs_err": err,
+                "tol": tol, "rel_l2": rel_l2, "rel_l2_limit": FLASH_REL_L2[xd],
+                "runs": runs, "ms": ms, "plain_ms": plain_ms,
+                "plain": plain.__name__, "library_ms": library_ms,
+                "bytes": nbytes, "operations": ops, "bound_ms": bound_ms,
+                "bound_by": bound_by,
+                "copy_bound_ms": nbytes / copy_rate * 1e3,
+                "flop_per_s": ops / (ms * 1e-3)}
+        cases.append(case)
+        emit({"phase": "kernels.case", "kernel": "flash_attention", **case})
+        del q, k, v
+        torch.cuda.empty_cache()
+    return {"phase": "kernels.flash_attention", "cases": len(cases),
+            "seconds": time.perf_counter() - t0, "results": cases}
+
+
+def profile_breakdown(torch, fn, runs: int = 3) -> dict:
+    """Device time of ``runs`` calls of ``fn`` by kernel group, from a
+    ``torch.profiler`` trace: the flash kernel, matmuls (cuBLAS), and the
+    rest; the device's idle share between the window's first kernel start
+    and last kernel end; the five kernels that take the most time.  A trace
+    with no device events reports ``device_events: 0``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t
+    groups = {"flash_attention": 0.0, "matmul": 0.0, "other": 0.0}
+    by_name: dict = {}
+    spans = []
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = e.time_range.elapsed_us()
+        low = e.name.lower()
+        if "flash_attention_kernel" in e.name:
+            group = "flash_attention"
+        elif any(w in low for w in ("gemm", "nvjet", "xmma", "cutlass")):
+            group = "matmul"
+        else:
+            group = "other"
+        groups[group] += us
+        by_name[e.name] = by_name.get(e.name, 0.0) + us
+        spans.append((e.time_range.start, e.time_range.end))
+    out = {"runs": runs, "wall_ms_per_run": wall_s / runs * 1e3,
+           "device_events": len(spans)}
+    if not spans:
+        return out
+    spans.sort()
+    busy, cur_start, cur_end = 0.0, spans[0][0], spans[0][1]
+    for start, end in spans[1:]:
+        if start > cur_end:
+            busy += cur_end - cur_start
+            cur_start, cur_end = start, end
+        else:
+            cur_end = max(cur_end, end)
+    busy += cur_end - cur_start
+    window = max(end for _, end in spans) - spans[0][0]
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    out.update({
+        "kernels_per_run": len(spans) / runs,
+        "device_ms_per_run": {k: v / runs / 1e3 for k, v in groups.items()},
+        "busy_ms_per_run": busy / runs / 1e3,
+        "idle_share": 1.0 - busy / window,
+        "top_kernels_ms_per_run": {n[:80]: v / runs / 1e3 for n, v in top}})
+    return out
 
 
 def phase_tile(torch, seed: int, backend) -> dict:
@@ -601,6 +812,165 @@ def phase_seg_campaign(torch, backend, cs, names, dev) -> dict:
             "campaign_s": campaign_s, "seconds": time.perf_counter() - t0}
 
 
+def param_leaves(params):
+    if isinstance(params, dict):
+        for v in params.values():
+            yield from param_leaves(v)
+    elif isinstance(params, list):
+        for v in params:
+            yield from param_leaves(v)
+    else:
+        yield params
+
+
+def logits_diff(torch, got, want, rows: int = 256) -> dict:
+    """Relative L2 error, max abs difference and argmax agreement of two
+    [B, S, V] logits tensors, in f32 a slice of ``rows`` positions at a
+    time (the full logits are 2.1 GB in bf16)."""
+    num = den = max_abs = 0.0
+    agree = 0
+    B, S, _ = got.shape
+    for b in range(B):
+        for s0 in range(0, S, rows):
+            a = got[b, s0:s0 + rows].float()
+            w = want[b, s0:s0 + rows].float()
+            d = a - w
+            num += float((d * d).sum(dtype=torch.float64))
+            den += float((w * w).sum(dtype=torch.float64))
+            max_abs = max(max_abs, float(d.abs().max()))
+            agree += int((a.argmax(-1) == w.argmax(-1)).sum())
+    return {"rel_l2": (num / den) ** 0.5, "max_abs_diff": max_abs,
+            "argmax_agreement": agree / (B * S)}
+
+
+def phase_llama_prefill(torch, seed: int, backend):
+    """llama3-8b at full width and depth: 4 requests of 2048 tokens through
+    ``make_prefill``.  Returns (line, model, params)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build
+    from repro_torch.train import make_prefill
+
+    t0 = time.perf_counter()
+    cfg = get_config(LLAMA)
+    check(cfg.dtype == "bfloat16" and cfg.attention_impl == "auto",
+          f"{LLAMA}: dtype {cfg.dtype}, attention_impl {cfg.attention_impl}")
+    model = build(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    params, init_s = synced(torch, lambda: model.init(seed))
+    leaves = list(param_leaves(params))
+    n_params = sum(t.numel() for t in leaves)
+    param_bytes = sum(t.numel() * t.element_size() for t in leaves)
+    check(all(t.is_cuda for t in leaves), "llama: params off the card")
+    g = torch.Generator(device="cuda").manual_seed(seed + 1)
+    tokens = torch.randint(0, cfg.vocab_size, (PREFILL_BATCH, PREFILL_LEN),
+                           generator=g, device="cuda")
+    prefill = make_prefill(model)
+    _, first_s = synced(torch, lambda: prefill(params, tokens=tokens))
+    backend.reset_launch_counts()
+    logits, prefill_s = synced(torch, lambda: prefill(params, tokens=tokens))
+    launches = backend.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    check(launches["flash_attention"] == cfg.num_layers,
+          f"llama prefill: launches {launches}")
+    check(tuple(logits.shape) == (PREFILL_BATCH, PREFILL_LEN, cfg.vocab_size)
+          and logits.dtype == torch.bfloat16, "llama prefill: logits shape")
+    check(bool(torch.isfinite(logits).all()), "llama prefill: non-finite")
+    repeat_s = [synced(torch, lambda: prefill(params, tokens=tokens))[1]
+                for _ in range(2)]
+
+    plain = make_prefill(build(dataclasses.replace(
+        cfg, attention_impl="chunked")))
+    want, plain_s = synced(torch, lambda: plain(params, tokens=tokens))
+    diff = logits_diff(torch, logits, want)
+    check(diff["rel_l2"] < PREFILL_REL_L2,
+          f"llama prefill: relative L2 {diff['rel_l2']} against the plain run")
+    del want, logits
+    torch.cuda.empty_cache()
+    breakdown = profile_breakdown(torch, lambda: prefill(params,
+                                                         tokens=tokens))
+    tokens_n = PREFILL_BATCH * PREFILL_LEN
+    return {"phase": "llama_prefill", "arch": LLAMA,
+            "requests": PREFILL_BATCH, "tokens_each": PREFILL_LEN,
+            "layers": cfg.num_layers, "d_model": cfg.d_model,
+            "params": n_params, "param_bytes": param_bytes,
+            "init_s": init_s, "first_prefill_s": first_s,
+            "prefill_s": prefill_s, "repeat_prefill_s": repeat_s,
+            "tokens_per_s": tokens_n / prefill_s, "launches": launches,
+            "plain_prefill_s": plain_s, "vs_plain": diff,
+            "rel_l2_limit": PREFILL_REL_L2, "peak_device_bytes": peak,
+            "breakdown": breakdown,
+            "seconds": time.perf_counter() - t0}, model, params
+
+
+def phase_llama_generate(torch, seed: int, backend, model, params) -> dict:
+    """greedy_generate twice on the same prompts, then the prompts' decode
+    logits against make_prefill's."""
+    from repro_torch.train import (greedy_generate, make_decode_step,
+                                   make_prefill)
+
+    t0 = time.perf_counter()
+    cfg = model.cfg
+    g = torch.Generator(device="cuda").manual_seed(seed + 2)
+    prompt = torch.randint(0, cfg.vocab_size, (GEN_BATCH, GEN_PROMPT),
+                           generator=g, device="cuda", dtype=torch.int32)
+    max_len = GEN_PROMPT + GEN_NEW + 1
+
+    def generate():
+        return greedy_generate(model, params, prompt, GEN_NEW, max_len=max_len)
+
+    backend.reset_launch_counts()
+    out, gen_s = synced(torch, generate)
+    gen_launches = backend.launch_counts()
+    again, again_s = synced(torch, generate)
+    check(tuple(out.shape) == (GEN_BATCH, GEN_NEW) and out.dtype == torch.int32,
+          "generate: tokens shape or dtype")
+    check(0 <= int(out.min()) and int(out.max()) < cfg.vocab_size,
+          "generate: token outside the vocabulary")
+    check(torch.equal(out, again), "generate: two runs differ")
+    steps = GEN_PROMPT + GEN_NEW
+
+    step = make_decode_step(model)
+    state = model.init_decode(params, GEN_BATCH, max_len)
+    outs = []
+    for t in range(GEN_PROMPT):
+        state, logits = step(params, state, prompt[:, t:t + 1])
+        outs.append(logits)
+    decoded = torch.cat(outs, dim=1)
+    backend.reset_launch_counts()
+    full = make_prefill(model)(params, tokens=prompt)
+    torch.cuda.synchronize()
+    prefill_launches = backend.launch_counts()
+    check(prefill_launches["flash_attention"] == cfg.num_layers,
+          f"generate: prefill launches {prefill_launches}")
+    diff = logits_diff(torch, decoded, full)
+    check(diff["argmax_agreement"] > DECODE_AGREEMENT,
+          f"decode/prefill argmax agreement {diff['argmax_agreement']}")
+    torch.testing.assert_close(decoded.float(), full.float(),
+                               rtol=DECODE_RTOL, atol=DECODE_ATOL,
+                               msg="decode path against prefill")
+    del decoded, full, outs
+    state = model.init_decode(params, GEN_BATCH, max_len)
+    for t in range(GEN_PROMPT):
+        state, _ = step(params, state, prompt[:, t:t + 1])
+    token = prompt[:, -1:]
+    breakdown = profile_breakdown(
+        torch, lambda: step(params, list(state), token))
+    return {"phase": "llama_generate", "arch": LLAMA, "requests": GEN_BATCH,
+            "prompt_tokens": GEN_PROMPT, "new_tokens": GEN_NEW,
+            "decode_steps": steps, "generate_s": gen_s,
+            "repeat_generate_s": again_s, "step_ms": gen_s / steps * 1e3,
+            "new_tokens_per_s": GEN_BATCH * GEN_NEW / gen_s,
+            "decode_tokens_per_s": GEN_BATCH * steps / gen_s,
+            "identical_twice": True, "generated": out[0].tolist(),
+            "launches": gen_launches,
+            "prefill_check_launches": prefill_launches,
+            "decode_vs_prefill": diff,
+            "criterion": {"argmax_agreement": DECODE_AGREEMENT,
+                          "rtol": DECODE_RTOL, "atol": DECODE_ATOL},
+            "decode_step_breakdown": breakdown,
+            "seconds": time.perf_counter() - t0}
+
+
 def kernel_line(name: str, results, tol, launches: int) -> dict:
     """One kernel's entry in the ``kernels`` line: its main-path case's
     times and bound, its f32 cases' largest error."""
@@ -610,11 +980,12 @@ def kernel_line(name: str, results, tol, launches: int) -> dict:
         "source": f"src/repro_torch/kernels/csrc/{name}.cu",
         "replaces": REPLACES[name], "launches": launches,
         "max_abs_err": max(c["max_abs_err"] for c in results
-                           if c["images"] == "float32"),
+                           if c.get("images", c.get("dtype")) == "float32"),
         "tol": tol["float32"], "shape": main_case["shape"],
         "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
         "bound_ms": main_case["bound_ms"], "bound_by": main_case["bound_by"],
-        "copy_bound_ms": main_case["copy_bound_ms"], "library_ms": None}
+        "copy_bound_ms": main_case["copy_bound_ms"],
+        "library_ms": main_case["library_ms"]}
 
 
 def main() -> int:
@@ -631,12 +1002,20 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import backend, build
 
+    # full-precision matmuls: no TF32 for f32 (the plain versions are the
+    # f32 references), no reduced-precision reductions inside bf16 products
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+
     device = phase_device(torch, build)
     emit(device)
     kernels = phase_kernels(torch, args.seed, device["copy_bytes_per_s"])
     emit({k: v for k, v in kernels.items() if k != "results"})
     grad = phase_grad_mag(torch, args.seed, device["copy_bytes_per_s"])
     emit({k: v for k, v in grad.items() if k != "results"})
+    flash = phase_flash(torch, args.seed, device["copy_bytes_per_s"])
+    emit({k: v for k, v in flash.items() if k != "results"})
     tile = phase_tile(torch, args.seed, backend)
     emit(tile)
     campaign, cs, names = phase_campaign(torch, args.seed, backend)
@@ -650,6 +1029,12 @@ def main() -> int:
     seg_campaign = phase_seg_campaign(torch, backend, cs, names, cuda)
     emit(seg_campaign)
     del cs
+    peak = max(peak, torch.cuda.max_memory_allocated())
+    prefill, model, params = phase_llama_prefill(torch, args.seed, backend)
+    emit(prefill)
+    generate = phase_llama_generate(torch, args.seed, backend, model, params)
+    emit(generate)
+    del model, params
 
     emit({"kernels": [
         kernel_line("composite", kernels["results"], TOL,
@@ -657,7 +1042,11 @@ def main() -> int:
                     + campaign["launches"]["composite"]),
         kernel_line("grad_mag", grad["results"], GRAD_TOL,
                     seg_tile["launches"]["grad_mag"]
-                    + seg_campaign["launches"]["grad_mag"])]})
+                    + seg_campaign["launches"]["grad_mag"]),
+        kernel_line("flash_attention", flash["results"], TOL,
+                    prefill["launches"]["flash_attention"]
+                    + generate["launches"]["flash_attention"]
+                    + generate["prefill_check_launches"]["flash_attention"])]})
     emit({"max_memory_allocated": max(peak,
                                       torch.cuda.max_memory_allocated())})
     print(device["nvidia_smi"], flush=True)

@@ -1,20 +1,27 @@
 """The state carried from the JAX package to the port.
 
-This system has no model weights.  Its state is the bucket (chunked arrays
-behind Festivus, which both packages read and write byte for byte) and the
+The imagery pipeline's state is the bucket (chunked arrays behind Festivus,
+which both packages read and write byte for byte) and the
 :class:`ImageryConfig`.  A configuration crosses over as the plain dict of
 its fields (``dataclasses.asdict`` of the JAX package's config); a tile's
 stack crosses over as numpy arrays and is moved to the device here.
+
+The LM stack's state is its parameter tree.  The JAX package's tree crosses
+over as numpy arrays (``jax.tree.map(np.asarray, params)``) and
+:func:`params_from_numpy` lays it out as the port's: the scanned ``blocks``
+stack is split into one dict per layer, and each leaf takes the dtype the
+port stores it in.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Mapping, Optional, Tuple
+from typing import Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch.configs.base import ModelConfig
 from repro_torch.configs.festivus_imagery import ImageryConfig
 
 
@@ -37,3 +44,97 @@ def stack_to_device(images: np.ndarray, valid: Optional[np.ndarray],
     if valid is None:
         return imgs, None
     return imgs, torch.from_numpy(np.ascontiguousarray(valid)).to(device)
+
+
+def _dense_leaf_shapes(cfg: ModelConfig
+                       ) -> Tuple[Dict[str, tuple], Dict[str, tuple]]:
+    """The dense family's leaves, '/'-joined paths -> shapes: the top-level
+    ones, and one layer's (the JAX package stacks them on a leading axis)."""
+    d, V = cfg.d_model, cfg.vocab_size
+    dq = cfg.num_heads * cfg.head_dim
+    dkv = cfg.num_kv_heads * cfg.head_dim
+    norm = {"scale": (d,)}
+    if cfg.norm == "layernorm":
+        norm["bias"] = (d,)
+    top = {"embed": (V, d), **{f"norm_out/{k}": s for k, s in norm.items()}}
+    if not cfg.tie_embeddings:
+        top["unembed"] = (V, d)
+    block = {"attn/wq": (d, dq), "attn/wk": (d, dkv), "attn/wv": (d, dkv),
+             "attn/wo": (dq, d)}
+    if cfg.qkv_bias:
+        block.update({"attn/bq": (dq,), "attn/bk": (dkv,), "attn/bv": (dkv,)})
+    for name in ("norm_attn", "norm_ffn"):
+        block.update({f"{name}/{k}": s for k, s in norm.items()})
+    if cfg.act in ("swiglu", "geglu"):
+        block.update({"ffn/w_gate": (d, cfg.d_ff), "ffn/w_up": (d, cfg.d_ff),
+                      "ffn/w_down": (cfg.d_ff, d)})
+    else:
+        block.update({"ffn/w_in": (d, cfg.d_ff), "ffn/b_in": (cfg.d_ff,),
+                      "ffn/w_out": (cfg.d_ff, d), "ffn/b_out": (d,)})
+    return top, block
+
+
+def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
+    out = {}
+    for k, v in tree.items():
+        path = f"{prefix}{k}"
+        if isinstance(v, Mapping):
+            out.update(_flatten(v, path + "/"))
+        else:
+            out[path] = np.asarray(v)
+    return out
+
+
+def _put(tree: dict, path: str, value: torch.Tensor) -> None:
+    *parents, leaf = path.split("/")
+    for p in parents:
+        tree = tree.setdefault(p, {})
+    tree[leaf] = value
+
+
+def params_from_numpy(tree: Mapping, cfg: ModelConfig, device) -> dict:
+    """The JAX package's dense-family parameter tree, as numpy arrays ->
+    the port's, on ``device``.  ``cfg`` is the model's config (its
+    vocabulary is padded here as ``build`` pads it).  Norm parameters stay
+    f32; every other leaf is cast to ``cfg.dtype``, the cast the JAX
+    package makes at each use.  Raises ``ValueError`` on a leaf the port
+    does not know, a missing leaf or a shape that differs."""
+    from repro_torch.models.model_zoo import _padded_cfg
+    from repro_torch.models.transformer import model_dtype, require_dense
+
+    require_dense(cfg)
+    pcfg = _padded_cfg(cfg)
+    top, block = _dense_leaf_shapes(pcfg)
+    layers = pcfg.num_layers
+    expected = {**top, **{f"blocks/{k}": (layers,) + s
+                          for k, s in block.items()}}
+    flat = _flatten(tree)
+    unknown = sorted(set(flat) - set(expected))
+    missing = sorted(set(expected) - set(flat))
+    if unknown or missing:
+        raise ValueError(f"parameter tree does not fit {cfg.arch_id}: "
+                         f"unknown leaves {unknown}, missing {missing}")
+    for path, arr in flat.items():
+        if tuple(arr.shape) != expected[path]:
+            raise ValueError(f"{path}: shape {tuple(arr.shape)} != "
+                             f"{expected[path]}")
+
+    dtype = model_dtype(pcfg)
+
+    def tensor(path: str, arr: np.ndarray) -> torch.Tensor:
+        if arr.dtype not in (np.float32, np.float64, np.float16):
+            arr = arr.astype(np.float32)  # bf16 widens exactly
+        parts = path.split("/")
+        keep_f32 = len(parts) > 1 and parts[-2].startswith("norm")
+        return torch.tensor(arr).to(
+            device=device, dtype=torch.float32 if keep_f32 else dtype)
+
+    params: dict = {"blocks": [{} for _ in range(layers)]}
+    for path, arr in flat.items():
+        if path.startswith("blocks/"):
+            sub = path[len("blocks/"):]
+            for i in range(layers):
+                _put(params["blocks"][i], sub, tensor(path, arr[i]))
+        else:
+            _put(params, path, tensor(path, arr))
+    return params

@@ -4,6 +4,13 @@
 the plain PyTorch version for CPU tensors; ``"ref"`` always runs the plain
 version; ``"kernel"`` always launches the kernel and raises on CPU tensors.
 A CUDA tensor never falls back to the plain version.
+
+:func:`flash_attention` takes the JAX package's four ``impl`` strings
+(``ModelConfig.attention_impl``): ``"pallas"`` is the hand-written kernel,
+``"ref"`` and ``"chunked"`` are its plain versions, and ``"auto"`` launches
+the kernel for CUDA tensors and, for CPU tensors, takes ``"chunked"`` from
+Sq >= 1024 on and ``"ref"`` below, as ``repro/kernels/ops.py`` does off the
+TPU.
 """
 
 from __future__ import annotations
@@ -11,10 +18,14 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import composite as composite_kernel
+from repro_torch.kernels import flash_attention as flash_kernel
 from repro_torch.kernels import grad_mag as grad_mag_kernel
 from repro_torch.kernels import ref
 
 IMPLS = ("auto", "ref", "kernel")
+ATTN_IMPLS = ("auto", "ref", "chunked", "pallas")
+#: from this query length on, "auto" on CPU tensors takes the chunked path
+CHUNKED_FROM = 1024
 
 
 def _plain(impl: str, images: torch.Tensor) -> bool:
@@ -39,3 +50,19 @@ def grad_mag(images: torch.Tensor, valid: torch.Tensor, impl: str = "auto"
     if _plain(impl, images):
         return ref.grad_mag(images, valid)
     return grad_mag_kernel.grad_mag(images, valid)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True, impl: str = "auto") -> torch.Tensor:
+    """GQA attention: q [B,Hq,Sq,D], k/v [B,Hkv,Sk,D] -> [B,Hq,Sq,D].
+    Causal with Sq > Sk raises ``ValueError`` on every path."""
+    if impl not in ATTN_IMPLS:
+        raise ValueError(f"impl={impl!r} not in {ATTN_IMPLS}")
+    if impl == "auto":
+        impl = "pallas" if q.is_cuda else (
+            "chunked" if q.shape[2] >= CHUNKED_FROM else "ref")
+    if impl == "ref":
+        return ref.attention(q, k, v, causal=causal)
+    if impl == "chunked":
+        return ref.attention_chunked(q, k, v, causal=causal)
+    return flash_kernel.flash_attention(q, k, v, causal=causal)

@@ -13,6 +13,107 @@ import torch
 
 
 # ---------------------------------------------------------------------------
+# Attention (GQA, causal / full), the LM hot spot
+# ---------------------------------------------------------------------------
+def check_causal(seq_q: int, seq_k: int, causal: bool) -> None:
+    """Causal attention with more queries than keys is refused: the first
+    Sq - Sk rows would see no key, and the JAX package's oracle (NaN) and
+    TPU kernel (a finite value) disagree there.  No caller in the dense
+    path produces it (a prefill has Sq == Sk)."""
+    if causal and seq_q > seq_k:
+        raise ValueError(f"causal attention needs Sq <= Sk, got Sq={seq_q} "
+                         f"> Sk={seq_k}")
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              causal: bool = True, scale: float | None = None) -> torch.Tensor:
+    """Grouped-query attention: q [B, Hq, Sq, D], k and v [B, Hkv, Sk, D]
+    with Hq % Hkv == 0 -> [B, Hq, Sq, D] in q's dtype.  Scores, softmax and
+    the weighted sum are f32 whatever the input dtype.  Queries are
+    right-aligned against the keys (query i sees keys <= i + Sk - Sq);
+    causal with Sq > Sk raises.  Materialises the [Sq, Sk] scores."""
+    B, Hq, Sq, D = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    if Hq % Hkv:
+        raise ValueError(f"Hq={Hq} not a multiple of Hkv={Hkv}")
+    check_causal(Sq, Sk, causal)
+    group = Hq // Hkv
+    scale = (D ** -0.5) if scale is None else scale
+    qf = q.float().reshape(B, Hkv, group, Sq, D)
+    logits = torch.einsum("bhgqd,bhkd->bhgqk", qf, k.float()) * scale
+    if causal:
+        logits = logits.masked_fill(_causal_hidden(Sq, Sk, 0, Sq, q.device),
+                                    float("-inf"))
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhgqk,bhkd->bhgqd", probs, v.float())
+    return out.reshape(B, Hq, Sq, D).to(q.dtype)
+
+
+def _causal_hidden(seq_q: int, seq_k: int, row0: int, rows: int,
+                   device) -> torch.Tensor:
+    """[rows, Sk] bool, True where query row0 + r may not see key j
+    (j > row0 + r + Sk - Sq)."""
+    q_pos = torch.arange(row0, row0 + rows, device=device)[:, None] + (
+        seq_k - seq_q)
+    k_pos = torch.arange(seq_k, device=device)[None, :]
+    return k_pos > q_pos
+
+
+def attention_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      causal: bool = True, scale: float | None = None,
+                      chunk: int = 512) -> torch.Tensor:
+    """Query-chunked attention: the semantics of :func:`attention`, with
+    the live scores held at [B, Hq, chunk, Sk].  A length that ``chunk``
+    does not divide goes to :func:`attention` whole, as in the JAX
+    package."""
+    B, Hq, Sq, D = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    if Hq % Hkv:
+        raise ValueError(f"Hq={Hq} not a multiple of Hkv={Hkv}")
+    check_causal(Sq, Sk, causal)
+    group = Hq // Hkv
+    scale = (D ** -0.5) if scale is None else scale
+    chunk = min(chunk, Sq)
+    if chunk == 0 or Sq % chunk:
+        return attention(q, k, v, causal=causal, scale=scale)
+    kf, vf = k.float(), v.float()
+    out = torch.empty((B, Hq, Sq, D), dtype=q.dtype, device=q.device)
+    for row0 in range(0, Sq, chunk):
+        qb = q[:, :, row0:row0 + chunk].float().reshape(B, Hkv, group, chunk, D)
+        logits = torch.einsum("bhgqd,bhkd->bhgqk", qb, kf) * scale
+        if causal:
+            logits = logits.masked_fill(
+                _causal_hidden(Sq, Sk, row0, chunk, q.device), float("-inf"))
+        probs = torch.softmax(logits, dim=-1)
+        ob = torch.einsum("bhgqk,bhkd->bhgqd", probs, vf)
+        out[:, :, row0:row0 + chunk] = ob.reshape(B, Hq, chunk, D).to(q.dtype)
+    return out
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, cache_len: int) -> torch.Tensor:
+    """One-token decode: q [B, Hq, 1, D], caches [B, Hkv, S, D] ->
+    [B, Hq, 1, D] in q's dtype.  Only the first ``cache_len`` positions are
+    read (the tail may be uninitialised).  q is cast to the cache's dtype
+    and the probabilities too before the weighted sum, both products
+    accumulate in f32: the JAX oracle's ``preferred_element_type``, which
+    upcasting the valid prefix reproduces exactly, because a product of two
+    bf16 values is exact in f32.  The upcast is one layer's prefix, not a
+    copy of the whole cache."""
+    B, Hq, _, D = q.shape
+    Hkv = k_cache.shape[1]
+    group = Hq // Hkv
+    qf = q.reshape(B, Hkv, group, D).to(k_cache.dtype).float()
+    kf = k_cache[:, :, :cache_len].float()
+    logits = torch.einsum("bhgd,bhkd->bhgk", qf, kf) * (D ** -0.5)
+    probs = torch.softmax(logits, dim=-1)
+    vf = v_cache[:, :, :cache_len].float()
+    out = torch.einsum("bhgk,bhkd->bhgd",
+                       probs.to(v_cache.dtype).float(), vf)
+    return out.reshape(B, Hq, 1, D).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
 # Weighted temporal composite (paper §V.C: cloud-free global base layer)
 # ---------------------------------------------------------------------------
 def composite(images: torch.Tensor, weights: torch.Tensor,

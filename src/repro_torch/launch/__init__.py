@@ -1,5 +1,6 @@
-"""Launch layer of the port: the scatter/gather cluster engine and its
-chaos layer.  Device meshes are not part of this package yet."""
+"""Launch layer of the port: the scatter/gather cluster engine, its chaos
+layer, and the LM serving CLI (``serve.py``, run as a module).  Device
+meshes are not part of this package yet."""
 
 from repro_torch.launch.cluster import (
     ClusterConfig,

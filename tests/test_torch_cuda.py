@@ -6,11 +6,14 @@ tests/test_torch_cuda.py``.  chip_smoke.py holds the same kernels against
 the same plain versions at the main path's full sizes.
 """
 
+import dataclasses
+
 import pytest
 import torch
 
 from repro_torch.kernels import backend, build, ops, ref
 from repro_torch.kernels import composite as kcomposite
+from repro_torch.kernels import flash_attention as kflash
 from repro_torch.kernels import grad_mag as kgrad
 
 pytestmark = pytest.mark.cuda
@@ -123,3 +126,81 @@ def test_grad_mag_kernel_is_deterministic(card):
     a = kgrad.grad_mag(x, v)
     b = kgrad.grad_mag(x, v)
     assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+# B, Hq, Hkv, Sq, Sk, D, causal: tests/test_kernels.py:53-60, then ragged
+# lengths and the llama3-8b layer's heads at a short length
+ATTN_CASES = [
+    (2, 4, 2, 128, 128, 64, True),
+    (1, 8, 8, 256, 256, 128, True),
+    (1, 4, 1, 128, 384, 64, True),
+    (2, 2, 2, 128, 128, 32, False),
+    (1, 16, 2, 64, 64, 256, True),
+    (1, 4, 2, 1000, 1000, 128, True),
+    (3, 5, 5, 1, 777, 64, True),
+    (1, 2, 1, 37, 53, 16, False),
+    (2, 32, 8, 192, 192, 128, True),
+]
+
+
+def _attn_inputs(card, case, dtype, seed=0):
+    B, Hq, Hkv, Sq, Sk, D, _ = case
+    g = torch.Generator(device=card).manual_seed(seed)
+    q = torch.randn((B, Hq, Sq, D), generator=g, device=card, dtype=dtype)
+    k = torch.randn((B, Hkv, Sk, D), generator=g, device=card, dtype=dtype)
+    # v as the attention layer hands it over: a transposed [B, S, H, D]
+    v = torch.randn((B, Sk, Hkv, D), generator=g, device=card,
+                    dtype=dtype).transpose(1, 2)
+    return q, k, v
+
+
+@pytest.mark.parametrize("case", ATTN_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_matches_plain_version(card, case, dtype):
+    causal = case[-1]
+    q, k, v = _attn_inputs(card, case, dtype)
+    before = kflash.launches.count
+    got = ops.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert kflash.launches.count == before + 1
+    assert got.dtype == dtype and got.is_contiguous()
+    torch.testing.assert_close(
+        got.float(), ref.attention(q, k, v, causal=causal).float(),
+        rtol=TOL[dtype], atol=TOL[dtype])
+
+
+def test_flash_attention_kernel_is_deterministic(card):
+    q, k, v = _attn_inputs(card, (2, 8, 2, 300, 300, 128, True),
+                           torch.bfloat16, seed=1)
+    assert torch.equal(kflash.flash_attention(q, k, v),
+                       kflash.flash_attention(q, k, v))
+
+
+def test_flash_attention_kernel_refuses_what_it_does_not_take(card):
+    q, k, v = _attn_inputs(card, (1, 4, 2, 64, 32, 64, True), torch.float32)
+    with pytest.raises(ValueError, match="Sq <= Sk"):
+        ops.flash_attention(q, k, v, causal=True, impl="pallas")
+    q, k, v = _attn_inputs(card, (1, 4, 2, 64, 64, 64, True), torch.float16)
+    with pytest.raises(TypeError, match="dtype"):
+        ops.flash_attention(q, k, v)
+
+
+def test_prefill_on_the_card_launches_the_kernel_once_per_layer(card):
+    from repro_torch.configs import get_config
+    from repro_torch.models import build
+    from repro_torch.train import make_prefill
+
+    # the smoke config pins attention_impl="ref" for the JAX CPU tests
+    cfg = dataclasses.replace(get_config("llama3-8b", "smoke"),
+                              attention_impl="auto")
+    model = build(cfg)
+    params = model.init(0)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 32), device=card)
+    backend.reset_launch_counts()
+    logits = make_prefill(model)(params, tokens=tokens)
+    torch.cuda.synchronize()
+    assert backend.launch_counts()["flash_attention"] == cfg.num_layers
+    plain = build(dataclasses.replace(cfg, attention_impl="chunked"))
+    want = make_prefill(plain)(params, tokens=tokens)
+    agree = (logits.argmax(-1) == want.argmax(-1)).float().mean()
+    assert float(agree) > 0.95

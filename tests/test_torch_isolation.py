@@ -15,7 +15,11 @@ import torch
 from repro_torch.apps import composite as papp
 from repro_torch.apps import segmentation as pseg
 from repro_torch.configs.festivus_imagery import SMOKE
+from repro_torch.configs import get_config
 from repro_torch.core import ChunkStore, Festivus, InMemoryObjectStore
+from repro_torch.launch import serve as pserve
+from repro_torch.models import build
+from repro_torch.train import greedy_generate
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
@@ -106,3 +110,21 @@ def test_segmentation_campaign_without_device_raises_before_any_work(
     with pytest.raises(RuntimeError, match="CUDA"):
         pseg.run_segmentation_campaign(cs, ["stacks/none"], SMOKE)
     assert store.list("bucket/fields") == []
+
+
+def test_lm_entry_points_without_device_raise_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    model = build(get_config("llama3-8b", "smoke"))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        model.init(0)
+    params = build(get_config("llama3-8b", "smoke"), device="cpu").init(0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        greedy_generate(model, params, torch.zeros((1, 2), dtype=torch.int32),
+                        2, max_len=5)
+
+
+def test_serve_cli_without_device_raises_without_cuda(monkeypatch, capsys):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        pserve.main(["--arch", "llama3-8b", "--variant", "smoke", "--gen", "2"])
+    assert "[serve]" not in capsys.readouterr().out
