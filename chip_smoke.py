@@ -9,14 +9,15 @@ Phases, each printing one JSON line with its seconds:
    the matmul precision flags (TF32 and reduced-precision bf16 reductions
    off, stated in the line), the kernels compiled with ``nvcc`` from this
    checkout's sources, and the rate of a 4 GiB device-to-device copy;
-1. every kernel (``composite``, ``grad_mag``, ``flash_attention``) against
-   its plain PyTorch version on the card, at the main path's shapes and at
-   ragged ones, with the tolerance stated (and, for attention, a relative
-   L2 limit as well); the main path's cases, and every
-   attention case, are timed with CUDA events (median of 10; the
-   prefill_32k attention layer, median of 3), beside their bound and, for
-   bf16 attention at Sq == Sk, PyTorch's ``scaled_dot_product_attention``
-   on the same inputs;
+1. every kernel (``composite``, ``grad_mag``, ``flash_attention``,
+   ``ssd_scan``) against its plain PyTorch version on the card, at the main
+   path's shapes and at ragged ones, with the tolerance stated (and, for
+   attention and the SSD, a relative L2 limit as well); the main path's
+   cases, and every attention and SSD case, are timed with CUDA events
+   (median of 10; the prefill_32k attention and SSD layers, median of 3),
+   beside their bound and, for bf16 attention at Sq == Sk, PyTorch's
+   ``scaled_dot_product_attention`` on the same inputs (no single PyTorch
+   call computes the SSD);
 2. one full-size composite tile (``DEFAULT``: 4096 px, 4 bands, T = 16)
    through ``apps.composite.composite_tile``, held against ``impl="ref"``;
 3. the §V.C campaign: 4 tiles of 1024 px, T = 16, written by
@@ -40,10 +41,18 @@ Phases, each printing one JSON line with its seconds:
    prompt's decode-path logits against ``make_prefill`` on the same prompt
    (tests/test_models.py:115-126's criterion); a profiler breakdown of one
    decode step;
-8. summary: the ``kernels`` line, the peak device memory, the
-   ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.
+8. mamba2-2.7b prefill at full width and depth, as phase 6: 64
+   ``ssd_scan`` launches; logits held against the same model with the SSD's
+   chunked plain version (``ssd_impl="chunked"``), and one more prefill
+   that holds each layer's kernel output against the plain version on that
+   layer's own inputs;
+9. mamba2-2.7b generation, as phase 7, with the decode check in f32
+   activations: no ``ssd_scan`` launch in decode (the decode path has no
+   kernel), 64 in the check's prefill;
+10. summary: the ``kernels`` line, the peak device memory, the
+    ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.
 
-The launch counts are set to 0 just before each main-path run (phases 2-7)
+The launch counts are set to 0 just before each main-path run (phases 2-9)
 and read just after it.
 
 Any mismatch raises and the script exits nonzero.  Without CUDA, or run
@@ -84,13 +93,19 @@ COPY_BYTES = 4 * 1024 ** 3
 #: the TPU kernel each CUDA kernel replaces (its ``*_fwd`` entry point)
 REPLACES = {"composite": "src/repro/kernels/composite.py:53",
             "grad_mag": "src/repro/kernels/grad_mag.py:63",
-            "flash_attention": "src/repro/kernels/flash_attention.py:93"}
+            "flash_attention": "src/repro/kernels/flash_attention.py:93",
+            "ssd_scan": "src/repro/kernels/ssd_scan.py:75"}
 TIMED_RUNS = 10
 LLAMA = "llama3-8b"
+MAMBA = "mamba2-2.7b"
 PREFILL_BATCH, PREFILL_LEN = 4, 2048
 GEN_BATCH, GEN_PROMPT, GEN_NEW = 4, 64, 32
-#: flash logits against the plain run's, relative L2 over [4, 2048, 128256]
+#: the kernel's logits against the plain run's, relative L2 over [4, 2048, V]
 PREFILL_REL_L2 = 2e-2
+#: the same for mamba2-2.7b's 64 bf16 layers, where the SSD's two plain
+#: versions are themselves 5.6e-2 apart (PERF.md §6); its kernel is held
+#: layer by layer to SSD_TOL and SSD_REL_L2 instead (ssd_layers)
+MAMBA_PREFILL_REL_L2 = 1e-1
 #: decode path against prefill: tests/test_models.py:115-126
 DECODE_AGREEMENT, DECODE_RTOL, DECODE_ATOL = 0.9, 0.15, 0.3
 
@@ -380,6 +395,13 @@ def sdpa_ms(torch, q, k, v, causal: bool, runs: int) -> float:
             runs=runs, warmup=1)
 
 
+def rel_l2(torch, got, want) -> float:
+    """Relative L2 distance of two tensors, in f64 over f32 values."""
+    diff = got.float() - want.float()
+    return float(torch.linalg.vector_norm(diff, dtype=torch.float64)
+                 / torch.linalg.vector_norm(want.float(), dtype=torch.float64))
+
+
 def phase_flash(torch, seed: int, copy_rate: float) -> dict:
     from repro_torch.kernels import flash_attention as kflash
     from repro_torch.kernels import ref
@@ -406,16 +428,12 @@ def phase_flash(torch, seed: int, copy_rate: float) -> dict:
               and got.is_contiguous(), f"flash {name}: shape or dtype")
         check(bool(torch.isfinite(got).all()), f"flash {name}: non-finite")
         tol = TOL[xd]
-        diff = got.float() - want.float()
-        err = float(diff.abs().max())
-        rel_l2 = float(torch.linalg.vector_norm(diff, dtype=torch.float64)
-                       / torch.linalg.vector_norm(want.float(),
-                                                  dtype=torch.float64))
-        del diff
+        err = float((got.float() - want.float()).abs().max())
+        l2 = rel_l2(torch, got, want)
         torch.testing.assert_close(got.float(), want.float(), rtol=tol,
                                    atol=tol, msg=f"flash_attention {name}")
-        check(rel_l2 < FLASH_REL_L2[xd],
-              f"flash {name}: relative L2 {rel_l2} >= {FLASH_REL_L2[xd]}")
+        check(l2 < FLASH_REL_L2[xd],
+              f"flash {name}: relative L2 {l2} >= {FLASH_REL_L2[xd]}")
         del got, want
         nbytes, ops, bound_ms, bound_by = flash_bound(
             shape, causal, q.element_size())
@@ -429,7 +447,7 @@ def phase_flash(torch, seed: int, copy_rate: float) -> dict:
                       if Sq == Sk and xd == "bfloat16" else None)
         case = {"name": name, "shape": [B, Hq, Hkv, Sq, Sk, D],
                 "causal": causal, "dtype": xd, "max_abs_err": err,
-                "tol": tol, "rel_l2": rel_l2, "rel_l2_limit": FLASH_REL_L2[xd],
+                "tol": tol, "rel_l2": l2, "rel_l2_limit": FLASH_REL_L2[xd],
                 "runs": runs, "ms": ms, "plain_ms": plain_ms,
                 "plain": plain.__name__, "library_ms": library_ms,
                 "bytes": nbytes, "operations": ops, "bound_ms": bound_ms,
@@ -444,12 +462,169 @@ def phase_flash(torch, seed: int, copy_rate: float) -> dict:
             "seconds": time.perf_counter() - t0, "results": cases}
 
 
-def profile_breakdown(torch, fn, runs: int = 3) -> dict:
+# name, (B, L, H, P, N), dtype, b and c one group expanded to every head
+# (stride 0), D-skip, inputs ("model": a = -(1..H) and dt from the init's
+# dt_bias, as in a mamba2 layer; "normal": tests/test_kernels.py:146-149;
+# "strong": a = -e^3 and dt in [1, 5]), timed runs.  The main path is one
+# mamba2-2.7b layer of the mamba_prefill phase; the 32k layer is
+# SHAPES["prefill_32k"] for one request; then tests/test_kernels.py:137-141
+# in f32 and bf16, ragged lengths, contiguous b and c, a strongly decaying
+# head.
+SSD_CASES = [
+    ("main_path", (4, 2048, 80, 64, 128), "bfloat16", True, True, "model",
+     TIMED_RUNS),
+    ("prefill_32k_layer", (1, 32768, 80, 64, 128), "bfloat16", True, True,
+     "model", 3),
+    *[(f"{name}_{dt}", shape, dt, False, skip, "normal", TIMED_RUNS)
+      for dt in ("float32", "bfloat16")
+      for name, shape, skip in [
+          ("p16_n8", (2, 128, 4, 16, 8), False),
+          ("p32_n16", (1, 256, 8, 32, 16), True),
+          ("p64_n128", (2, 64, 2, 64, 128), True)]],
+    ("ragged_1", (1, 1, 3, 64, 128), "float32", True, True, "normal",
+     TIMED_RUNS),
+    ("ragged_63", (2, 63, 4, 32, 16), "float32", True, True, "normal",
+     TIMED_RUNS),
+    ("ragged_1000", (1, 1000, 2, 64, 128), "float32", True, True, "normal",
+     TIMED_RUNS),
+    ("contiguous_bc", (4, 512, 80, 64, 128), "bfloat16", False, True,
+     "model", TIMED_RUNS),
+    ("strong_decay", (1, 2048, 4, 64, 128), "float32", True, True, "strong",
+     TIMED_RUNS),
+]
+#: the SSD kernel's output against its plain version, relative L2 over the
+#: whole case: in bf16 the output's rounding on a few elements, in f32 the
+#: sum orders and the cumulative sums' rounding inside exp()
+SSD_REL_L2 = {"float32": 1e-4, "bfloat16": 5e-3}
+#: the elementwise tolerances: tests/test_kernels.py:150 and bf16's
+SSD_TOL = {"float32": 5e-4, "bfloat16": 2e-2}
+#: the plain version chunked at the TPU kernel's chunk, where it divides L;
+#: the operations are counted at the same chunk
+SSD_CHUNK = 128
+
+
+def ssd_inputs(torch, shape, dtype, grouped: bool, skip: bool, kind: str,
+               g):
+    """x, dt, a, b, c, d on the card (see SSD_CASES)."""
+    import math
+
+    B, L, H, P, N = shape
+    F = torch.nn.functional
+    x = torch.randn((B, L, H, P), generator=g, device="cuda", dtype=dtype)
+    if kind == "model":
+        a = -torch.arange(1, H + 1, device="cuda", dtype=torch.float32)
+        u = torch.rand((H,), generator=g, device="cuda")
+        dt0 = torch.exp(u * (math.log(0.1) - math.log(1e-3))
+                        + math.log(1e-3))
+        dt_bias = dt0 + torch.log(-torch.expm1(-dt0))
+        dt = F.softplus(torch.randn((B, L, H), generator=g, device="cuda")
+                        + dt_bias)
+    else:
+        dt = F.softplus(torch.randn((B, L, H), generator=g, device="cuda"))
+        a = -torch.exp(torch.randn((H,), generator=g, device="cuda"))
+        if kind == "strong":
+            a = torch.full_like(a, -math.exp(3.0))
+            dt = 1.0 + 4.0 * torch.rand((B, L, H), generator=g,
+                                        device="cuda")
+    heads = 1 if grouped else H
+    b = torch.randn((B, L, heads, N), generator=g, device="cuda", dtype=dtype)
+    c = torch.randn((B, L, heads, N), generator=g, device="cuda", dtype=dtype)
+    d = (torch.randn((H,), generator=g, device="cuda") if kind == "normal"
+         else torch.ones((H,), device="cuda")) if skip else None
+    return x, dt, a, b.expand(B, L, H, N), c.expand(B, L, H, N), d
+
+
+def ssd_bound(shape, x_bytes: int, grouped: bool):
+    """Bytes and operations the function needs, and the least time: x, dt,
+    a, d and the distinct elements of b and c (one group's when they are
+    expanded) read once, y written once; the operations of the chunked
+    algorithm at Q = 128 over the causal pairs only (c.b and W x on the
+    q(q+1)/2 pairs j <= i, then c S and the state update: q(q+1)(N + P) +
+    4qNP a chunk of q tokens), at the inputs' type's peak."""
+    B, L, H, P, N = shape
+    bc = 2 * B * L * N * (1 if grouped else H) * x_bytes
+    nbytes = 2 * B * L * H * P * x_bytes + B * L * H * 4 + 2 * H * 4 + bc
+    ops = 0
+    for q0 in range(0, L, SSD_CHUNK):
+        q = min(SSD_CHUNK, L - q0)
+        ops += q * (q + 1) * (N + P) + 4 * q * N * P
+    ops *= B * H
+    peak = PEAK_BF16_OPS_PER_S if x_bytes == 2 else PEAK_F32_OPS_PER_S
+    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    ops_ms = ops / peak * 1e3
+    return nbytes, ops, max(bytes_ms, ops_ms), (
+        "bytes" if bytes_ms >= ops_ms else "operations")
+
+
+def phase_ssd(torch, seed: int, copy_rate: float) -> dict:
+    from functools import partial
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ssd_scan as kssd
+
+    t0 = time.perf_counter()
+    cases = []
+    for i, (name, shape, xd, grouped, skip, kind, runs) in enumerate(
+            SSD_CASES):
+        dtype = getattr(torch, xd)
+        g = torch.Generator(device="cuda").manual_seed(seed * 1000 + 900 + i)
+        x, dt, a, b, c, d = ssd_inputs(torch, shape, dtype, grouped, skip,
+                                       kind, g)
+        check(grouped == (b.stride(2) == 0), f"ssd {name}: b's head stride")
+        B, L, H, P, N = shape
+        # the sequential recurrence at small L, chunked at the long ones
+        plain = (partial(ref.ssd_scan_chunked, chunk=SSD_CHUNK)
+                 if L >= 2048 else ref.ssd_scan)
+        got = kssd.ssd_scan(x, dt, a, b, c, d_skip=d)
+        want = plain(x, dt, a, b, c, d_skip=d)
+        torch.cuda.synchronize()
+        check(tuple(got.shape) == (B, L, H, P) and got.dtype == dtype
+              and got.is_contiguous(), f"ssd {name}: shape or dtype")
+        check(bool(torch.isfinite(got).all()), f"ssd {name}: non-finite")
+        tol = SSD_TOL[xd]
+        err = float((got.float() - want.float()).abs().max())
+        l2 = rel_l2(torch, got, want)
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                   atol=tol, msg=f"ssd_scan {name}")
+        check(l2 < SSD_REL_L2[xd],
+              f"ssd {name}: relative L2 {l2} >= {SSD_REL_L2[xd]}")
+        del got, want
+        nbytes, ops, bound_ms, bound_by = ssd_bound(shape, x.element_size(),
+                                                    grouped)
+        ms = median_ms(torch, lambda: kssd.ssd_scan(x, dt, a, b, c, d_skip=d),
+                       runs=runs, warmup=1)
+        plain_ms = median_ms(torch, lambda: plain(x, dt, a, b, c, d_skip=d),
+                             runs=runs, warmup=1)
+        case = {"name": name, "shape": [B, L, H, P, N], "dtype": xd,
+                "b_c_head_stride": b.stride(2), "d_skip": skip,
+                "inputs": kind, "max_abs_err": err, "tol": tol,
+                "rel_l2": l2, "rel_l2_limit": SSD_REL_L2[xd], "runs": runs,
+                "ms": ms, "plain_ms": plain_ms,
+                "plain": getattr(plain, "func", plain).__name__,
+                "library_ms": None, "bytes": nbytes, "operations": ops,
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "copy_bound_ms": nbytes / copy_rate * 1e3,
+                "flop_per_s": ops / (ms * 1e-3)}
+        cases.append(case)
+        emit({"phase": "kernels.case", "kernel": "ssd_scan", **case})
+        del x, dt, a, b, c, d
+        torch.cuda.empty_cache()
+    return {"phase": "kernels.ssd_scan", "cases": len(cases),
+            "seconds": time.perf_counter() - t0, "results": cases}
+
+
+#: kernel group -> a substring of its CUDA kernel's name
+KERNEL_SYMBOLS = {"flash_attention": "flash_attention_kernel",
+                  "ssd_scan": "ssd_scan_kernel"}
+
+
+def profile_breakdown(torch, fn, runs: int = 3,
+                      kernel: str = "flash_attention") -> dict:
     """Device time of ``runs`` calls of ``fn`` by kernel group, from a
-    ``torch.profiler`` trace: the flash kernel, matmuls (cuBLAS), and the
-    rest; the device's idle share between the window's first kernel start
-    and last kernel end; the five kernels that take the most time.  A trace
-    with no device events reports ``device_events: 0``."""
+    ``torch.profiler`` trace: the port's ``kernel``, matmuls (cuBLAS), and
+    the rest; the device's idle share between the window's first kernel
+    start and last kernel end; the five kernels that take the most time.  A
+    trace with no device events reports ``device_events: 0``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -462,7 +637,7 @@ def profile_breakdown(torch, fn, runs: int = 3) -> dict:
             fn()
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t
-    groups = {"flash_attention": 0.0, "matmul": 0.0, "other": 0.0}
+    groups = {kernel: 0.0, "matmul": 0.0, "other": 0.0}
     by_name: dict = {}
     spans = []
     for e in prof.events():
@@ -470,8 +645,8 @@ def profile_breakdown(torch, fn, runs: int = 3) -> dict:
             continue
         us = e.time_range.elapsed_us()
         low = e.name.lower()
-        if "flash_attention_kernel" in e.name:
-            group = "flash_attention"
+        if KERNEL_SYMBOLS[kernel] in e.name:
+            group = kernel
         elif any(w in low for w in ("gemm", "nvjet", "xmma", "cutlass")):
             group = "matmul"
         else:
@@ -843,24 +1018,99 @@ def logits_diff(torch, got, want, rows: int = 256) -> dict:
             "argmax_agreement": agree / (B * S)}
 
 
-def phase_llama_prefill(torch, seed: int, backend):
-    """llama3-8b at full width and depth: 4 requests of 2048 tokens through
-    ``make_prefill``.  Returns (line, model, params)."""
-    from repro_torch.configs import get_config
+def plain_llama_prefill(model, params, tokens):
+    """The same llama weights with attention_impl="chunked" (the flash
+    kernel's plain version)."""
     from repro_torch.models import build
     from repro_torch.train import make_prefill
 
+    plain = make_prefill(build(dataclasses.replace(
+        model.cfg, attention_impl="chunked")))
+    return plain(params, tokens=tokens)
+
+
+def plain_mamba_prefill(model, params, tokens):
+    """The same mamba weights with the SSD's chunked plain version."""
+    from repro_torch.train import make_prefill
+
+    return make_prefill(model)(params, tokens=tokens, ssd_impl="chunked")
+
+
+# phase name -> (arch, its kernel, the plain run, the prefill logits'
+# relative L2 limit against the plain run, the activations' dtype of the
+# decode-against-prefill check: None for the model's own).  mamba2-2.7b's
+# 64 bf16 layers amplify one-ulp differences past PREFILL_REL_L2 and the
+# decode criterion, whatever the SSD's implementation: see PERF.md §6 for
+# tools/depth_spread.py's readings and the chip's.  So its kernel is held
+# layer by layer on the bf16 serving run (ssd_layers), its logits to
+# MAMBA_PREFILL_REL_L2, and its decode check runs with f32 activations over
+# the same bf16-stored weights.
+LM_PHASES = {
+    "llama": (LLAMA, "flash_attention", plain_llama_prefill, PREFILL_REL_L2,
+              None),
+    "mamba": (MAMBA, "ssd_scan", plain_mamba_prefill, MAMBA_PREFILL_REL_L2,
+              "float32")}
+
+
+def ssd_layers(torch, model, params, tokens) -> dict:
+    """One bf16 prefill with each layer's SSD held: the kernel against
+    ``ref.ssd_scan_chunked`` on that layer's own inputs, within SSD_TOL and
+    SSD_REL_L2.  Returns the largest error over the layers."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.train import make_prefill
+
+    kernel_ssd = ops.ssd
+    errs, l2s = [], []
+
+    def held(x, dt, a, b, c, *, d_skip=None, impl="auto", chunk=SSD_CHUNK):
+        check(impl == "auto" and x.is_cuda, f"ssd_layers: impl {impl}")
+        got = kernel_ssd(x, dt, a, b, c, d_skip=d_skip)
+        want = ref.ssd_scan_chunked(x, dt, a, b, c, chunk=SSD_CHUNK,
+                                    d_skip=d_skip)
+        xd = str(x.dtype).removeprefix("torch.")
+        layer = len(errs)
+        torch.testing.assert_close(got.float(), want.float(),
+                                   rtol=SSD_TOL[xd], atol=SSD_TOL[xd],
+                                   msg=f"ssd_scan, mamba layer {layer}")
+        errs.append(float((got.float() - want.float()).abs().max()))
+        l2s.append(rel_l2(torch, got, want))
+        check(l2s[-1] < SSD_REL_L2[xd], f"ssd_scan, mamba layer {layer}: "
+              f"relative L2 {l2s[-1]} >= {SSD_REL_L2[xd]}")
+        return got
+
+    ops.ssd = held
+    try:
+        make_prefill(model)(params, tokens=tokens)
+    finally:
+        ops.ssd = kernel_ssd
+    check(len(errs) == model.cfg.num_layers, f"ssd_layers: {len(errs)}")
+    return {"layers": len(errs), "max_abs_err": max(errs),
+            "max_rel_l2": max(l2s), "median_rel_l2": statistics.median(l2s),
+            "tol": SSD_TOL["bfloat16"],
+            "rel_l2_limit": SSD_REL_L2["bfloat16"]}
+
+
+def phase_prefill(torch, seed: int, backend, which: str):
+    """An LM at full width and depth: 4 requests of 2048 tokens through
+    ``make_prefill``, one kernel launch a layer, logits held against the
+    plain run.  Returns (line, model, params)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build
+    from repro_torch.models.model_zoo import padded_vocab
+    from repro_torch.train import make_prefill
+
+    arch, kernel, plain_prefill, limit, _ = LM_PHASES[which]
     t0 = time.perf_counter()
-    cfg = get_config(LLAMA)
+    cfg = get_config(arch)
     check(cfg.dtype == "bfloat16" and cfg.attention_impl == "auto",
-          f"{LLAMA}: dtype {cfg.dtype}, attention_impl {cfg.attention_impl}")
+          f"{arch}: dtype {cfg.dtype}, attention_impl {cfg.attention_impl}")
     model = build(cfg)
     torch.cuda.reset_peak_memory_stats()
     params, init_s = synced(torch, lambda: model.init(seed))
     leaves = list(param_leaves(params))
     n_params = sum(t.numel() for t in leaves)
     param_bytes = sum(t.numel() * t.element_size() for t in leaves)
-    check(all(t.is_cuda for t in leaves), "llama: params off the card")
+    check(all(t.is_cuda for t in leaves), f"{arch}: params off the card")
     g = torch.Generator(device="cuda").manual_seed(seed + 1)
     tokens = torch.randint(0, cfg.vocab_size, (PREFILL_BATCH, PREFILL_LEN),
                            generator=g, device="cuda")
@@ -870,26 +1120,29 @@ def phase_llama_prefill(torch, seed: int, backend):
     logits, prefill_s = synced(torch, lambda: prefill(params, tokens=tokens))
     launches = backend.launch_counts()
     peak = torch.cuda.max_memory_allocated()
-    check(launches["flash_attention"] == cfg.num_layers,
-          f"llama prefill: launches {launches}")
-    check(tuple(logits.shape) == (PREFILL_BATCH, PREFILL_LEN, cfg.vocab_size)
-          and logits.dtype == torch.bfloat16, "llama prefill: logits shape")
-    check(bool(torch.isfinite(logits).all()), "llama prefill: non-finite")
+    check(launches[kernel] == cfg.num_layers,
+          f"{which} prefill: launches {launches}")
+    check(tuple(logits.shape) == (PREFILL_BATCH, PREFILL_LEN,
+                                  padded_vocab(cfg))
+          and logits.dtype == torch.bfloat16, f"{which} prefill: logits shape")
+    check(bool(torch.isfinite(logits).all()), f"{which} prefill: non-finite")
     repeat_s = [synced(torch, lambda: prefill(params, tokens=tokens))[1]
                 for _ in range(2)]
 
-    plain = make_prefill(build(dataclasses.replace(
-        cfg, attention_impl="chunked")))
-    want, plain_s = synced(torch, lambda: plain(params, tokens=tokens))
+    want, plain_s = synced(torch, lambda: plain_prefill(model, params,
+                                                        tokens))
     diff = logits_diff(torch, logits, want)
-    check(diff["rel_l2"] < PREFILL_REL_L2,
-          f"llama prefill: relative L2 {diff['rel_l2']} against the plain run")
+    check(diff["rel_l2"] < limit, f"{which} prefill: relative L2 "
+          f"{diff['rel_l2']} against the plain run")
     del want, logits
     torch.cuda.empty_cache()
+    extra = ({"ssd_layers": ssd_layers(torch, model, params, tokens)}
+             if kernel == "ssd_scan" else {})
     breakdown = profile_breakdown(torch, lambda: prefill(params,
-                                                         tokens=tokens))
+                                                         tokens=tokens),
+                                  kernel=kernel)
     tokens_n = PREFILL_BATCH * PREFILL_LEN
-    return {"phase": "llama_prefill", "arch": LLAMA,
+    return {"phase": f"{which}_prefill", "arch": arch, "kernel": kernel,
             "requests": PREFILL_BATCH, "tokens_each": PREFILL_LEN,
             "layers": cfg.num_layers, "d_model": cfg.d_model,
             "params": n_params, "param_bytes": param_bytes,
@@ -897,17 +1150,24 @@ def phase_llama_prefill(torch, seed: int, backend):
             "prefill_s": prefill_s, "repeat_prefill_s": repeat_s,
             "tokens_per_s": tokens_n / prefill_s, "launches": launches,
             "plain_prefill_s": plain_s, "vs_plain": diff,
-            "rel_l2_limit": PREFILL_REL_L2, "peak_device_bytes": peak,
+            "rel_l2_limit": limit, **extra,
+            "peak_device_bytes": peak,
             "breakdown": breakdown,
             "seconds": time.perf_counter() - t0}, model, params
 
 
-def phase_llama_generate(torch, seed: int, backend, model, params) -> dict:
+def phase_generate(torch, seed: int, backend, model, params,
+                   which: str) -> dict:
     """greedy_generate twice on the same prompts, then the prompts' decode
-    logits against make_prefill's."""
+    logits against make_prefill's.  The decode path launches no kernel (the
+    JAX package has no decode kernel); the check's prefill launches one a
+    layer."""
     from repro_torch.train import (greedy_generate, make_decode_step,
                                    make_prefill)
 
+    from repro_torch.models import build
+
+    arch, kernel, _, _, check_dtype = LM_PHASES[which]
     t0 = time.perf_counter()
     cfg = model.cfg
     g = torch.Generator(device="cuda").manual_seed(seed + 2)
@@ -927,35 +1187,40 @@ def phase_llama_generate(torch, seed: int, backend, model, params) -> dict:
     check(0 <= int(out.min()) and int(out.max()) < cfg.vocab_size,
           "generate: token outside the vocabulary")
     check(torch.equal(out, again), "generate: two runs differ")
+    check(gen_launches[kernel] == 0,
+          f"{which} generate: decode launched {gen_launches}")
     steps = GEN_PROMPT + GEN_NEW
 
-    step = make_decode_step(model)
-    state = model.init_decode(params, GEN_BATCH, max_len)
+    checked = model if check_dtype is None else build(
+        dataclasses.replace(cfg, dtype=check_dtype))
+    step = make_decode_step(checked)
+    state = checked.init_decode(params, GEN_BATCH, max_len)
     outs = []
     for t in range(GEN_PROMPT):
         state, logits = step(params, state, prompt[:, t:t + 1])
         outs.append(logits)
     decoded = torch.cat(outs, dim=1)
     backend.reset_launch_counts()
-    full = make_prefill(model)(params, tokens=prompt)
+    full = make_prefill(checked)(params, tokens=prompt)
     torch.cuda.synchronize()
     prefill_launches = backend.launch_counts()
-    check(prefill_launches["flash_attention"] == cfg.num_layers,
-          f"generate: prefill launches {prefill_launches}")
+    check(prefill_launches[kernel] == cfg.num_layers,
+          f"{which} generate: prefill launches {prefill_launches}")
     diff = logits_diff(torch, decoded, full)
     check(diff["argmax_agreement"] > DECODE_AGREEMENT,
           f"decode/prefill argmax agreement {diff['argmax_agreement']}")
     torch.testing.assert_close(decoded.float(), full.float(),
                                rtol=DECODE_RTOL, atol=DECODE_ATOL,
                                msg="decode path against prefill")
-    del decoded, full, outs
+    del decoded, full
+    step = make_decode_step(model)
     state = model.init_decode(params, GEN_BATCH, max_len)
     for t in range(GEN_PROMPT):
         state, _ = step(params, state, prompt[:, t:t + 1])
     token = prompt[:, -1:]
     breakdown = profile_breakdown(
-        torch, lambda: step(params, list(state), token))
-    return {"phase": "llama_generate", "arch": LLAMA, "requests": GEN_BATCH,
+        torch, lambda: step(params, list(state), token), kernel=kernel)
+    return {"phase": f"{which}_generate", "arch": arch, "requests": GEN_BATCH,
             "prompt_tokens": GEN_PROMPT, "new_tokens": GEN_NEW,
             "decode_steps": steps, "generate_s": gen_s,
             "repeat_generate_s": again_s, "step_ms": gen_s / steps * 1e3,
@@ -967,6 +1232,7 @@ def phase_llama_generate(torch, seed: int, backend, model, params) -> dict:
             "decode_vs_prefill": diff,
             "criterion": {"argmax_agreement": DECODE_AGREEMENT,
                           "rtol": DECODE_RTOL, "atol": DECODE_ATOL},
+            "checked_in": str(checked.cfg.dtype),
             "decode_step_breakdown": breakdown,
             "seconds": time.perf_counter() - t0}
 
@@ -1016,6 +1282,8 @@ def main() -> int:
     emit({k: v for k, v in grad.items() if k != "results"})
     flash = phase_flash(torch, args.seed, device["copy_bytes_per_s"])
     emit({k: v for k, v in flash.items() if k != "results"})
+    ssd = phase_ssd(torch, args.seed, device["copy_bytes_per_s"])
+    emit({k: v for k, v in ssd.items() if k != "results"})
     tile = phase_tile(torch, args.seed, backend)
     emit(tile)
     campaign, cs, names = phase_campaign(torch, args.seed, backend)
@@ -1030,10 +1298,20 @@ def main() -> int:
     emit(seg_campaign)
     del cs
     peak = max(peak, torch.cuda.max_memory_allocated())
-    prefill, model, params = phase_llama_prefill(torch, args.seed, backend)
+    prefill, model, params = phase_prefill(torch, args.seed, backend, "llama")
     emit(prefill)
-    generate = phase_llama_generate(torch, args.seed, backend, model, params)
+    generate = phase_generate(torch, args.seed, backend, model, params,
+                              "llama")
     emit(generate)
+    del model, params
+    torch.cuda.empty_cache()
+    peak = max(peak, torch.cuda.max_memory_allocated())  # reset next
+    m_prefill, model, params = phase_prefill(torch, args.seed, backend,
+                                             "mamba")
+    emit(m_prefill)
+    m_generate = phase_generate(torch, args.seed, backend, model, params,
+                                "mamba")
+    emit(m_generate)
     del model, params
 
     emit({"kernels": [
@@ -1046,7 +1324,11 @@ def main() -> int:
         kernel_line("flash_attention", flash["results"], TOL,
                     prefill["launches"]["flash_attention"]
                     + generate["launches"]["flash_attention"]
-                    + generate["prefill_check_launches"]["flash_attention"])]})
+                    + generate["prefill_check_launches"]["flash_attention"]),
+        kernel_line("ssd_scan", ssd["results"], SSD_TOL,
+                    m_prefill["launches"]["ssd_scan"]
+                    + m_generate["launches"]["ssd_scan"]
+                    + m_generate["prefill_check_launches"]["ssd_scan"])]})
     emit({"max_memory_allocated": max(peak,
                                       torch.cuda.max_memory_allocated())})
     print(device["nvidia_smi"], flush=True)

@@ -8,9 +8,9 @@ stack crosses over as numpy arrays and is moved to the device here.
 
 The LM stack's state is its parameter tree.  The JAX package's tree crosses
 over as numpy arrays (``jax.tree.map(np.asarray, params)``) and
-:func:`params_from_numpy` lays it out as the port's: the scanned ``blocks``
-stack is split into one dict per layer, and each leaf takes the dtype the
-port stores it in.
+:func:`params_from_numpy` lays it out as the port's, for the dense and ssm
+families: the scanned ``blocks`` stack is split into one dict per layer,
+and each leaf takes the dtype the port stores it in.
 """
 
 from __future__ import annotations
@@ -46,19 +46,26 @@ def stack_to_device(images: np.ndarray, valid: Optional[np.ndarray],
     return imgs, torch.from_numpy(np.ascontiguousarray(valid)).to(device)
 
 
-def _dense_leaf_shapes(cfg: ModelConfig
-                       ) -> Tuple[Dict[str, tuple], Dict[str, tuple]]:
-    """The dense family's leaves, '/'-joined paths -> shapes: the top-level
-    ones, and one layer's (the JAX package stacks them on a leading axis)."""
+#: leaves kept in f32 beside the norms' (the JAX package uses them in f32)
+F32_LEAVES = ("a_log", "d_skip", "dt_bias")
+
+
+def _leaf_shapes(cfg: ModelConfig
+                 ) -> Tuple[Dict[str, tuple], Dict[str, tuple]]:
+    """The dense or ssm family's leaves, '/'-joined paths -> shapes: the
+    top-level ones, and one layer's (the JAX package stacks them on a
+    leading axis)."""
     d, V = cfg.d_model, cfg.vocab_size
-    dq = cfg.num_heads * cfg.head_dim
-    dkv = cfg.num_kv_heads * cfg.head_dim
     norm = {"scale": (d,)}
     if cfg.norm == "layernorm":
         norm["bias"] = (d,)
     top = {"embed": (V, d), **{f"norm_out/{k}": s for k, s in norm.items()}}
     if not cfg.tie_embeddings:
         top["unembed"] = (V, d)
+    if cfg.family == "ssm":
+        return top, _mamba_block_shapes(cfg, norm)
+    dq = cfg.num_heads * cfg.head_dim
+    dkv = cfg.num_kv_heads * cfg.head_dim
     block = {"attn/wq": (d, dq), "attn/wk": (d, dkv), "attn/wv": (d, dkv),
              "attn/wo": (dq, d)}
     if cfg.qkv_bias:
@@ -72,6 +79,19 @@ def _dense_leaf_shapes(cfg: ModelConfig
         block.update({"ffn/w_in": (d, cfg.d_ff), "ffn/b_in": (cfg.d_ff,),
                       "ffn/w_out": (cfg.d_ff, d), "ffn/b_out": (d,)})
     return top, block
+
+
+def _mamba_block_shapes(cfg: ModelConfig, norm: dict) -> Dict[str, tuple]:
+    d, di = cfg.d_model, cfg.ssm_d_inner
+    n, h, w = cfg.ssm_state, cfg.ssm_heads, cfg.ssm_conv_width
+    block = {f"norm_mix/{k}": s for k, s in norm.items()}
+    block.update({f"mamba/{k}": s for k, s in {
+        "w_xz": (d, 2 * di), "w_bc": (d, 2 * n), "w_dt": (d, h),
+        "conv_x_w": (w, di), "conv_x_b": (di,),
+        "conv_bc_w": (w, 2 * n), "conv_bc_b": (2 * n,),
+        "a_log": (h,), "d_skip": (h,), "dt_bias": (h,),
+        "norm/scale": (di,), "out_proj": (di, d)}.items()})
+    return block
 
 
 def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
@@ -93,18 +113,19 @@ def _put(tree: dict, path: str, value: torch.Tensor) -> None:
 
 
 def params_from_numpy(tree: Mapping, cfg: ModelConfig, device) -> dict:
-    """The JAX package's dense-family parameter tree, as numpy arrays ->
-    the port's, on ``device``.  ``cfg`` is the model's config (its
-    vocabulary is padded here as ``build`` pads it).  Norm parameters stay
-    f32; every other leaf is cast to ``cfg.dtype``, the cast the JAX
-    package makes at each use.  Raises ``ValueError`` on a leaf the port
-    does not know, a missing leaf or a shape that differs."""
+    """The JAX package's parameter tree of a dense or ssm model, as numpy
+    arrays -> the port's, on ``device``.  ``cfg`` is the model's config (its
+    vocabulary is padded here as ``build`` pads it).  Norm parameters and
+    the Mamba layers' ``a_log``, ``d_skip`` and ``dt_bias`` stay f32; every
+    other leaf is cast to ``cfg.dtype``, the cast the JAX package makes at
+    each use.  Raises ``ValueError`` on a leaf the port does not know, a
+    missing leaf or a shape that differs."""
     from repro_torch.models.model_zoo import _padded_cfg
-    from repro_torch.models.transformer import model_dtype, require_dense
+    from repro_torch.models.transformer import model_dtype, require_ported
 
-    require_dense(cfg)
+    require_ported(cfg)
     pcfg = _padded_cfg(cfg)
-    top, block = _dense_leaf_shapes(pcfg)
+    top, block = _leaf_shapes(pcfg)
     layers = pcfg.num_layers
     expected = {**top, **{f"blocks/{k}": (layers,) + s
                           for k, s in block.items()}}
@@ -125,7 +146,8 @@ def params_from_numpy(tree: Mapping, cfg: ModelConfig, device) -> dict:
         if arr.dtype not in (np.float32, np.float64, np.float16):
             arr = arr.astype(np.float32)  # bf16 widens exactly
         parts = path.split("/")
-        keep_f32 = len(parts) > 1 and parts[-2].startswith("norm")
+        keep_f32 = parts[-1] in F32_LEAVES or (
+            len(parts) > 1 and parts[-2].startswith("norm"))
         return torch.tensor(arr).to(
             device=device, dtype=torch.float32 if keep_f32 else dtype)
 

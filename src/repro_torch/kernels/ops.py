@@ -11,6 +11,12 @@ A CUDA tensor never falls back to the plain version.
 the kernel for CUDA tensors and, for CPU tensors, takes ``"chunked"`` from
 Sq >= 1024 on and ``"ref"`` below, as ``repro/kernels/ops.py`` does off the
 TPU.
+
+:func:`ssd` takes the same four strings: ``"pallas"`` is the hand-written
+SSD kernel, ``"chunked"`` and ``"ref"`` its plain versions, and ``"auto"``
+launches the kernel for CUDA tensors and, for CPU tensors, takes
+``"chunked"`` where ``chunk`` divides L and ``"ref"`` otherwise, as
+``repro/kernels/ops.py`` does off the TPU.
 """
 
 from __future__ import annotations
@@ -21,9 +27,11 @@ from repro_torch.kernels import composite as composite_kernel
 from repro_torch.kernels import flash_attention as flash_kernel
 from repro_torch.kernels import grad_mag as grad_mag_kernel
 from repro_torch.kernels import ref
+from repro_torch.kernels import ssd_scan as ssd_kernel
 
 IMPLS = ("auto", "ref", "kernel")
-ATTN_IMPLS = ("auto", "ref", "chunked", "pallas")
+#: the JAX package's impl strings for attention and the SSD
+JAX_IMPLS = ("auto", "ref", "chunked", "pallas")
 #: from this query length on, "auto" on CPU tensors takes the chunked path
 CHUNKED_FROM = 1024
 
@@ -56,8 +64,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True, impl: str = "auto") -> torch.Tensor:
     """GQA attention: q [B,Hq,Sq,D], k/v [B,Hkv,Sk,D] -> [B,Hq,Sq,D].
     Causal with Sq > Sk raises ``ValueError`` on every path."""
-    if impl not in ATTN_IMPLS:
-        raise ValueError(f"impl={impl!r} not in {ATTN_IMPLS}")
+    if impl not in JAX_IMPLS:
+        raise ValueError(f"impl={impl!r} not in {JAX_IMPLS}")
     if impl == "auto":
         impl = "pallas" if q.is_cuda else (
             "chunked" if q.shape[2] >= CHUNKED_FROM else "ref")
@@ -66,3 +74,22 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if impl == "chunked":
         return ref.attention_chunked(q, k, v, causal=causal)
     return flash_kernel.flash_attention(q, k, v, causal=causal)
+
+
+def ssd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+        c: torch.Tensor, *, d_skip: torch.Tensor | None = None,
+        impl: str = "auto", chunk: int = 128) -> torch.Tensor:
+    """Mamba-2 SSD scan: x [B,L,H,P], dt [B,L,H], a [H], b/c [B,L,H,N] ->
+    [B,L,H,P] (see ``ref.ssd_scan``).  ``chunk`` is the plain chunked
+    version's; the kernel takes any L."""
+    if impl not in JAX_IMPLS:
+        raise ValueError(f"impl={impl!r} not in {JAX_IMPLS}")
+    if impl == "auto":
+        impl = "pallas" if x.is_cuda else (
+            "chunked" if x.shape[1] % chunk == 0 else "ref")
+    if impl == "chunked":
+        return ref.ssd_scan_chunked(x, dt, a, b, c, chunk=chunk,
+                                    d_skip=d_skip)
+    if impl == "ref":
+        return ref.ssd_scan(x, dt, a, b, c, d_skip=d_skip)
+    return ssd_kernel.ssd_scan(x, dt, a, b, c, d_skip=d_skip)

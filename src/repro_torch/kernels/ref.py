@@ -176,3 +176,97 @@ def temporal_mean_gradient(images: torch.Tensor,
                            valid: torch.Tensor) -> torch.Tensor:
     g, c = grad_mag(images, valid)
     return g / c.clamp_min(1.0)
+
+
+# ---------------------------------------------------------------------------
+# Mamba-2 SSD (state-space duality) scan
+# ---------------------------------------------------------------------------
+def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+             b: torch.Tensor, c: torch.Tensor,
+             d_skip: torch.Tensor | None = None) -> torch.Tensor:
+    """Sequential-recurrence oracle for the SSD layer (Mamba-2,
+    arXiv:2405.21060).
+
+    x [B, L, H, P], dt [B, L, H] (softplus-activated, > 0), a [H] (negative
+    decay rate), b and c [B, L, H, N] (groups pre-broadcast; expanded views
+    are fine), d_skip [H] or None -> y [B, L, H, P] in x's dtype.  Per
+    (batch, head), with the state S [N, P] in f32:
+
+        S_t = exp(a * dt_t) * S_{t-1} + dt_t * b_t x_t^T
+        y_t = c_t^T S_t  (+ d_skip * x_t)
+
+    Everything is f32; the D-skip is added in f32 and y is rounded to x's
+    dtype once.  A Python loop over L: for small L (the tests, the card's
+    short cases)."""
+    xf, dtf = x.float(), dt.float()
+    bf, cf = b.float(), c.float()
+    B, L, H, P = x.shape
+    N = b.shape[-1]
+    decay = torch.exp(a.float()[None, None, :] * dtf)  # [B, L, H]
+    S = torch.zeros((B, H, N, P), dtype=torch.float32, device=x.device)
+    y = torch.empty((B, L, H, P), dtype=torch.float32, device=x.device)
+    for t in range(L):
+        S = S * decay[:, t, :, None, None] + (
+            dtf[:, t, :, None, None] * bf[:, t, :, :, None]
+            * xf[:, t, :, None, :])
+        y[:, t] = torch.einsum("bhn,bhnp->bhp", cf[:, t], S)
+    if d_skip is not None:
+        y = y + d_skip.float()[None, None, :, None] * xf
+    return y.to(x.dtype)
+
+
+def ssd_scan_chunked(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+                     b: torch.Tensor, c: torch.Tensor, chunk: int = 64,
+                     d_skip: torch.Tensor | None = None) -> torch.Tensor:
+    """Chunked SSD (quadratic within a chunk, linear across chunks): the
+    algorithm of the TPU kernel in plain tensor ops, the semantics of
+    :func:`ssd_scan`.  Raises ``ValueError`` where ``chunk`` does not divide
+    L, as the JAX package's does.  Holds [B, L/chunk, chunk, chunk, H] f32
+    intermediates."""
+    B, L, H, P = x.shape
+    N = b.shape[-1]
+    if L % chunk:
+        raise ValueError(f"L={L} not a multiple of chunk={chunk}")
+    nc = L // chunk
+    xf = x.float().reshape(B, nc, chunk, H, P)
+    dtf = dt.float().reshape(B, nc, chunk, H)
+    bf = b.float().reshape(B, nc, chunk, H, N)
+    cf = c.float().reshape(B, nc, chunk, H, N)
+
+    log_dec = a.float()[None, None, None, :] * dtf      # [B, nc, Q, H]
+    cum = torch.cumsum(log_dec, dim=2)                   # inclusive
+    total = cum[:, :, -1, :]                             # [B, nc, H]
+
+    # intra-chunk: L_ij = exp(cum_i - cum_j) for i >= j, selected (the
+    # exponent is positive above the diagonal and may overflow)
+    diff = cum[:, :, :, None, :] - cum[:, :, None, :, :]  # [B,nc,Q,Q,H]
+    mask = torch.ones((chunk, chunk), dtype=torch.bool,
+                      device=x.device).tril()[None, None, :, :, None]
+    l_mat = torch.where(mask, torch.exp(diff), torch.zeros((), device=x.device))
+    del diff
+    cb = torch.einsum("bzihn,bzjhn->bzijh", cf, bf)     # [B,nc,Q,Q,H]
+    w = cb * l_mat * dtf[:, :, None, :, :]
+    del cb, l_mat
+    y = torch.einsum("bzijh,bzjhp->bzihp", w, xf)
+    del w
+
+    # chunk states: S_z = sum_j exp(total - cum_j) dt_j b_j x_j^T
+    dec_to_end = torch.exp(total[:, :, None, :] - cum) * dtf  # [B,nc,Q,H]
+    s_chunk = torch.einsum("bzjhn,bzjhp->bzhnp",
+                           bf * dec_to_end[..., None], xf)
+
+    # the state entering each chunk, in order
+    s_in = torch.empty_like(s_chunk)
+    S = torch.zeros((B, H, N, P), dtype=torch.float32, device=x.device)
+    decay = torch.exp(total)                              # [B, nc, H]
+    for z in range(nc):
+        s_in[:, z] = S
+        S = S * decay[:, z, :, None, None] + s_chunk[:, z]
+
+    # inter-chunk: y_i += c_i^T (exp(cum_i) S_in)
+    y = y + torch.einsum("bzihn,bzhnp->bzihp", cf, s_in) * torch.exp(
+        cum)[..., None]
+    y = y.reshape(B, L, H, P)
+    if d_skip is not None:
+        y = y + d_skip.float()[None, None, :, None] * x.float()
+    return y.to(x.dtype)

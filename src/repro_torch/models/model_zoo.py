@@ -2,9 +2,9 @@
 
 `build(cfg)` returns a `Model` bundle of functions, as in the JAX package.
 The port covers the dense family without a modality frontend (llama3-8b,
-gemma-7b, qwen1.5-4b, qwen2-72b); `build` raises ``NotImplementedError``
-for the others.  A model runs on the card unless it is built with
-``device="cpu"``.  The dry-run's ``input_specs`` and ``decode_specs`` come
+gemma-7b, qwen1.5-4b, qwen2-72b) and the ssm family (mamba2-2.7b); `build`
+raises ``NotImplementedError`` for the others.  A model runs on the card
+unless it is built with ``device="cpu"``.  The dry-run's ``input_specs`` and ``decode_specs`` come
 with the dry-run slice.
 """
 
@@ -39,13 +39,13 @@ class Model:
     cfg: ModelConfig
     device: DeviceLike  # None: the card
     init: Callable  # (seed) -> params on the resolved device
-    forward: Callable  # (params, *, tokens) -> (logits, aux)
+    forward: Callable  # (params, *, tokens, ssd_impl="auto") -> (logits, aux)
     init_decode: Callable  # (params, batch, max_len) -> caches
     decode_step: Callable  # (params, caches, token) -> (caches, logits)
 
 
 def build(cfg: ModelConfig, device: DeviceLike = None) -> Model:
-    transformer.require_dense(cfg)
+    transformer.require_ported(cfg)
     pcfg = _padded_cfg(cfg)
 
     def init(seed: int = 0):
@@ -53,10 +53,11 @@ def build(cfg: ModelConfig, device: DeviceLike = None) -> Model:
         generator = torch.Generator(device=dev).manual_seed(seed)
         return transformer.init_model(generator, pcfg)
 
-    def forward(params, *, tokens, **_):
-        return transformer.forward(params, pcfg, tokens)
+    def forward(params, *, tokens, ssd_impl="auto", **_):
+        return transformer.forward(params, pcfg, tokens, ssd_impl)
 
     def init_decode(params, batch, max_len):
+        # an ssm model's state does not depend on max_len, as in JAX
         return transformer.init_block_caches(pcfg, batch, max_len,
                                              params["embed"].device)
 

@@ -1,12 +1,13 @@
-"""Decoder-only model assembly, dense family:
+"""Decoder-only model assembly, the dense and SSM (Mamba-2) families:
 
-    [norm -> attn -> +res] [norm -> ffn -> +res]   x L
+    dense : [norm -> attn -> +res] [norm -> ffn -> +res]   x L
+    ssm   : [norm -> mamba -> +res]                        x L
 
-The counterpart of the dense path of ``repro/models/transformer.py``.  The
+The counterpart of those paths of ``repro/models/transformer.py``.  The
 JAX package scans one stacked block; here ``params["blocks"]`` is a list of
 per-layer parameter dicts and the layer loop is a Python loop.  The MoE,
-SSM, hybrid and modality-frontend families come with later slices
-(:func:`require_dense` names them).
+hybrid, encoder-decoder and modality-frontend families come with later
+slices (:func:`require_ported` names them).
 
 Matmul weights and embeddings are stored once in ``cfg.dtype``.  The JAX
 package keeps f32 masters and casts them to ``cfg.dtype`` at every use;
@@ -17,7 +18,7 @@ per layer per step.  Norm scales stay f32.
 
 from __future__ import annotations
 
-from typing import List
+from typing import List, Union
 
 import torch
 
@@ -31,10 +32,17 @@ from repro_torch.models.attention import (
     init_cache,
 )
 from repro_torch.models.ffn import ffn_forward, init_ffn
+from repro_torch.models.mamba2 import (
+    MambaCache,
+    init_mamba,
+    init_mamba_cache,
+    mamba_decode_step,
+    mamba_forward,
+)
 
+PORTED = ("dense", "ssm")
 #: family -> where ROADMAP.md puts its slice
 NOT_PORTED = {
-    "ssm": "ROADMAP.md queue 1 item 5a (mamba2-2.7b serving, ssd_scan_fwd)",
     "moe": "ROADMAP.md queue 1 item 5b (MoE: dbrx-132b, llama4-maverick)",
     "hybrid": "ROADMAP.md queue 1 item 5c (hybrid: jamba-v0.1-52b)",
     "encdec": "ROADMAP.md queue 1 item 5d (enc-dec: seamless-m4t)",
@@ -42,11 +50,11 @@ NOT_PORTED = {
 }
 
 
-def require_dense(cfg: ModelConfig) -> None:
+def require_ported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for a family the port has not yet:
-    every one but dense without a modality frontend."""
+    every one but dense and ssm without a modality frontend."""
     family = "vlm" if cfg.frontend_tokens else cfg.family
-    if family != "dense":
+    if family not in PORTED:
         raise NotImplementedError(
             f"{cfg.arch_id}: the {family} family is not ported yet; see "
             f"{NOT_PORTED.get(family, 'ROADMAP.md queue 1 item 5')}")
@@ -62,6 +70,9 @@ def model_dtype(cfg: ModelConfig) -> torch.dtype:
 def init_block(generator: torch.Generator, cfg: ModelConfig) -> dict:
     """One layer's parameters."""
     dtype, dev = model_dtype(cfg), generator.device
+    if cfg.family == "ssm":
+        return {"norm_mix": common.init_norm(cfg.norm, cfg.d_model, dev),
+                "mamba": init_mamba(generator, cfg, dtype)}
     return {
         "norm_attn": common.init_norm(cfg.norm, cfg.d_model, dev),
         "attn": init_attn(generator, cfg, dtype),
@@ -71,13 +82,18 @@ def init_block(generator: torch.Generator, cfg: ModelConfig) -> dict:
 
 
 def apply_block(block: dict, cfg: ModelConfig, x: torch.Tensor,
-                positions: torch.Tensor):
-    """Full-sequence block application -> (x, aux); aux is 0 for dense."""
+                positions: torch.Tensor, ssd_impl: str = "auto"):
+    """Full-sequence block application -> (x, aux); aux is 0 for dense and
+    ssm.  ``ssd_impl`` picks the SSD's implementation (``kernels.ops.ssd``)
+    in an ssm block."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if cfg.family == "ssm":
+        h = common.apply_norm(block["norm_mix"], x)
+        return x + mamba_forward(block["mamba"], cfg, h, ssd_impl), aux
     h = common.apply_norm(block["norm_attn"], x)
     x = x + attn_forward(block["attn"], cfg, h, positions=positions,
                          rope=cfg.pos_embed == "rope")
     h = common.apply_norm(block["norm_ffn"], x)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return x + ffn_forward(block["ffn"], cfg, h), aux
 
 
@@ -87,7 +103,7 @@ def apply_block(block: dict, cfg: ModelConfig, x: torch.Tensor,
 def init_model(generator: torch.Generator, cfg: ModelConfig) -> dict:
     """Parameters on the generator's device, drawn from it in a fixed
     order: embedding, blocks, unembedding."""
-    require_dense(cfg)
+    require_ported(cfg)
     dtype, dev = model_dtype(cfg), generator.device
     params = {
         "embed": common.embed_init(generator, cfg.vocab_size, cfg.d_model,
@@ -116,14 +132,17 @@ def unembed(params: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     return x @ table.to(x.dtype).T
 
 
-def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor):
-    """tokens [B, S] -> (logits [B, S, V], aux)."""
+def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
+            ssd_impl: str = "auto"):
+    """tokens [B, S] -> (logits [B, S, V], aux).  ``ssd_impl`` picks the
+    SSD's implementation in an ssm model (the JAX config has no field for
+    it: there the backend decides)."""
     dtype = model_dtype(cfg)
     x = embed_tokens(params, cfg, tokens, dtype)
     positions = torch.arange(x.shape[1], device=x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for block in params["blocks"]:
-        x, a = apply_block(block, cfg, x, positions)
+        x, a = apply_block(block, cfg, x, positions, ssd_impl)
         aux = aux + a
     x = common.apply_norm(params["norm_out"], x)
     return unembed(params, cfg, x), aux
@@ -133,15 +152,25 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor):
 # decode path (serve_step)
 # ---------------------------------------------------------------------------
 def init_block_caches(cfg: ModelConfig, batch: int, max_len: int, device,
-                      dtype: torch.dtype = torch.bfloat16) -> List[KVCache]:
-    """One KV cache per layer, bf16 by default whatever ``cfg.dtype``."""
+                      dtype: torch.dtype = torch.bfloat16
+                      ) -> List[Union[KVCache, MambaCache]]:
+    """One cache per layer: a KV cache, bf16 by default whatever
+    ``cfg.dtype``; or, for ssm, a Mamba state (f32 conv tails and state,
+    ``max_len`` and ``dtype`` unused, as in the JAX package)."""
+    if cfg.family == "ssm":
+        return [init_mamba_cache(cfg, batch, device)
+                for _ in range(cfg.num_layers)]
     return [init_cache(cfg, batch, max_len, device, dtype)
             for _ in range(cfg.num_layers)]
 
 
-def apply_block_decode(block: dict, cfg: ModelConfig, cache: KVCache,
+def apply_block_decode(block: dict, cfg: ModelConfig, cache,
                        x: torch.Tensor):
     """One-token decode through one block -> (cache, x)."""
+    if cfg.family == "ssm":
+        h = common.apply_norm(block["norm_mix"], x)
+        cache, y = mamba_decode_step(block["mamba"], cfg, cache, h)
+        return cache, x + y
     cache, y = attn_decode_step(block["attn"], cfg, cache,
                                 common.apply_norm(block["norm_attn"], x))
     x = x + y
@@ -149,10 +178,11 @@ def apply_block_decode(block: dict, cfg: ModelConfig, cache: KVCache,
     return cache, x + ffn_forward(block["ffn"], cfg, h)
 
 
-def decode_step(params: dict, cfg: ModelConfig, caches: List[KVCache],
+def decode_step(params: dict, cfg: ModelConfig, caches: list,
                 token: torch.Tensor):
     """token [B, 1] -> (new_caches, logits [B, 1, V]).  The caches' tensors
-    are updated in place; the returned list holds their new lengths."""
+    are updated in place (the KV caches and the SSM states); the returned
+    list holds the KV caches' new lengths and the new conv tails."""
     x = embed_tokens(params, cfg, token, model_dtype(cfg))
     new_caches = []
     for block, cache in zip(params["blocks"], caches):

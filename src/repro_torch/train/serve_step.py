@@ -1,8 +1,8 @@
 """Serving steps: prefill and batched incremental decode.
 
 The counterpart of ``repro/train/serve_step.py``.  ``make_prefill`` runs the
-full-sequence forward, whose attention is the flash kernel on the card;
-``greedy_generate`` feeds the prompt token by token through the decode path
+full-sequence forward, whose attention (dense) or SSD (ssm) is a
+hand-written kernel on the card; ``greedy_generate`` feeds the prompt token by token through the decode path
 and then decodes greedily, exactly as the JAX package does.
 """
 

@@ -15,6 +15,7 @@ from repro_torch.kernels import backend, build, ops, ref
 from repro_torch.kernels import composite as kcomposite
 from repro_torch.kernels import flash_attention as kflash
 from repro_torch.kernels import grad_mag as kgrad
+from repro_torch.kernels import ssd_scan as kssd
 
 pytestmark = pytest.mark.cuda
 
@@ -202,5 +203,107 @@ def test_prefill_on_the_card_launches_the_kernel_once_per_layer(card):
     assert backend.launch_counts()["flash_attention"] == cfg.num_layers
     plain = build(dataclasses.replace(cfg, attention_impl="chunked"))
     want = make_prefill(plain)(params, tokens=tokens)
+    agree = (logits.argmax(-1) == want.argmax(-1)).float().mean()
+    assert float(agree) > 0.95
+
+
+# B, L, H, P, N: tests/test_kernels.py:137-141, ragged lengths, the
+# mamba2-2.7b layer's heads at a short length, and P = 128
+SSD_CASES = [
+    (2, 128, 4, 16, 8),
+    (1, 256, 8, 32, 16),
+    (2, 64, 2, 64, 128),
+    (1, 1, 3, 64, 128),
+    (2, 63, 4, 32, 16),
+    (1, 1000, 2, 64, 128),
+    (2, 160, 80, 64, 128),
+    (1, 96, 2, 128, 8),
+]
+SSD_TOL = {torch.float32: 5e-4, torch.bfloat16: 2e-2}
+
+
+def _ssd_inputs(card, case, dtype, seed=0, grouped=True):
+    """dt = softplus(normal), a = -exp(normal), b and c (with ``grouped``)
+    one group expanded to every head with stride 0, as the model hands
+    them over."""
+    B, L, H, P, N = case
+    g = torch.Generator(device=card).manual_seed(seed)
+    x = torch.randn((B, L, H, P), generator=g, device=card, dtype=dtype)
+    dt = torch.nn.functional.softplus(
+        torch.randn((B, L, H), generator=g, device=card))
+    a = -torch.exp(torch.randn((H,), generator=g, device=card))
+    heads = 1 if grouped else H
+    b = torch.randn((B, L, heads, N), generator=g, device=card, dtype=dtype)
+    c = torch.randn((B, L, heads, N), generator=g, device=card, dtype=dtype)
+    d = torch.randn((H,), generator=g, device=card)
+    return x, dt, a, b.expand(B, L, H, N), c.expand(B, L, H, N), d
+
+
+@pytest.mark.parametrize("case", SSD_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_scan_kernel_matches_plain_version(card, case, dtype):
+    x, dt, a, b, c, d = _ssd_inputs(card, case, dtype)
+    before = kssd.launches.count
+    got = ops.ssd(x, dt, a, b, c, d_skip=d)
+    torch.cuda.synchronize()
+    assert kssd.launches.count == before + 1
+    assert got.dtype == dtype and got.is_contiguous()
+    tol = SSD_TOL[dtype]
+    torch.testing.assert_close(
+        got.float(), ref.ssd_scan(x, dt, a, b, c, d_skip=d).float(),
+        rtol=tol, atol=tol)
+
+
+def test_ssd_scan_kernel_contiguous_b_c_and_no_d_skip(card):
+    x, dt, a, b, c, _ = _ssd_inputs(card, (2, 200, 4, 64, 128),
+                                    torch.float32, seed=1, grouped=False)
+    got = kssd.ssd_scan(x, dt, a, b, c)
+    torch.testing.assert_close(got, ref.ssd_scan(x, dt, a, b, c),
+                               rtol=5e-4, atol=5e-4)
+
+
+def test_ssd_scan_kernel_strongly_decaying_head_gives_no_nan(card):
+    x, dt, a, b, c, d = _ssd_inputs(card, (1, 300, 2, 32, 16),
+                                    torch.float32, seed=2)
+    a = torch.full_like(a, -float(torch.exp(torch.tensor(3.0))))
+    dt = 1.0 + 4.0 * torch.rand(dt.shape, device=card)
+    got = kssd.ssd_scan(x, dt, a, b, c, d_skip=d)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, ref.ssd_scan(x, dt, a, b, c, d_skip=d),
+                               rtol=5e-4, atol=5e-4)
+
+
+def test_ssd_scan_kernel_is_deterministic(card):
+    x, dt, a, b, c, d = _ssd_inputs(card, (2, 512, 8, 64, 128),
+                                    torch.bfloat16, seed=3)
+    assert torch.equal(kssd.ssd_scan(x, dt, a, b, c, d),
+                       kssd.ssd_scan(x, dt, a, b, c, d))
+
+
+def test_ssd_scan_kernel_refuses_what_it_does_not_take(card):
+    x, dt, a, b, c, d = _ssd_inputs(card, (1, 64, 2, 64, 16),
+                                    torch.float32)
+    with pytest.raises(TypeError, match="dtypes"):
+        ops.ssd(x.half(), dt, a, b.half(), c.half())
+    with pytest.raises(ValueError, match="not in"):
+        ops.ssd(x[..., :48], dt, a, b, c)
+    with pytest.raises(ValueError, match="CUDA device"):
+        ops.ssd(x, dt, a.cpu(), b, c, impl="pallas")
+
+
+def test_mamba_prefill_on_the_card_launches_the_kernel_once_per_layer(card):
+    from repro_torch.configs import get_config
+    from repro_torch.models import build
+    from repro_torch.train import make_prefill
+
+    cfg = get_config("mamba2-2.7b", "smoke")
+    model = build(cfg)
+    params = model.init(0)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 256), device=card)
+    backend.reset_launch_counts()
+    logits = make_prefill(model)(params, tokens=tokens)
+    torch.cuda.synchronize()
+    assert backend.launch_counts()["ssd_scan"] == cfg.num_layers
+    want = make_prefill(model)(params, tokens=tokens, ssd_impl="chunked")
     agree = (logits.argmax(-1) == want.argmax(-1)).float().mean()
     assert float(agree) > 0.95

@@ -37,9 +37,9 @@ from repro_torch.models.model_zoo import padded_vocab
 from repro_torch.train import greedy_generate, make_decode_step, make_prefill
 
 DENSE = ["llama3-8b", "gemma-7b", "qwen1.5-4b", "qwen2-72b"]
-NOT_DENSE = {"dbrx-132b": "moe", "llama4-maverick-400b-a17b": "moe",
-             "mamba2-2.7b": "ssm", "jamba-v0.1-52b": "hybrid",
-             "seamless-m4t-large-v2": "encdec", "internvl2-1b": "vlm"}
+NOT_PORTED = {"dbrx-132b": "moe", "llama4-maverick-400b-a17b": "moe",
+              "jamba-v0.1-52b": "hybrid",
+              "seamless-m4t-large-v2": "encdec", "internvl2-1b": "vlm"}
 F32_TOL = dict(rtol=1e-4, atol=1e-4)
 DECODE_TOL = dict(rtol=2e-3, atol=2e-3)
 
@@ -278,14 +278,14 @@ def test_params_from_numpy_rejects_a_shape_that_differs():
         params_from_numpy(tree, get_config("llama3-8b", "smoke"), "cpu")
 
 
-@pytest.mark.parametrize("arch", sorted(NOT_DENSE))
+@pytest.mark.parametrize("arch", sorted(NOT_PORTED))
 def test_build_raises_for_families_not_ported(arch):
     with pytest.raises(NotImplementedError,
-                       match=f"{NOT_DENSE[arch]} family.*ROADMAP.md"):
+                       match=f"{NOT_PORTED[arch]} family.*ROADMAP.md"):
         build(get_config(arch, "smoke"), device="cpu")
 
 
-@pytest.mark.parametrize("arch", sorted(NOT_DENSE))
+@pytest.mark.parametrize("arch", sorted(NOT_PORTED))
 def test_params_from_numpy_raises_for_families_not_ported(arch):
     with pytest.raises(NotImplementedError):
         params_from_numpy({}, get_config(arch, "smoke"), "cpu")
