@@ -34,8 +34,10 @@ Phases, each printing one JSON line with its seconds:
 6. llama3-8b prefill at full width and depth (bf16 weights drawn on the
    card from ``--seed``): ``make_prefill`` answers 4 requests of 2048
    tokens; 32 ``flash_attention`` launches; logits held against the same
-   model with ``attention_impl="chunked"`` (the plain version); a profiler
-   breakdown of one prefill by kernel;
+   model with ``attention_impl="chunked"`` (the plain version); one more
+   prefill that holds each layer's kernel output against
+   ``ref.attention_chunked`` on that layer's own q, k and v
+   (``flash_layers``); a profiler breakdown of one prefill by kernel;
 7. llama3-8b generation: ``greedy_generate`` for 4 requests of 64 prompt
    tokens and 32 new ones, twice (the tokens must be identical), and the
    prompt's decode-path logits against ``make_prefill`` on the same prompt
@@ -65,6 +67,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -135,6 +138,37 @@ def median_ms(torch, fn, runs: int = TIMED_RUNS, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
+def ptxas_resources(log: str) -> dict:
+    """nvcc's ``--resource-usage`` report: each kernel's (mangled) name ->
+    its registers and spill lines."""
+    out, name = {}, None
+    for line in log.splitlines():
+        if "Function properties for" in line:
+            name = line.split("Function properties for", 1)[1].strip()
+        elif name and ("registers" in line or "spill" in line):
+            out.setdefault(name, []).append(
+                line.replace("ptxas info    :", "").strip())
+    return out
+
+
+def kernel_label(mangled: str) -> str:
+    """``..._flash_attention_kernel_bf16ILi128EEEv...`` ->
+    ``flash_attention_kernel_bf16<Li128>``: enough to tell the
+    instantiations apart."""
+    pos = mangled.find("_ZN") + 3
+    while 2 < pos < len(mangled):
+        m = re.match(r"\d+", mangled[pos:])
+        if not m:
+            break
+        start = pos + len(m[0])
+        pos = start + int(m[0])
+        name = mangled[start:pos]
+        if "kernel" in name:
+            args = re.match(r"I(.*?)EE", mangled[pos:])
+            return f"{name}<{args[1]}>" if args else name
+    return mangled
+
+
 def phase_device(torch, build) -> dict:
     t0 = time.perf_counter()
     smi = subprocess.run(
@@ -142,9 +176,8 @@ def phase_device(torch, build) -> dict:
          "--format=csv,noheader"],
         check=True, capture_output=True, text=True).stdout.strip()
     built = build.build()
-    resources = [line.strip() for info in built.values()
-                 for line in info["log"].splitlines()
-                 if "registers" in line or "spill" in line]
+    resources = {kernel_label(name): lines for info in built.values()
+                 for name, lines in ptxas_resources(info["log"]).items()}
     src = torch.empty(COPY_BYTES, dtype=torch.uint8, device="cuda")
     dst = torch.empty_like(src)
     copy_ms = median_ms(torch, lambda: dst.copy_(src))
@@ -341,14 +374,18 @@ def phase_grad_mag(torch, seed: int, copy_rate: float) -> dict:
             "seconds": time.perf_counter() - t0, "results": cases}
 
 
-# name, (B, Hq, Hkv, Sq, Sk, D), causal, dtype, timed runs.  The main path
-# is one llama3-8b layer of phase 6's prefill; the 32k layer is
+# name, (B, Hq, Hkv, Sq, Sk, D), causal, dtype, timed runs, q and k as
+# transposed [B, S, H, D] views (v always is one).  The main path is one
+# llama3-8b layer of phase 6's prefill; the 32k layer is
 # SHAPES["prefill_32k"] for one request; then tests/test_kernels.py:53-60
-# in f32 and bf16, and ragged lengths.
+# in f32 and bf16, ragged lengths, and bf16 cases across the tensor-core
+# kernel's tile edges (128 query rows; 128 keys, 64 at D = 256).
 FLASH_CASES = [
-    ("main_path", (4, 32, 8, 2048, 2048, 128), True, "bfloat16", TIMED_RUNS),
-    ("prefill_32k_layer", (1, 32, 8, 32768, 32768, 128), True, "bfloat16", 3),
-    *[(f"{name}_{dt}", shape, causal, dt, TIMED_RUNS)
+    ("main_path", (4, 32, 8, 2048, 2048, 128), True, "bfloat16", TIMED_RUNS,
+     False),
+    ("prefill_32k_layer", (1, 32, 8, 32768, 32768, 128), True, "bfloat16", 3,
+     False),
+    *[(f"{name}_{dt}", shape, causal, dt, TIMED_RUNS, False)
       for dt in ("float32", "bfloat16")
       for name, shape, causal in [
           ("gqa2", (2, 4, 2, 128, 128, 64), True),
@@ -359,6 +396,12 @@ FLASH_CASES = [
           ("ragged_1000", (1, 4, 2, 1000, 1000, 128), True),
           ("one_row_sk777", (3, 5, 5, 1, 777, 64), True),
           ("odd_heads", (3, 7, 7, 129, 129, 64), True)]],
+    ("gemma_d256_ragged_1000", (1, 16, 2, 1000, 1000, 256), True, "bfloat16",
+     TIMED_RUNS, False),
+    ("sq_lt_sk_200_328", (2, 32, 8, 200, 328, 128), True, "bfloat16",
+     TIMED_RUNS, False),
+    *[(f"qk_transposed_{dt}", (2, 8, 2, 300, 300, 64), True, dt, TIMED_RUNS,
+       True) for dt in ("float32", "bfloat16")],
 ]
 
 
@@ -408,17 +451,21 @@ def phase_flash(torch, seed: int, copy_rate: float) -> dict:
 
     t0 = time.perf_counter()
     cases = []
-    for i, (name, shape, causal, xd, runs) in enumerate(FLASH_CASES):
+    for i, (name, shape, causal, xd, runs, qk_t) in enumerate(FLASH_CASES):
         dtype = getattr(torch, xd)
         g = torch.Generator(device="cuda").manual_seed(seed * 1000 + 800 + i)
         B, Hq, Hkv, Sq, Sk, D = shape
-        q = torch.randn((B, Hq, Sq, D), generator=g, device="cuda",
-                        dtype=dtype)
-        k = torch.randn((B, Hkv, Sk, D), generator=g, device="cuda",
-                        dtype=dtype)
-        # v as the attention layer hands it over: a transposed view
-        v = torch.randn((B, Sk, Hkv, D), generator=g, device="cuda",
-                        dtype=dtype).transpose(1, 2)
+
+        def draw(heads, seq, transposed):
+            if transposed:  # as the attention layer hands it over
+                return torch.randn((B, seq, heads, D), generator=g,
+                                   device="cuda", dtype=dtype).transpose(1, 2)
+            return torch.randn((B, heads, seq, D), generator=g,
+                               device="cuda", dtype=dtype)
+
+        q = draw(Hq, Sq, qk_t)
+        k = draw(Hkv, Sk, qk_t)
+        v = draw(Hkv, Sk, True)
         # the plain version ops.flash_attention takes on CPU tensors
         plain = ref.attention_chunked if Sq >= 1024 else ref.attention
         got = kflash.flash_attention(q, k, v, causal=causal)
@@ -446,7 +493,8 @@ def phase_flash(torch, seed: int, copy_rate: float) -> dict:
         library_ms = (sdpa_ms(torch, q, k, v, causal, runs)
                       if Sq == Sk and xd == "bfloat16" else None)
         case = {"name": name, "shape": [B, Hq, Hkv, Sq, Sk, D],
-                "causal": causal, "dtype": xd, "max_abs_err": err,
+                "causal": causal, "dtype": xd, "qk_transposed": qk_t,
+                "max_abs_err": err,
                 "tol": tol, "rel_l2": l2, "rel_l2_limit": FLASH_REL_L2[xd],
                 "runs": runs, "ms": ms, "plain_ms": plain_ms,
                 "plain": plain.__name__, "library_ms": library_ms,
@@ -1044,7 +1092,9 @@ def plain_mamba_prefill(model, params, tokens):
 # tools/depth_spread.py's readings and the chip's.  So its kernel is held
 # layer by layer on the bf16 serving run (ssd_layers), its logits to
 # MAMBA_PREFILL_REL_L2, and its decode check runs with f32 activations over
-# the same bf16-stored weights.
+# the same bf16-stored weights.  Both kernels are held layer by layer
+# (LAYER_HOLDS): the bf16 tensor-core flash kernel rounds P to bf16, so its
+# depth error is read per layer as well as in the logits.
 LM_PHASES = {
     "llama": (LLAMA, "flash_attention", plain_llama_prefill, PREFILL_REL_L2,
               None),
@@ -1052,42 +1102,63 @@ LM_PHASES = {
               "float32")}
 
 
-def ssd_layers(torch, model, params, tokens) -> dict:
-    """One bf16 prefill with each layer's SSD held: the kernel against
-    ``ref.ssd_scan_chunked`` on that layer's own inputs, within SSD_TOL and
-    SSD_REL_L2.  Returns the largest error over the layers."""
-    from repro_torch.kernels import ops, ref
+def held_layers(torch, model, params, tokens, op: str, plain, tol,
+                l2_limit) -> dict:
+    """One bf16 prefill with each layer's kernel held: ``ops.<op>`` against
+    ``plain`` on that layer's own inputs, within ``tol`` elementwise and
+    ``l2_limit`` relative L2.  Returns the largest and median errors over
+    the layers."""
+    from repro_torch.kernels import ops
     from repro_torch.train import make_prefill
 
-    kernel_ssd = ops.ssd
+    kernel = getattr(ops, op)
     errs, l2s = [], []
 
-    def held(x, dt, a, b, c, *, d_skip=None, impl="auto", chunk=SSD_CHUNK):
-        check(impl == "auto" and x.is_cuda, f"ssd_layers: impl {impl}")
-        got = kernel_ssd(x, dt, a, b, c, d_skip=d_skip)
-        want = ref.ssd_scan_chunked(x, dt, a, b, c, chunk=SSD_CHUNK,
-                                    d_skip=d_skip)
-        xd = str(x.dtype).removeprefix("torch.")
+    def held(*args, impl="auto", chunk=None, **kw):
+        check(impl == "auto" and args[0].is_cuda, f"{op} layers: impl {impl}")
+        got = kernel(*args, **kw)
+        want = plain(*args, **kw)
+        xd = str(got.dtype).removeprefix("torch.")
         layer = len(errs)
-        torch.testing.assert_close(got.float(), want.float(),
-                                   rtol=SSD_TOL[xd], atol=SSD_TOL[xd],
-                                   msg=f"ssd_scan, mamba layer {layer}")
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol[xd],
+                                   atol=tol[xd], msg=f"{op}, layer {layer}")
         errs.append(float((got.float() - want.float()).abs().max()))
         l2s.append(rel_l2(torch, got, want))
-        check(l2s[-1] < SSD_REL_L2[xd], f"ssd_scan, mamba layer {layer}: "
-              f"relative L2 {l2s[-1]} >= {SSD_REL_L2[xd]}")
+        check(l2s[-1] < l2_limit[xd], f"{op}, layer {layer}: relative L2 "
+              f"{l2s[-1]} >= {l2_limit[xd]}")
         return got
 
-    ops.ssd = held
+    setattr(ops, op, held)
     try:
         make_prefill(model)(params, tokens=tokens)
     finally:
-        ops.ssd = kernel_ssd
-    check(len(errs) == model.cfg.num_layers, f"ssd_layers: {len(errs)}")
+        setattr(ops, op, kernel)
+    check(len(errs) == model.cfg.num_layers, f"{op} layers: {len(errs)}")
     return {"layers": len(errs), "max_abs_err": max(errs),
+            "median_abs_err": statistics.median(errs),
             "max_rel_l2": max(l2s), "median_rel_l2": statistics.median(l2s),
-            "tol": SSD_TOL["bfloat16"],
-            "rel_l2_limit": SSD_REL_L2["bfloat16"]}
+            "tol": tol["bfloat16"], "rel_l2_limit": l2_limit["bfloat16"]}
+
+
+def plain_ssd(x, dt, a, b, c, *, d_skip=None):
+    from repro_torch.kernels import ref
+
+    return ref.ssd_scan_chunked(x, dt, a, b, c, chunk=SSD_CHUNK,
+                                d_skip=d_skip)
+
+
+def plain_attention(q, k, v, causal=True):
+    from repro_torch.kernels import ref
+
+    return ref.attention_chunked(q, k, v, causal=causal)
+
+
+# kernel -> (its line's key, its ops entry point, the plain version, the
+# elementwise and relative-L2 limits) for the per-layer hold
+LAYER_HOLDS = {
+    "flash_attention": ("flash_layers", "flash_attention", plain_attention,
+                        TOL, FLASH_REL_L2),
+    "ssd_scan": ("ssd_layers", "ssd", plain_ssd, SSD_TOL, SSD_REL_L2)}
 
 
 def phase_prefill(torch, seed: int, backend, which: str):
@@ -1136,8 +1207,9 @@ def phase_prefill(torch, seed: int, backend, which: str):
           f"{diff['rel_l2']} against the plain run")
     del want, logits
     torch.cuda.empty_cache()
-    extra = ({"ssd_layers": ssd_layers(torch, model, params, tokens)}
-             if kernel == "ssd_scan" else {})
+    key, op, plain, tol, l2_limit = LAYER_HOLDS[kernel]
+    extra = {key: held_layers(torch, model, params, tokens, op, plain, tol,
+                              l2_limit)}
     breakdown = profile_breakdown(torch, lambda: prefill(params,
                                                          tokens=tokens),
                                   kernel=kernel)

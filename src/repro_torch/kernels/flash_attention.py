@@ -6,16 +6,23 @@ Replaces the Pallas TPU kernel ``repro/kernels/flash_attention.py``:
 :func:`repro_torch.kernels.ref.attention` and
 :func:`repro_torch.kernels.ref.attention_chunked`.
 
-The kernel is bound by operations (see the source): one thread block owns a
-(batch, query head, tile of 64 query rows), walks the key tiles from 0
-upward with the online-softmax state in registers, and skips the tiles the
-causal mask hides.  It reads q, k and v through their strides, so the
-transposed views the attention layer hands over are not copied.
+The kernel is bound by operations (see the source).  bf16 inputs run on the
+bf16 tensor cores: a thread block owns a (batch, query head, tile of 128
+query rows); a producer warpgroup streams K and V tiles with TMA into a
+two-stage ring in shared memory, and two consumer warpgroups, 64 rows each,
+compute Q·Kᵀ and P·V with ``wgmma`` (P rounded to bf16 in registers) and
+keep the online-softmax state in registers.  f32 inputs run on a second
+instantiation on the f32 cores, held to 3e-5.  Both walk the key tiles from
+0 upward and skip the tiles the causal mask hides, and both read q, k and v
+through their strides, so the transposed views the attention layer hands
+over are not copied.
 
-The wrapper checks shapes, dtype, head_dim and the stride along head_dim and
-raises on anything the kernel does not take, allocates the output with
-``torch.empty``, launches on the current stream without synchronising,
-raises if the launch is refused, and counts its launches.
+The wrapper checks shapes, dtype, head_dim and the strides and raises on
+anything the kernel does not take (for bf16, TMA needs the base pointers
+and the batch, head and sequence strides in multiples of 16 bytes),
+allocates the output with ``torch.empty``, launches on the current stream
+without synchronising, raises if the launch is refused, and counts its
+launches.
 """
 
 from __future__ import annotations
@@ -33,6 +40,8 @@ HEAD_DIMS = (16, 32, 64, 128, 256)
 #: blockIdx.y carries batch * query heads
 MAX_BATCH_HEADS = 65535
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+#: TMA's alignment of a tensor's base address and strides, in bytes
+TMA_ALIGN = 16
 
 launches = LaunchCounter("flash_attention")
 
@@ -57,6 +66,14 @@ def _bind():
     return _bound
 
 
+def _strides(t: torch.Tensor) -> tuple:
+    """Element strides of [B, H, S, D] along B, H and S; a dimension of
+    size 1 is never stepped along, so its stride is given as D (any
+    multiple of 16 bytes would do)."""
+    return tuple(t.stride(i) if t.shape[i] > 1 else t.shape[3]
+                 for i in range(3))
+
+
 def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  causal: bool) -> None:
     """Raise on anything the kernel does not take.  The device is checked
@@ -78,6 +95,16 @@ def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.stride(3) != 1 or k.stride(3) != 1 or v.stride(3) != 1:
         raise ValueError("q, k and v need stride 1 along head_dim (the "
                          "wrapper does not copy)")
+    if q.dtype == torch.bfloat16:
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            size = t.element_size()
+            if (t.data_ptr() % TMA_ALIGN
+                    or any(st <= 0 or st * size % TMA_ALIGN
+                           for st in _strides(t))):
+                raise ValueError(
+                    f"bf16 {name}: base pointer and batch, head and sequence "
+                    f"strides {t.stride()[:3]} must be positive multiples of "
+                    f"{TMA_ALIGN} bytes (TMA); the wrapper does not copy")
     if B * Hq > MAX_BATCH_HEADS:
         raise ValueError(f"B*Hq={B * Hq} > {MAX_BATCH_HEADS}")
     check_causal(Sq, Sk, causal)
@@ -101,9 +128,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                  B, Hq, Hkv, Sq, Sk, D,
-                 q.stride(0), q.stride(1), q.stride(2),
-                 k.stride(0), k.stride(1), k.stride(2),
-                 v.stride(0), v.stride(1), v.stride(2),
+                 *_strides(q), *_strides(k), *_strides(v),
                  _DTYPE_CODES[q.dtype], int(causal), D ** -0.5, stream)
     if err:
         raise RuntimeError(f"flash_attention kernel launch failed: "

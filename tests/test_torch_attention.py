@@ -245,7 +245,23 @@ def _bad_inputs():
         "shape": ((q, kv, torch.randn(1, 2, 15, 64)), ValueError, "fit"),
         "rank": ((q[0], kv, kv), ValueError, r"\[B, H, S, D\]"),
         "device": ((q, kv, kv), ValueError, "CUDA"),
+        # TMA takes bf16 only at 16-byte base pointers and strides
+        "bf16_seq_stride": (_tma_misaligned("seq_stride"), ValueError,
+                            "16 bytes"),
+        "bf16_base_pointer": (_tma_misaligned("base_pointer"), ValueError,
+                              "16 bytes"),
     }
+
+
+def _tma_misaligned(what, dtype=torch.bfloat16):
+    """bf16-sized q, k, v whose q TMA could not take: a sequence stride of
+    68 elements (136 bytes in bf16), or a base pointer 2 elements in."""
+    kv = torch.randn(1, 2, 16, 64).to(dtype)
+    if what == "seq_stride":
+        q = torch.randn(1, 4, 16, 68).to(dtype)[..., :64]
+    else:
+        q = torch.randn(4 * 16 * 64 + 2).to(dtype)[2:].reshape(1, 4, 16, 64)
+    return q, kv, kv
 
 
 @pytest.mark.parametrize("name", list(_bad_inputs()))
@@ -255,6 +271,28 @@ def test_wrapper_rejects_before_any_launch(name):
     with pytest.raises(exc, match=match):
         kflash.flash_attention(q, k, v, causal=True)
     assert kflash.launches.count == before
+
+
+@pytest.mark.parametrize("what", ["seq_stride", "base_pointer"])
+def test_tma_alignment_is_checked_for_bf16_only(what):
+    """The same misaligned views: bf16 is refused for TMA, f32 passes every
+    check but the device (the f32 kernel reads through plain loads)."""
+    q, k, v = _tma_misaligned(what)
+    with pytest.raises(ValueError, match="16 bytes"):
+        kflash.check_inputs(q, k, v, causal=True)
+    q, k, v = _tma_misaligned(what, torch.float32)
+    with pytest.raises(ValueError, match="CUDA device"):
+        kflash.check_inputs(q, k, v, causal=True)
+
+
+def test_tma_strides_of_size_one_dims_are_not_checked():
+    """A dimension of size 1 is never stepped along: its stride may be
+    anything (a one-row query slice of a wider tensor)."""
+    q = torch.randn(1, 4, 3, 64).to(torch.bfloat16)[:, :, 1:2]
+    kv = torch.randn(1, 2, 16, 64).to(torch.bfloat16)
+    assert kflash._strides(q)[2] == 64
+    with pytest.raises(ValueError, match="CUDA device"):
+        kflash.check_inputs(q, kv, kv, causal=True)
 
 
 def test_wrapper_supported_head_dims_cover_the_dense_archs():

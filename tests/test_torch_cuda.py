@@ -130,7 +130,9 @@ def test_grad_mag_kernel_is_deterministic(card):
 
 
 # B, Hq, Hkv, Sq, Sk, D, causal: tests/test_kernels.py:53-60, then ragged
-# lengths and the llama3-8b layer's heads at a short length
+# lengths and the llama3-8b layer's heads at a short length, then shapes
+# across the bf16 kernel's tile edges (128 query rows; 128 keys, 64 at
+# D = 256)
 ATTN_CASES = [
     (2, 4, 2, 128, 128, 64, True),
     (1, 8, 8, 256, 256, 128, True),
@@ -141,6 +143,9 @@ ATTN_CASES = [
     (3, 5, 5, 1, 777, 64, True),
     (1, 2, 1, 37, 53, 16, False),
     (2, 32, 8, 192, 192, 128, True),
+    (1, 16, 2, 1000, 1000, 256, True),
+    (2, 32, 8, 200, 328, 128, True),
+    (2, 8, 2, 300, 300, 64, True),
 ]
 
 
@@ -167,6 +172,24 @@ def test_flash_attention_kernel_matches_plain_version(card, case, dtype):
     assert got.dtype == dtype and got.is_contiguous()
     torch.testing.assert_close(
         got.float(), ref.attention(q, k, v, causal=causal).float(),
+        rtol=TOL[dtype], atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_takes_transposed_q_k_v(card, dtype):
+    """q, k and v all as the attention layer's transposed [B, S, H, D]
+    views: both instantiations launch and match the plain version."""
+    B, Hq, Hkv, Sq, Sk, D = 2, 8, 2, 300, 300, 64
+    g = torch.Generator(device=card).manual_seed(3)
+    q, k, v = (torch.randn((B, S, H, D), generator=g, device=card,
+                           dtype=dtype).transpose(1, 2)
+               for H, S in ((Hq, Sq), (Hkv, Sk), (Hkv, Sk)))
+    before = kflash.launches.count
+    got = kflash.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert kflash.launches.count == before + 1
+    torch.testing.assert_close(
+        got.float(), ref.attention(q, k, v, causal=True).float(),
         rtol=TOL[dtype], atol=TOL[dtype])
 
 
