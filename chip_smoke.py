@@ -8,7 +8,9 @@ Phases, each printing one JSON line with its seconds:
 0. device and build: the card's name and power limit from ``nvidia-smi``,
    the matmul precision flags (TF32 and reduced-precision bf16 reductions
    off, stated in the line), the kernels compiled with ``nvcc`` from this
-   checkout's sources, and the rate of a 4 GiB device-to-device copy;
+   checkout's sources (registers and spills; the tensor-core instructions
+   of each bf16 LM kernel in its SASS, which must not be 0), and the rate
+   of a 4 GiB device-to-device copy;
 1. every kernel (``composite``, ``grad_mag``, ``flash_attention``,
    ``ssd_scan``) against its plain PyTorch version on the card, at the main
    path's shapes and at ragged ones, with the tolerance stated (and, for
@@ -169,6 +171,26 @@ def kernel_label(mangled: str) -> str:
     return mangled
 
 
+def tensor_core_instructions(build, source: str):
+    """Each kernel of ``csrc/<source>.cu``'s library -> its count of
+    tensor-core instructions (HMMA from ``mma.sync``, HGMMA from ``wgmma``)
+    in the SASS, read with the toolkit's ``cuobjdump``; None where the
+    toolkit has no ``cuobjdump``."""
+    tool = Path(build.find_nvcc()).with_name("cuobjdump")
+    if not tool.is_file():
+        return None
+    sass = subprocess.run([str(tool), "-sass", str(build.library_path(source))],
+                          check=True, capture_output=True, text=True).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = kernel_label(line.split("Function :", 1)[1].strip())
+            counts[name] = 0
+        elif name and re.search(r"\bHG?MMA\.", line):
+            counts[name] += 1
+    return counts
+
+
 def phase_device(torch, build) -> dict:
     t0 = time.perf_counter()
     smi = subprocess.run(
@@ -178,6 +200,23 @@ def phase_device(torch, build) -> dict:
     built = build.build()
     resources = {kernel_label(name): lines for info in built.values()
                  for name, lines in ptxas_resources(info["log"]).items()}
+    for source, symbol in KERNEL_SYMBOLS.items():
+        if source in built:  # the profiler groups every kernel of a source
+            names = [n for n, lines in
+                     ptxas_resources(built[source]["log"]).items()
+                     if any("registers" in line for line in lines)]
+            check(bool(names) and all(symbol in n for n in names),
+                  f"{source}.cu: a kernel name lacks {symbol!r}: "
+                  f"{sorted(names)}")
+    # every bf16 kernel of the LM sources runs its products on the tensor
+    # cores (the SSD's c.b kernel is bf16 only)
+    tensor_ops = {s: tensor_core_instructions(build, s)
+                  for s in ("flash_attention", "ssd_scan")}
+    for source, counts in tensor_ops.items():
+        bf16 = {n: k for n, k in (counts or {}).items()
+                if "bf16" in n or "_cb" in n}
+        check(counts is None or (bool(bf16) and all(bf16.values())),
+              f"{source}.cu: a bf16 kernel has no HMMA/HGMMA: {counts}")
     src = torch.empty(COPY_BYTES, dtype=torch.uint8, device="cuda")
     dst = torch.empty_like(src)
     copy_ms = median_ms(torch, lambda: dst.copy_(src))
@@ -192,7 +231,8 @@ def phase_device(torch, build) -> dict:
             "bf16_reduced_precision_reduction":
                 torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction,
             "built": {n: round(i["seconds"], 3) for n, i in built.items()},
-            "ptxas": resources, "copy_gib": COPY_BYTES / 1024 ** 3,
+            "ptxas": resources, "tensor_core_instructions": tensor_ops,
+            "copy_gib": COPY_BYTES / 1024 ** 3,
             "copy_ms": copy_ms, "copy_bytes_per_s": copy_rate,
             "seconds": time.perf_counter() - t0}
 
@@ -586,17 +626,19 @@ def ssd_bound(shape, x_bytes: int, grouped: bool):
     """Bytes and operations the function needs, and the least time: x, dt,
     a, d and the distinct elements of b and c (one group's when they are
     expanded) read once, y written once; the operations of the chunked
-    algorithm at Q = 128 over the causal pairs only (c.b and W x on the
-    q(q+1)/2 pairs j <= i, then c S and the state update: q(q+1)(N + P) +
-    4qNP a chunk of q tokens), at the inputs' type's peak."""
+    algorithm at Q = 128 over the causal pairs only: per head, W x on the
+    q(q+1)/2 pairs j <= i, then c S and the state update, q(q+1)P + 4qNP a
+    chunk of q tokens; c.b once per group (one when b and c are shared by
+    every head), q(q+1)N a chunk; at the inputs' type's peak."""
     B, L, H, P, N = shape
-    bc = 2 * B * L * N * (1 if grouped else H) * x_bytes
+    groups = 1 if grouped else H
+    bc = 2 * B * L * N * groups * x_bytes
     nbytes = 2 * B * L * H * P * x_bytes + B * L * H * 4 + 2 * H * 4 + bc
     ops = 0
     for q0 in range(0, L, SSD_CHUNK):
         q = min(SSD_CHUNK, L - q0)
-        ops += q * (q + 1) * (N + P) + 4 * q * N * P
-    ops *= B * H
+        ops += H * (q * (q + 1) * P + 4 * q * N * P) + groups * q * (q + 1) * N
+    ops *= B
     peak = PEAK_BF16_OPS_PER_S if x_bytes == 2 else PEAK_F32_OPS_PER_S
     bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
     ops_ms = ops / peak * 1e3
@@ -661,7 +703,9 @@ def phase_ssd(torch, seed: int, copy_rate: float) -> dict:
             "seconds": time.perf_counter() - t0, "results": cases}
 
 
-#: kernel group -> a substring of its CUDA kernel's name
+#: kernel group (and source, csrc/<group>.cu) -> a substring of the name of
+#: every CUDA kernel in that source (checked in phase 0): the SSD's c.b
+#: kernel and scan both fall in the ssd_scan group
 KERNEL_SYMBOLS = {"flash_attention": "flash_attention_kernel",
                   "ssd_scan": "ssd_scan_kernel"}
 

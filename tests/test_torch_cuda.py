@@ -296,6 +296,30 @@ def test_ssd_scan_kernel_strongly_decaying_head_gives_no_nan(card):
                                rtol=5e-4, atol=5e-4)
 
 
+@pytest.mark.parametrize("skip", [True, False], ids=["d_skip", "no_d"])
+@pytest.mark.parametrize("grouped", [True, False], ids=["stride0", "contig"])
+@pytest.mark.parametrize("P,N", [(16, 8), (64, 16), (64, 128), (128, 128)])
+@pytest.mark.parametrize("L", [1, 127, 128, 129, 2049])
+def test_ssd_scan_bf16_kernel_across_chunk_and_tile_edges(card, L, P, N,
+                                                          grouped, skip):
+    """The bf16 tensor-core path at the edges of its 64-token chunks and
+    16x16 tiles: a chunk of one token, one short of two, exactly two, one
+    past, and one past 32; b and c shared by every head (stride 0, one c·b
+    a chunk) or one per head; with and without the D-skip.  Elementwise
+    2e-2 and relative L2 5e-3 (chip_smoke.py's SSD_TOL / SSD_REL_L2)."""
+    x, dt, a, b, c, d = _ssd_inputs(card, (1, L, 3, P, N), torch.bfloat16,
+                                    seed=L + P + N, grouped=grouped)
+    d = d if skip else None
+    got = kssd.ssd_scan(x, dt, a, b, c, d_skip=d)
+    want = ref.ssd_scan(x, dt, a, b, c, d_skip=d)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                               atol=2e-2)
+    diff = (got.float() - want.float()).norm()
+    assert float(diff / want.float().norm()) < 5e-3
+
+
 def test_ssd_scan_kernel_is_deterministic(card):
     x, dt, a, b, c, d = _ssd_inputs(card, (2, 512, 8, 64, 128),
                                     torch.bfloat16, seed=3)

@@ -286,3 +286,164 @@ def test_wrapper_takes_stride_0_views_and_bf16():
     c = c[:, :, :1].expand_as(c)
     with pytest.raises(ValueError, match="CUDA device"):
         kssd.check_inputs(x, dt, a, b, c, d)
+
+
+# ---------------------------------------------------------------------------
+# the bf16 kernel's arithmetic, rehearsed on the CPU
+# ---------------------------------------------------------------------------
+def _bf16_terms(v, split):
+    """v (f32) as the tensor cores take it: bf16(v), plus bf16(v - hi) where
+    the kernel splits the operand into two MMAs; in f64."""
+    hi = v.to(torch.bfloat16).double()
+    return hi + (v.double() - hi).to(torch.bfloat16).double() if split else hi
+
+
+def kernel_arithmetic(x, dt, a, b, c, d_skip=None, split=True):
+    """A plain model of the bf16 kernel's rounding (csrc/ssd_scan.cu,
+    ssd_scan_kernel_cb and ssd_scan_kernel_bf16), chunks of 64 tokens: c·b
+    in f32; W = c·b exp(cum_i - cum_j) dt_j in f32, then bf16; the state S
+    (f32 across chunks) in bf16 where it enters c·S; x exp(cum_Q - cum_j)
+    dt_j in bf16 in the state update.  With ``split`` each of the three is
+    bf16 hi + lo, as the kernel takes them; without, one rounding.  x, b
+    and c are bf16 inputs and enter as they are; the products are summed
+    in f64 here and in f32 on the card."""
+    B, L, H, P = x.shape
+    xd, bd, cd = x.double(), b.double(), c.double()
+    S = torch.zeros((B, H, P, b.shape[-1]), dtype=torch.float32)
+    y = torch.empty((B, L, H, P), dtype=torch.float64)
+    for l0 in range(0, L, kssd.CHUNK):
+        sl = slice(l0, min(L, l0 + kssd.CHUNK))
+        q = sl.stop - l0
+        cum = torch.cumsum(a[None, None] * dt[:, sl], 1)          # [B,q,H]
+        total = cum[:, -1]
+        cb = torch.einsum("bihn,bjhn->bhij", cd[:, sl], bd[:, sl]).float()
+        diff = (cum[:, :, None] - cum[:, None, :]).permute(0, 3, 1, 2)
+        w = torch.where(torch.ones(q, q, dtype=torch.bool).tril(),
+                        cb * torch.exp(diff)
+                        * dt[:, sl].permute(0, 2, 1)[:, :, None, :],
+                        torch.zeros(()))
+        inter = torch.einsum("bihn,bhpn->bhip", cd[:, sl],
+                             _bf16_terms(S, split))
+        yy = (inter * torch.exp(cum).permute(0, 2, 1)[..., None].double()
+              + torch.einsum("bhij,bjhp->bhip", _bf16_terms(w, split),
+                             xd[:, sl])).permute(0, 2, 1, 3)
+        if d_skip is not None:
+            yy = yy + d_skip.double()[None, None, :, None] * xd[:, sl]
+        y[:, sl] = yy
+        f = torch.exp(total[:, None] - cum) * dt[:, sl]            # [B,q,H]
+        xf = _bf16_terms(x[:, sl].float() * f[..., None], split)
+        S = torch.exp(total)[..., None, None] * S + torch.einsum(
+            "bjhp,bjhn->bhpn", xf, bd[:, sl]).float()
+    return y.float().to(x.dtype)
+
+
+def _model_like(B, L, H, P, N, seed):
+    """mamba2's SSD inputs at a layer: a = -(1..H) (A_log = log(1..H)),
+    dt = softplus(normal + dt_bias) with dt_bias from dt in [1e-3, 1e-1],
+    one group of b and c; x, b, c unit normal."""
+    rng = np.random.default_rng(seed)
+    x, _, _, b, c, d = _inputs(B, L, H, P, N, seed=seed)
+    a = -np.arange(1, H + 1, dtype=np.float32)
+    dt0 = np.exp(rng.uniform(np.log(1e-3), np.log(1e-1), H))
+    bias = dt0 + np.log(-np.expm1(-dt0))
+    dt = np.logaddexp(rng.standard_normal((B, L, H)) + bias,
+                      0).astype(np.float32)
+    return x, dt, a, b[:, :, :1], c[:, :, :1], d
+
+
+def _gate_ratio(got, want, tol=2e-2):
+    """max |got - want| / (tol + tol |want|): at most 1 passes
+    assert_allclose(rtol=tol, atol=tol); and the relative L2."""
+    got, want = _f32(got).astype(np.float64), _f32(want).astype(np.float64)
+    err = np.abs(got - want)
+    return (float((err / (tol + tol * np.abs(want))).max()),
+            float(np.linalg.norm(got - want) / np.linalg.norm(want)))
+
+
+# name, B, L, H, P, N, inputs
+ROUNDING_CASES = [
+    ("mamba2_heads", 1, 512, 4, 64, 128, "model"),
+    ("mamba2_ragged", 2, 300, 3, 64, 128, "model"),
+    ("unit_normal_n128", 1, 256, 4, 64, 128, "normal"),
+    ("n8", 2, 256, 4, 16, 8, "normal"),
+    ("n16", 1, 320, 8, 32, 16, "normal"),
+    ("p128", 1, 192, 2, 128, 128, "normal"),
+    ("strong_decay", 1, 256, 2, 64, 128, "strong"),
+]
+
+
+def _case_arrays(case):
+    _, B, L, H, P, N, kind = case
+    if kind == "model":
+        arrays = _model_like(B, L, H, P, N, seed=11)
+        return arrays[:3] + tuple(np.broadcast_to(v, (B, L, H, N)).copy()
+                                  for v in arrays[3:5]) + arrays[5:]
+    return _inputs(B, L, H, P, N, seed=12, **(
+        dict(a_scale=-np.exp(3.0), dt_max=5.0) if kind == "strong" else {}))
+
+
+@pytest.mark.parametrize("case", ROUNDING_CASES, ids=lambda c: c[0])
+def test_kernel_arithmetic_meets_the_bf16_gates(case):
+    """The bf16 kernel's rounding, hi + lo where it splits, held against
+    the sequential recurrence and against the Pallas kernel in interpret
+    mode, to the card's bf16 gates: 2e-2 elementwise, 5e-3 relative L2
+    (tools/ssd_rounding.py prints the margins)."""
+    L = case[2]
+    arrays = _case_arrays(case)
+    x, dt, a, b, c, d = _torch(arrays, "bfloat16")
+    got = kernel_arithmetic(x, dt, a, b, c, d_skip=d)
+    assert torch.isfinite(got).all()
+    ratio, l2 = _gate_ratio(got, ref.ssd_scan(x, dt, a, b, c, d_skip=d))
+    assert ratio <= 1.0 and l2 < 5e-3, (ratio, l2)
+    if L % 64 == 0:
+        jx, jdt, ja, jb, jc, jd = _jax(arrays, "bfloat16")
+        pallas = ssd_scan_fwd(jx, jdt, ja, jb, jc, chunk=64, d_skip=jd,
+                              interpret=True)
+        ratio, l2 = _gate_ratio(got, pallas)
+        assert ratio <= 1.0 and l2 < 5e-3, (ratio, l2)
+
+
+def test_one_bf16_rounding_would_miss_the_elementwise_gate():
+    """Why the kernel splits S, W and the scaled x into hi + lo: rounded
+    once to bf16, unit-normal inputs at N = 128 (tests/test_torch_cuda.py's
+    draws) miss the 2e-2 elementwise gate, while the relative L2 stays
+    under 5e-3."""
+    x, dt, a, b, c, d = _torch(_inputs(1, 256, 4, 64, 128, seed=12),
+                               "bfloat16")
+    want = ref.ssd_scan(x, dt, a, b, c, d_skip=d)
+    ratio, l2 = _gate_ratio(
+        kernel_arithmetic(x, dt, a, b, c, d_skip=d, split=False), want)
+    assert ratio > 1.0 and l2 < 5e-3, (ratio, l2)
+    ratio, _ = _gate_ratio(kernel_arithmetic(x, dt, a, b, c, d_skip=d), want)
+    assert ratio <= 1.0
+
+
+@pytest.mark.parametrize("change", ["x_offset", "b_seq_stride", "c_base"])
+def test_cp_async_alignment_is_checked_for_bf16_only(change):
+    """bf16 x, b and c are copied with 16-byte cp.async: a base pointer or a
+    stride that is not a multiple of 16 bytes is refused before any launch;
+    the same views in f32 pass every check but the device (the f32 kernel
+    reads through plain loads)."""
+    def views(dtype):
+        x, dt, a, b, c, d = _wrapper_inputs(L=16, H=2, P=16, N=16, dtype=dtype)
+        if change == "x_offset":
+            x = torch.zeros((1, 16, 2, 20), dtype=dtype)[..., 4:]
+        elif change == "b_seq_stride":
+            b = torch.zeros((1, 16, 2, 20), dtype=dtype)[..., :16]
+        else:
+            c = torch.zeros((1, 16, 2, 17), dtype=dtype)[..., 1:]
+        return x, dt, a, b, c, d
+
+    with pytest.raises(ValueError, match="16 bytes"):
+        kssd.check_inputs(*views(torch.bfloat16))
+    with pytest.raises(ValueError, match="CUDA device"):
+        kssd.check_inputs(*views(torch.float32))
+
+
+def test_cb_groups_is_one_only_where_b_and_c_are_shared():
+    x, dt, a, b, c, d = _wrapper_inputs(H=4, dtype=torch.bfloat16)
+    shared_b, shared_c = b[:, :, :1].expand_as(b), c[:, :, :1].expand_as(c)
+    assert kssd.cb_groups(shared_b, shared_c) == 1
+    assert kssd.cb_groups(shared_b, c) == 4
+    assert kssd.cb_groups(b, c) == 4
+    assert kssd.cb_groups(b[:, :, :1], c[:, :, :1]) == 1
