@@ -33,31 +33,52 @@ Phases, each printing one JSON line with its seconds:
    step (each step timed), its fields against the ground truth;
 5. the §V.B campaign over phase 3's four stacks: ``run_segmentation_campaign``
    on 4 worker threads, byte-identical to the single-process path;
-6. llama3-8b prefill at full width and depth (bf16 weights drawn on the
+6. one Landsat 8 OLI Level-1 frame at its real size (7800 x 7900 px, 4
+   bands of uint16 DN, with nodata borders, made by
+   ``apps.calibration.make_raw_scene`` from ``--seed``) through
+   ``process_scene`` on the card in 512 px tiles: the stored tiles,
+   reassembled, must be bit-identical to the port's CPU calibration of the
+   same DN array; the stages' seconds (chunk read and decode, copy in,
+   device ops, copy out, tile encode and put) and the peak device memory;
+7. the §V.A campaign: 4 scenes of 1024 px (cut from the frame's size: host
+   synthesis) on 4 worker threads over a flaky store, byte-identical to
+   single-process ``process_scene`` on the card, with failures injected;
+8. the serving tier: ``serve.TileFleet`` serves phase 3's first composite
+   pyramid under the tile-server example's Zipf spike trace (all requests
+   served; hit rate and p50/p99 in the DES's virtual time), and every tile
+   of the trace's universe is byte-identical to a direct pyramid read;
+9. the three port examples (``repro_torch.examples.global_composite``,
+   ``field_segmentation``, ``tile_server``), each in its own process on
+   the card, all at once: exit code 0, the marker, and launches of the
+   kernel each runs (``composite``; ``grad_mag``; ``composite``), read
+   in that phase's line only: they include the examples' own cross-checks;
+10. llama3-8b prefill at full width and depth (bf16 weights drawn on the
    card from ``--seed``): ``make_prefill`` answers 4 requests of 2048
    tokens; 32 ``flash_attention`` launches; logits held against the same
    model with ``attention_impl="chunked"`` (the plain version); one more
    prefill that holds each layer's kernel output against
    ``ref.attention_chunked`` on that layer's own q, k and v
    (``flash_layers``); a profiler breakdown of one prefill by kernel;
-7. llama3-8b generation: ``greedy_generate`` for 4 requests of 64 prompt
+11. llama3-8b generation: ``greedy_generate`` for 4 requests of 64 prompt
    tokens and 32 new ones, twice (the tokens must be identical), and the
    prompt's decode-path logits against ``make_prefill`` on the same prompt
    (tests/test_models.py:115-126's criterion); a profiler breakdown of one
    decode step;
-8. mamba2-2.7b prefill at full width and depth, as phase 6: 64
+12. mamba2-2.7b prefill at full width and depth, as phase 10: 64
    ``ssd_scan`` launches; logits held against the same model with the SSD's
    chunked plain version (``ssd_impl="chunked"``), and one more prefill
    that holds each layer's kernel output against the plain version on that
    layer's own inputs;
-9. mamba2-2.7b generation, as phase 7, with the decode check in f32
+13. mamba2-2.7b generation, as phase 11, with the decode check in f32
    activations: no ``ssd_scan`` launch in decode (the decode path has no
    kernel), 64 in the check's prefill;
-10. summary: the ``kernels`` line, the peak device memory, the
+14. summary: the ``kernels`` line, the peak device memory, the
     ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.
 
-The launch counts are set to 0 just before each main-path run (phases 2-9)
-and read just after it.
+The launch counts are set to 0 just before each main-path run (phases 2-7
+and 10-13) and read just after it; the ``kernels`` line adds those
+counts.  Each example process counts its own from 0, and phase 8 runs no
+device work.
 
 Any mismatch raises and the script exits nonzero.  Without CUDA, or run
 from a directory that holds nothing else of the repository, it exits
@@ -69,6 +90,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
 import re
 import statistics
 import subprocess
@@ -1079,6 +1101,237 @@ def phase_seg_campaign(torch, backend, cs, names, dev) -> dict:
             "campaign_s": campaign_s, "seconds": time.perf_counter() - t0}
 
 
+#: one Landsat 8 OLI Level-1 frame at 30 m, about 7,800 x 7,900 px (USGS
+#: Landsat 8 Data Users Handbook), in ImageryConfig.bands bands of uint16 DN
+FRAME_H, FRAME_W = 7800, 7900
+#: 512 x 512 x 4 f32 = 4 MiB tiles, Table IV's block optimum
+#: (configs/festivus_imagery.py:32,43)
+CAL_TILE_PX = 512
+#: the campaign's scenes, cut from the frame's size to keep host synthesis
+#: short (4 of 1024 px instead of 7800 x 7900)
+CAL_SCENES, CAL_SCENE_PX = 4, 1024
+#: the flaky store's failure rate: about 10 of the campaign's ~104 store
+#: operations fail for any --seed (none with probability 0.9**104, 2e-5),
+#: each retried by Festivus
+CAL_FAILURE_RATE = 0.1
+#: the tile-server example's trace and fleet (examples/tile_server.py:60-70),
+#: its 16 px tiles scaled with the tile (a quarter of it) and its cache
+#: (2 MiB of 4 KiB tiles) kept at 512 tiles
+SERVE_SPIKE = (1.0, 1.6, 6.0)
+SERVE_CACHE_TILES = 512
+#: each port example and the kernels it must launch on the card
+EXAMPLES = {"global_composite": ("GLOBAL_COMPOSITE_OK", ("composite",)),
+            "field_segmentation": ("FIELD_SEGMENTATION_OK", ("grad_mag",)),
+            "tile_server": ("TILE_SERVER_OK", ("composite",))}
+EXAMPLE_TIMEOUT_S = 300
+
+
+def tile_index(name: str):
+    """'<scene>/t<ty>_<tx>' -> (ty, tx)."""
+    ty, tx = name.rsplit("/t", 1)[1].split("_")
+    return int(ty), int(tx)
+
+
+def phase_calibration_scene(torch, seed: int, backend, dev) -> dict:
+    from repro_torch.apps import calibration as cal
+    from repro_torch.configs.festivus_imagery import DEFAULT as cfg
+    from repro_torch.core import ChunkStore, Festivus, InMemoryObjectStore
+
+    t0 = time.perf_counter()
+    store = InMemoryObjectStore()
+    cs = ChunkStore(Festivus(store), "raw")
+    meta = cal.make_raw_scene(cs, "scenes/frame", FRAME_H, FRAME_W,
+                              cfg.bands, seed=seed)
+    synth_s = time.perf_counter() - t0
+    out_cs = ChunkStore(cs.fs, "calibrated")
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    timings = {}
+    backend.reset_launch_counts()
+    t1 = time.perf_counter()
+    res = cal.process_scene(cs, out_cs, "scenes/frame", tile_px=CAL_TILE_PX,
+                            device=dev, timings=timings)
+    scene_s = time.perf_counter() - t1
+    launches = backend.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+
+    raw = cs.open("scenes/frame/dn").read_all()
+    t2 = time.perf_counter()
+    rect, want = cal.calibrate_scene(raw, meta, "cpu")
+    cpu_s = time.perf_counter() - t2
+    check(list(rect) == res["rect"], f"calibration: rect {res['rect']}")
+    check(want.dtype == np.float32 and want.shape[2] == cfg.bands,
+          "calibration: reflectance dtype or shape")
+    got = np.zeros_like(want)
+    names = out_cs.list_arrays()
+    for name in names:
+        ty, tx = tile_index(name)
+        tile = out_cs.open(name).read_all()
+        got[ty * CAL_TILE_PX:ty * CAL_TILE_PX + tile.shape[0],
+            tx * CAL_TILE_PX:tx * CAL_TILE_PX + tile.shape[1]] = tile
+    check(got.tobytes() == want.tobytes(),
+          "calibration: the card's reflectance differs from the CPU's")
+    h, w, _ = want.shape
+    nonzero = sum(bool(want[y:y + CAL_TILE_PX, x:x + CAL_TILE_PX].any())
+                  for y in range(0, h, CAL_TILE_PX)
+                  for x in range(0, w, CAL_TILE_PX))
+    check(res["tiles"] == len(names) == nonzero > 0,
+          f"calibration: {res['tiles']} tiles written, {len(names)} stored, "
+          f"{nonzero} expected")
+    check(np.isfinite(want).all() and want.min() >= 0.0
+          and want.max() <= 1.5, "calibration: reflectance out of [0, 1.5]")
+    return {"phase": "calibration_scene", "frame": [FRAME_H, FRAME_W,
+                                                    cfg.bands],
+            "dn_bytes": raw.nbytes, "reflectance_bytes": want.nbytes,
+            "rect": res["rect"], "tile_px": CAL_TILE_PX,
+            "launches": launches,
+            "tiles": res["tiles"], "bit_identical_to_cpu": True,
+            "valid_fraction": float((want.any(axis=-1)).mean()),
+            "synth_s": synth_s, "process_scene_s": scene_s,
+            "breakdown_s": timings, "cpu_calibration_s": cpu_s,
+            "peak_device_bytes": peak,
+            "seconds": time.perf_counter() - t0}
+
+
+def phase_calibration_campaign(torch, seed: int, backend, dev) -> dict:
+    from repro_torch.apps import calibration as cal
+    from repro_torch.configs.festivus_imagery import DEFAULT as cfg
+    from repro_torch.core import (ChunkStore, Festivus, FlakyObjectStore,
+                                  InMemoryObjectStore)
+
+    t0 = time.perf_counter()
+    inner = InMemoryObjectStore()
+    cs_raw = ChunkStore(Festivus(inner), "raw")
+    keys = [f"scenes/s{i}" for i in range(CAL_SCENES)]
+    for i, k in enumerate(keys):
+        cal.make_raw_scene(cs_raw, k, CAL_SCENE_PX, CAL_SCENE_PX, cfg.bands,
+                           seed=seed * 100 + i)
+    synth_s = time.perf_counter() - t0
+    flaky = FlakyObjectStore(inner, failure_rate=CAL_FAILURE_RATE,
+                             seed=seed)
+    cs = ChunkStore(Festivus(flaky, meta=cs_raw.fs.meta), "raw")
+
+    torch.cuda.synchronize()
+    backend.reset_launch_counts()
+    t1 = time.perf_counter()
+    out = cal.run_campaign(cs, cs, keys, num_workers=4, tile_px=CAL_TILE_PX,
+                           device=dev)
+    campaign_s = time.perf_counter() - t1
+    launches = backend.launch_counts()
+    report = out["report"]
+    check(report.all_done and out["scenes"] == CAL_SCENES,
+          "calibration campaign incomplete")
+    check(flaky.injected_failures > 0,
+          "calibration campaign: no store failure was injected")
+
+    single = ChunkStore(cs_raw.fs, "single")
+    for k in keys:
+        check(cal.process_scene(cs_raw, single, k, tile_px=CAL_TILE_PX,
+                                device=dev) == out["results"][k],
+              f"calibration campaign: result differs on {k}")
+    got = [n for n in cs_raw.list_arrays() if "/t" in n]
+    want = single.list_arrays()
+    check(sorted(got) == sorted(want) and want,
+          "calibration campaign: tiles differ from the single process")
+    for name in want:
+        check(cs_raw.open(name).read_all().tobytes()
+              == single.open(name).read_all().tobytes(),
+              f"calibration campaign diverges on {name}")
+    return {"phase": "calibration_campaign", "scenes": CAL_SCENES,
+            "scene_px": CAL_SCENE_PX, "tile_px": CAL_TILE_PX,
+            "reduced": f"{CAL_SCENES} scenes of {CAL_SCENE_PX} px, not "
+                       f"{FRAME_H} x {FRAME_W} frames: host synthesis",
+            "workers": report.nodes, "launches": launches,
+            "tiles": len(want), "byte_identical": True,
+            "queue": report.queue_stats,
+            "failure_rate": CAL_FAILURE_RATE,
+            "injected_store_failures": flaky.injected_failures,
+            "retried_ops": report.festivus_stats.retried_ops,
+            "synth_s": synth_s, "campaign_s": campaign_s,
+            "seconds": time.perf_counter() - t0}
+
+
+def phase_tile_serving(cs, names) -> dict:
+    from repro_torch.serve import (Spike, TileFleet, TileRequest, TileServer,
+                                   tile_bounds, tile_universe,
+                                   zipf_spike_trace)
+
+    t0 = time.perf_counter()
+    target = f"composite/{names[0]}"
+    arr = cs.open(target)
+    levels = arr.spec.pyramid_levels
+    tile_px = arr.spec.shape[0] // 4
+    tile_bytes = tile_px * tile_px * arr.spec.shape[2] * 4
+    universe = tile_universe(arr.spec.shape, levels, tile_px, array=target)
+    spike = Spike(*SERVE_SPIKE)
+    trace = zipf_spike_trace(universe, duration_s=3.0, base_rps=60.0,
+                             alpha=1.1, spikes=(spike,), seed=11)
+    fleet = TileFleet(cs.fs.store.inner, cs.fs.meta, root=cs.root, servers=2,
+                      tile_px=tile_px,
+                      cache_bytes=SERVE_CACHE_TILES * tile_bytes)
+    rep = fleet.run(trace)
+    run_s = time.perf_counter() - t0
+    check(rep.all_served and rep.requests == len(trace),
+          f"tile serving: {rep.completed} of {rep.requests} served")
+
+    srv = TileServer(cs, tile_px=tile_px, cache_bytes=tile_bytes)
+    for _, level, x, y in universe:
+        got = srv.serve(TileRequest(0.0, level, x, y, array=target)).data
+        start, stop = tile_bounds(arr.level_shape(level), tile_px, x, y)
+        check(got.tobytes() == arr.read(start, stop, level=level).tobytes(),
+              f"tile serving: tile ({level}, {x}, {y}) differs")
+    return {"phase": "tile_serving", "array": target,
+            "shape": list(arr.spec.shape), "levels": levels,
+            "tile_px": tile_px, "universe_tiles": len(universe),
+            "requests": rep.requests, "servers": rep.servers,
+            "all_served": True, "byte_identical_tiles": len(universe),
+            "hit_rate": rep.hit_rate, "cache_evictions": rep.cache_evictions,
+            "virtual_p50_s": rep.p50_s, "virtual_p99_s": rep.p99_s,
+            "virtual_spike_p99_s": rep.window_percentile(
+                99, spike.t0, spike.t1 + 0.2),
+            "fleet_run_s": run_s, "seconds": time.perf_counter() - t0}
+
+
+def phase_examples() -> dict:
+    """Each port example in its own process on the card, all three at
+    once; each prints its kernels' launch counts after its marker."""
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    procs = {}
+    try:
+        for name in EXAMPLES:
+            code = ("import json, runpy\n"
+                    "from repro_torch.kernels import backend\n"
+                    f"runpy.run_module('repro_torch.examples.{name}', "
+                    "run_name='__main__')\n"
+                    "print(json.dumps(backend.launch_counts()))\n")
+            procs[name] = subprocess.Popen(
+                [sys.executable, "-c", code], cwd=ROOT, env=env, text=True,
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+        results = {}
+        for name, proc in procs.items():
+            out, err = proc.communicate(timeout=EXAMPLE_TIMEOUT_S)
+            check(proc.returncode == 0,
+                  f"example {name} exited {proc.returncode}: {err[-2000:]}")
+            lines = out.rstrip().splitlines()
+            marker, kernels = EXAMPLES[name]
+            check(len(lines) >= 2 and lines[-2] == marker,
+                  f"example {name}: no {marker}")
+            launches = json.loads(lines[-1])
+            check(all(launches.get(k, 0) > 0 for k in kernels),
+                  f"example {name}: launches {launches}")
+            results[name] = {"marker": marker, "launches": launches,
+                             "lines": len(lines)}
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return {"phase": "examples", "examples": results,
+            "seconds": time.perf_counter() - t0}
+
+
 def param_leaves(params):
     if isinstance(params, dict):
         for v in params.values():
@@ -1412,7 +1665,16 @@ def main() -> int:
     emit(seg_tile)
     seg_campaign = phase_seg_campaign(torch, backend, cs, names, cuda)
     emit(seg_campaign)
+    peak = max(peak, torch.cuda.max_memory_allocated())  # reset next
+    cal_scene = phase_calibration_scene(torch, args.seed, backend, cuda)
+    emit(cal_scene)
+    cal_campaign = phase_calibration_campaign(torch, args.seed, backend, cuda)
+    emit(cal_campaign)
+    serving = phase_tile_serving(cs, names)
+    emit(serving)
     del cs
+    examples = phase_examples()
+    emit(examples)
     peak = max(peak, torch.cuda.max_memory_allocated())
     prefill, model, params = phase_prefill(torch, args.seed, backend, "llama")
     emit(prefill)

@@ -11,6 +11,8 @@ import dataclasses
 import pytest
 import torch
 
+from repro_torch.apps import calibration as pcal
+from repro_torch.core import ChunkStore, Festivus, InMemoryObjectStore
 from repro_torch.kernels import backend, build, ops, ref
 from repro_torch.kernels import composite as kcomposite
 from repro_torch.kernels import flash_attention as kflash
@@ -354,3 +356,22 @@ def test_mamba_prefill_on_the_card_launches_the_kernel_once_per_layer(card):
     want = make_prefill(model)(params, tokens=tokens, ssd_impl="chunked")
     agree = (logits.argmax(-1) == want.argmax(-1)).float().mean()
     assert float(agree) > 0.95
+
+
+def test_calibration_on_the_card_is_bit_identical_to_the_cpu(card):
+    cs = ChunkStore(Festivus(InMemoryObjectStore()), "raw")
+    pcal.make_raw_scene(cs, "s", 1024, 1024, seed=4)
+    raw = cs.open("s/dn").read_all()
+    meta = pcal.SceneMeta.from_json(cs.fs.read("raw/s/meta.json").decode())
+    rect, got = pcal.calibrate_scene(raw, meta, card)
+    want_rect, want = pcal.calibrate_scene(raw, meta, "cpu")
+    assert rect == want_rect == (64, 64, 960, 960)
+    assert got.dtype == want.dtype and got.tobytes() == want.tobytes()
+    out_card = ChunkStore(cs.fs, "card")
+    out_cpu = ChunkStore(cs.fs, "cpu")
+    assert (pcal.process_scene(cs, out_card, "s", tile_px=256, device=card)
+            == pcal.process_scene(cs, out_cpu, "s", tile_px=256,
+                                  device="cpu"))
+    for name in out_cpu.list_arrays():
+        assert (out_card.open(name).read_all().tobytes()
+                == out_cpu.open(name).read_all().tobytes()), name

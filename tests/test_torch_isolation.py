@@ -12,11 +12,14 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.apps import calibration as pcal
 from repro_torch.apps import composite as papp
 from repro_torch.apps import segmentation as pseg
 from repro_torch.configs.festivus_imagery import SMOKE
 from repro_torch.configs import get_config
 from repro_torch.core import ChunkStore, Festivus, InMemoryObjectStore
+from repro_torch.examples import (field_segmentation, global_composite,
+                                  tile_server)
 from repro_torch.launch import serve as pserve
 from repro_torch.models import build
 from repro_torch.train import greedy_generate
@@ -128,3 +131,33 @@ def test_serve_cli_without_device_raises_without_cuda(monkeypatch, capsys):
     with pytest.raises(RuntimeError, match="CUDA"):
         pserve.main(["--arch", "llama3-8b", "--variant", "smoke", "--gen", "2"])
     assert "[serve]" not in capsys.readouterr().out
+
+
+def test_calibration_without_device_raises_before_any_work(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    store = InMemoryObjectStore()
+    cs = ChunkStore(Festivus(store), "bucket")
+    pcal.make_raw_scene(cs, "scenes/s0", 32, 32, seed=0)
+    before = sorted(store.list("bucket/"))
+    raw = cs.open("scenes/s0/dn").read_all()
+    meta = pcal.SceneMeta("s0", (2e-5,) * 4, (-0.1,) * 4, 40.0, 1.0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        pcal.calibrate_scene(raw, meta)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        pcal.process_scene(cs, ChunkStore(cs.fs, "out"), "scenes/s0")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        pcal.run_campaign(cs, cs, ["scenes/s0"])
+    assert sorted(store.list("bucket/")) == before
+    assert store.list("out/") == []
+
+
+@pytest.mark.parametrize("example", [global_composite, field_segmentation,
+                                     tile_server],
+                         ids=["global_composite", "field_segmentation",
+                              "tile_server"])
+def test_examples_without_device_raise_before_any_work(monkeypatch, capsys,
+                                                       example):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        example.main()
+    assert capsys.readouterr().out == ""
