@@ -15,9 +15,11 @@ Phases, each printing one JSON line with its seconds:
    ``ssd_scan``) against its plain PyTorch version on the card, at the main
    path's shapes and at ragged ones, with the tolerance stated (and, for
    attention and the SSD, a relative L2 limit as well); the main path's
-   cases, and every attention and SSD case, are timed with CUDA events
-   (median of 10; the prefill_32k attention and SSD layers, median of 3),
-   beside their bound and, for bf16 attention at Sq == Sk, PyTorch's
+   cases, and every attention and SSD case (among them one dbrx-132b
+   attention layer and one jamba-v0.1-52b mamba sublayer), are timed with
+   CUDA events (median of 10; the prefill_32k attention and SSD layers,
+   median of 3), beside their bound and, for bf16 attention at Sq == Sk,
+   PyTorch's
    ``scaled_dot_product_attention`` on the same inputs (no single PyTorch
    call computes the SSD);
 2. one full-size composite tile (``DEFAULT``: 4096 px, 4 bands, T = 16)
@@ -58,7 +60,9 @@ Phases, each printing one JSON line with its seconds:
    model with ``attention_impl="chunked"`` (the plain version); one more
    prefill that holds each layer's kernel output against
    ``ref.attention_chunked`` on that layer's own q, k and v
-   (``flash_layers``); a profiler breakdown of one prefill by kernel;
+   (``flash_layers``); a profiler breakdown of one prefill by kernel; for
+   the timed prefill and its two repeats, the host's CPU seconds and the
+   caching allocator's retries, cudaMalloc and cudaFree calls;
 11. llama3-8b generation: ``greedy_generate`` for 4 requests of 64 prompt
    tokens and 32 new ones, twice (the tokens must be identical), and the
    prompt's decode-path logits against ``make_prefill`` on the same prompt
@@ -72,13 +76,34 @@ Phases, each printing one JSON line with its seconds:
 13. mamba2-2.7b generation, as phase 11, with the decode check in f32
    activations: no ``ssd_scan`` launch in decode (the decode path has no
    kernel), 64 in the check's prefill;
-14. summary: the ``kernels`` line, the peak device memory, the
+14. dbrx-132b prefill at full width, 8 of its 40 layers (16 experts top-4;
+   27.31e9 parameters, 54.6 GB bf16), as phase 10: 8 ``flash_attention``
+   launches, each layer's kernel held, the logits against the plain run,
+   and the share of MoE routing assignments that differ between the two
+   runs (``route_flips``: a bf16 near-tie sends a token to another expert),
+   and the logits again with the plain run routed as the kernel run was;
+   the MoE's steps (route, dispatch, the experts' batched matmuls and
+   activation, combine) timed with CUDA events;
+15. dbrx-132b generation, as phase 13, the decode check in f32
+   activations and an f32 KV cache (with the bf16 cache its rounding alone
+   flips routes), at capacity factor E so that its prefill drops nothing,
+   one position of a router near-tie allowed (tests/test_models.py:117-124);
+16. llama4-maverick prefill at full width, 1 of its 48 layers (128 experts
+   top-1 and a shared one; one layer holds 32 GB), as phase 14;
+17. jamba-v0.1-52b prefill at full width, 16 of its 32 layers (two
+   super-blocks: 2 attention and 14 mamba sublayers, an MoE of 16 experts
+   top-2 every other sublayer), as phase 14: 2 ``flash_attention`` and 14
+   ``ssd_scan`` launches, each layer's kernels held;
+18. jamba-v0.1-52b generation, as phase 15;
+19. summary: the ``kernels`` line, the peak device memory, the
     ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.
 
-The launch counts are set to 0 just before each main-path run (phases 2-7
-and 10-13) and read just after it; the ``kernels`` line adds those
-counts.  Each example process counts its own from 0, and phase 8 runs no
-device work.
+Each LM is freed before the next is drawn.  The launch counts are set to
+0 just before each main-path run (phases 2-7 and 10-18) and read just
+after it; the ``kernels`` line adds those counts.  The decode checks'
+prefills (phases 11, 13, 15 and 18) verify: their launches stay in their
+phase's line (``prefill_check_launches``).  Each example process counts
+its own from 0, and phase 8 runs no device work.
 
 Any mismatch raises and the script exits nonzero.  Without CUDA, or run
 from a directory that holds nothing else of the repository, it exits
@@ -88,7 +113,9 @@ nonzero before printing any result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import functools
 import json
 import os
 import re
@@ -97,6 +124,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import NamedTuple, Optional
 
 import numpy as np
 
@@ -125,6 +153,9 @@ REPLACES = {"composite": "src/repro/kernels/composite.py:53",
 TIMED_RUNS = 10
 LLAMA = "llama3-8b"
 MAMBA = "mamba2-2.7b"
+DBRX = "dbrx-132b"
+MAVERICK = "llama4-maverick-400b-a17b"
+JAMBA = "jamba-v0.1-52b"
 PREFILL_BATCH, PREFILL_LEN = 4, 2048
 GEN_BATCH, GEN_PROMPT, GEN_NEW = 4, 64, 32
 #: the kernel's logits against the plain run's, relative L2 over [4, 2048, V]
@@ -135,6 +166,25 @@ PREFILL_REL_L2 = 2e-2
 MAMBA_PREFILL_REL_L2 = 1e-1
 #: decode path against prefill: tests/test_models.py:115-126
 DECODE_AGREEMENT, DECODE_RTOL, DECODE_ATOL = 0.9, 0.15, 0.3
+#: an MoE model's positions whose decode and prefill logits may differ by
+#: more than DECODE_ATOL, through a router near-tie
+#: (tests/test_models.py:117-124)
+MOE_NEAR_TIE_POSITIONS = 1
+#: an MoE or hybrid model's logits against the plain run, relative L2 over
+#: [4, 2048, V], routing free.  A bf16 near-tie sends a token to another
+#: expert in one run and not the other.  On one H100 (NVIDIA H100 80GB
+#: HBM3, 700 W), over --seed 0-3: dbrx 3.45-4.08·10⁻² (0.94-1.26 % of the
+#: assignments flipped), maverick 6.64-7.23·10⁻² (0.54-0.65 %), jamba
+#: 7.70-7.92·10⁻² (2.37-2.55 %); each an average over 8192 tokens, it
+#: moves little from seed to seed (PERF.md §6).  The JAX package's own
+#: bf16 forward, compiled and run op by op, is 4.3·10⁻² (dbrx), 4.4·10⁻²
+#: (maverick) and 1.1·10⁻¹ (jamba) apart at widths cut 8-fold
+#: (tools/moe_spread.py --package jax).  The kernels are held tighter with
+#: the plain run routed as the kernel run was (vs_plain_held_routes):
+#: PREFILL_REL_L2 (2e-2; jamba MAMBA_PREFILL_REL_L2, its two plain SSD
+#: versions being 2.5·10⁻² apart even so, tools/moe_spread.py on the
+#: card), and layer by layer (LAYER_HOLDS)
+MOE_PREFILL_REL_L2 = 1e-1
 
 
 def check(ok: bool, what: str) -> None:
@@ -438,14 +488,17 @@ def phase_grad_mag(torch, seed: int, copy_rate: float) -> dict:
 
 # name, (B, Hq, Hkv, Sq, Sk, D), causal, dtype, timed runs, q and k as
 # transposed [B, S, H, D] views (v always is one).  The main path is one
-# llama3-8b layer of phase 6's prefill; the 32k layer is
-# SHAPES["prefill_32k"] for one request; then tests/test_kernels.py:53-60
+# llama3-8b layer of the llama_prefill phase; the 32k layer is
+# SHAPES["prefill_32k"] for one request; the dbrx layer one of dbrx-132b's
+# (48 query heads); then tests/test_kernels.py:53-60
 # in f32 and bf16, ragged lengths, and bf16 cases across the tensor-core
 # kernel's tile edges (128 query rows; 128 keys, 64 at D = 256).
 FLASH_CASES = [
     ("main_path", (4, 32, 8, 2048, 2048, 128), True, "bfloat16", TIMED_RUNS,
      False),
     ("prefill_32k_layer", (1, 32, 8, 32768, 32768, 128), True, "bfloat16", 3,
+     False),
+    ("dbrx_layer", (4, 48, 8, 2048, 2048, 128), True, "bfloat16", TIMED_RUNS,
      False),
     *[(f"{name}_{dt}", shape, causal, dt, TIMED_RUNS, False)
       for dt in ("float32", "bfloat16")
@@ -577,7 +630,8 @@ def phase_flash(torch, seed: int, copy_rate: float) -> dict:
 # dt_bias, as in a mamba2 layer; "normal": tests/test_kernels.py:146-149;
 # "strong": a = -e^3 and dt in [1, 5]), timed runs.  The main path is one
 # mamba2-2.7b layer of the mamba_prefill phase; the 32k layer is
-# SHAPES["prefill_32k"] for one request; then tests/test_kernels.py:137-141
+# SHAPES["prefill_32k"] for one request; the jamba layer one mamba sublayer
+# of jamba-v0.1-52b's (128 heads, N 16); then tests/test_kernels.py:137-141
 # in f32 and bf16, ragged lengths, contiguous b and c, a strongly decaying
 # head.
 SSD_CASES = [
@@ -585,6 +639,8 @@ SSD_CASES = [
      TIMED_RUNS),
     ("prefill_32k_layer", (1, 32768, 80, 64, 128), "bfloat16", True, True,
      "model", 3),
+    ("jamba_layer", (4, 2048, 128, 64, 16), "bfloat16", True, True, "model",
+     TIMED_RUNS),
     *[(f"{name}_{dt}", shape, dt, False, skip, "normal", TIMED_RUNS)
       for dt in ("float32", "bfloat16")
       for name, shape, skip in [
@@ -732,13 +788,64 @@ KERNEL_SYMBOLS = {"flash_attention": "flash_attention_kernel",
                   "ssd_scan": "ssd_scan_kernel"}
 
 
-def profile_breakdown(torch, fn, runs: int = 3,
-                      kernel: str = "flash_attention") -> dict:
+#: the MoE's steps (``repro_torch.models.moe``), timed one by one in a
+#: prefill (moe_step_ms)
+MOE_STEPS = ("route", "dispatch", "experts", "combine")
+
+
+def moe_step_ms(torch, fn, runs: int = 3) -> dict:
+    """Device milliseconds of each MoE step per call of ``fn``, summed over
+    its MoE layers, from CUDA events recorded on the stream around each
+    step.  In a prefill the device runs the kernels back to back (idle
+    < 1 %, profile_breakdown), so the span between a step's two events is
+    its kernels' time."""
+    from repro_torch.models import moe
+
+    spans = {name: [] for name in MOE_STEPS}
+
+    def timed(name):
+        def wrap(step):
+            def call(*args, **kw):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                out = step(*args, **kw)
+                end.record()
+                spans[name].append((start, end))
+                return out
+            return call
+        return wrap
+
+    fn()
+    with contextlib.ExitStack() as stack:
+        for name in MOE_STEPS:
+            stack.enter_context(patched(moe, name, timed(name)))
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    return {name: sum(s.elapsed_time(e) for s, e in pairs) / runs
+            for name, pairs in spans.items()}
+
+
+def kernel_group(name: str) -> str:
+    """A device kernel's group: the port's kernel of that source, matmuls
+    (cuBLAS), or the rest."""
+    for kernel, symbol in KERNEL_SYMBOLS.items():
+        if symbol in name:
+            return kernel
+    low = name.lower()
+    if any(w in low for w in ("gemm", "nvjet", "xmma", "cutlass")):
+        return "matmul"
+    return "other"
+
+
+def profile_breakdown(torch, fn, runs: int = 3) -> dict:
     """Device time of ``runs`` calls of ``fn`` by kernel group, from a
-    ``torch.profiler`` trace: the port's ``kernel``, matmuls (cuBLAS), and
-    the rest; the device's idle share between the window's first kernel
-    start and last kernel end; the five kernels that take the most time.  A
-    trace with no device events reports ``device_events: 0``."""
+    ``torch.profiler`` trace: each of the port's LM kernels, matmuls
+    (cuBLAS), and the rest; the device's idle share between the window's
+    first kernel start and last kernel end; the five kernels that take the
+    most time.  A trace with no device events reports
+    ``device_events: 0``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -751,21 +858,14 @@ def profile_breakdown(torch, fn, runs: int = 3,
             fn()
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t
-    groups = {kernel: 0.0, "matmul": 0.0, "other": 0.0}
+    groups = {k: 0.0 for k in (*KERNEL_SYMBOLS, "matmul", "other")}
     by_name: dict = {}
     spans = []
     for e in prof.events():
         if e.device_type != DeviceType.CUDA:
             continue
         us = e.time_range.elapsed_us()
-        low = e.name.lower()
-        if KERNEL_SYMBOLS[kernel] in e.name:
-            group = kernel
-        elif any(w in low for w in ("gemm", "nvjet", "xmma", "cutlass")):
-            group = "matmul"
-        else:
-            group = "other"
-        groups[group] += us
+        groups[kernel_group(e.name)] += us
         by_name[e.name] = by_name.get(e.name, 0.0) + us
         spans.append((e.time_range.start, e.time_range.end))
     out = {"runs": runs, "wall_ms_per_run": wall_s / runs * 1e3,
@@ -832,6 +932,27 @@ def synced(torch, fn):
     result = fn()
     torch.cuda.synchronize()
     return result, time.perf_counter() - t
+
+
+#: the caching allocator's counters that a stall inside a call would move:
+#: retries after a failed cudaMalloc (each frees the cache and
+#: synchronises), cudaMalloc and cudaFree calls
+ALLOCATOR_COUNTERS = ("num_alloc_retries", "num_device_alloc",
+                      "num_device_free")
+
+
+def watched(torch, fn):
+    """synced(fn), and what its call did besides: the host process's CPU
+    seconds and the moves of ALLOCATOR_COUNTERS."""
+    before = torch.cuda.memory_stats()
+    cpu = time.process_time()
+    result, seconds = synced(torch, fn)
+    cpu = time.process_time() - cpu
+    after = torch.cuda.memory_stats()
+    return result, seconds, {
+        "cpu_s": cpu, **{k: after.get(k, 0) - before.get(k, 0)
+                         for k in ALLOCATOR_COUNTERS},
+        "reserved_bytes": torch.cuda.memory_reserved()}
 
 
 def tile_breakdown(torch, stack, cfg) -> dict:
@@ -1363,54 +1484,152 @@ def logits_diff(torch, got, want, rows: int = 256) -> dict:
             "argmax_agreement": agree / (B * S)}
 
 
-def plain_llama_prefill(model, params, tokens):
-    """The same llama weights with attention_impl="chunked" (the flash
-    kernel's plain version)."""
+def plain_prefill(model, params, tokens):
+    """The same weights through both kernels' plain versions: attention
+    with attention_impl="chunked", the SSD with ssd_impl="chunked"."""
     from repro_torch.models import build
     from repro_torch.train import make_prefill
 
     plain = make_prefill(build(dataclasses.replace(
         model.cfg, attention_impl="chunked")))
-    return plain(params, tokens=tokens)
+    return plain(params, tokens=tokens, ssd_impl="chunked")
 
 
-def plain_mamba_prefill(model, params, tokens):
-    """The same mamba weights with the SSD's chunked plain version."""
-    from repro_torch.train import make_prefill
+class LMPhase(NamedTuple):
+    """One LM's serving phases: its arch, the depth it is cut to (None: the
+    config's own), the prefill logits' relative L2 limit against the plain
+    run, the same with the plain run routed as the kernel run was (MoE
+    models; None otherwise), the activations' and KV cache's dtype of the
+    decode-against-prefill check (None: the model's own) and whether it
+    runs the generate phase."""
 
-    return make_prefill(model)(params, tokens=tokens, ssd_impl="chunked")
+    arch: str
+    layers: Optional[int]
+    rel_l2_limit: float
+    held_routes_rel_l2_limit: Optional[float]
+    check_dtype: Optional[str]
+    generate: bool
 
 
-# phase name -> (arch, its kernel, the plain run, the prefill logits'
-# relative L2 limit against the plain run, the activations' dtype of the
-# decode-against-prefill check: None for the model's own).  mamba2-2.7b's
-# 64 bf16 layers amplify one-ulp differences past PREFILL_REL_L2 and the
-# decode criterion, whatever the SSD's implementation: see PERF.md §6 for
-# tools/depth_spread.py's readings and the chip's.  So its kernel is held
-# layer by layer on the bf16 serving run (ssd_layers), its logits to
-# MAMBA_PREFILL_REL_L2, and its decode check runs with f32 activations over
-# the same bf16-stored weights.  Both kernels are held layer by layer
-# (LAYER_HOLDS): the bf16 tensor-core flash kernel rounds P to bf16, so its
-# depth error is read per layer as well as in the logits.
+# mamba2-2.7b's 64 bf16 layers amplify one-ulp differences past
+# PREFILL_REL_L2 and the decode criterion, whatever the SSD's
+# implementation: see PERF.md §6 for tools/depth_spread.py's readings and
+# the chip's.  So its kernel is held layer by layer on the bf16 serving run
+# (ssd_layers), its logits to MAMBA_PREFILL_REL_L2, and its decode check
+# runs with f32 activations over the same bf16-stored weights.  Every
+# kernel is held layer by layer (LAYER_HOLDS): the bf16 tensor-core flash
+# kernel rounds P to bf16, so its depth error is read per layer as well as
+# in the logits.  The MoE models are cut in depth to fit the card at full
+# width (dbrx 8 of 40 layers, 54.6 GB; maverick 1 of 48, 36.7 GB; jamba 16
+# of 32, two super-blocks, 52.0 GB); their logits are held as
+# MOE_PREFILL_REL_L2 says, and their decode checks run at capacity factor
+# E, as tests/test_models.py:84-85 does, in f32 activations and an f32 KV
+# cache: with the bf16 cache (the JAX package's whatever the activations'
+# dtype), its rounding alone flips routes between decode and prefill
+# (tools/moe_spread.py's decode_vs_prefill).
 LM_PHASES = {
-    "llama": (LLAMA, "flash_attention", plain_llama_prefill, PREFILL_REL_L2,
-              None),
-    "mamba": (MAMBA, "ssd_scan", plain_mamba_prefill, MAMBA_PREFILL_REL_L2,
-              "float32")}
+    "llama": LMPhase(LLAMA, None, PREFILL_REL_L2, None, None, True),
+    "mamba": LMPhase(MAMBA, None, MAMBA_PREFILL_REL_L2, None, "float32",
+                     True),
+    "dbrx": LMPhase(DBRX, 8, MOE_PREFILL_REL_L2, PREFILL_REL_L2, "float32",
+                    True),
+    "maverick": LMPhase(MAVERICK, 1, MOE_PREFILL_REL_L2, PREFILL_REL_L2, None,
+                        False),
+    "jamba": LMPhase(JAMBA, 16, MOE_PREFILL_REL_L2, MAMBA_PREFILL_REL_L2,
+                     "float32", True),
+}
 
 
-def held_layers(torch, model, params, tokens, op: str, plain, tol,
-                l2_limit) -> dict:
-    """One bf16 prefill with each layer's kernel held: ``ops.<op>`` against
-    ``plain`` on that layer's own inputs, within ``tol`` elementwise and
-    ``l2_limit`` relative L2.  Returns the largest and median errors over
-    the layers."""
-    from repro_torch.kernels import ops
-    from repro_torch.train import make_prefill
+def lm_config(which: str):
+    from repro_torch.configs import get_config
 
-    kernel = getattr(ops, op)
-    errs, l2s = [], []
+    phase = LM_PHASES[which]
+    cfg = get_config(phase.arch)
+    if phase.layers:
+        cfg = dataclasses.replace(cfg, num_layers=phase.layers)
+    return cfg
 
+
+def expected_launches(cfg) -> dict:
+    """Each LM kernel's launches in one prefill: flash once per attention
+    layer, the SSD once per mamba layer."""
+    from repro_torch.models.transformer import layer_plan
+
+    plan = layer_plan(cfg)
+    return {"flash_attention": sum(m == "attn" for m, _ in plan),
+            "ssd_scan": sum(m == "mamba" for m, _ in plan)}
+
+
+@contextlib.contextmanager
+def patched(module, name: str, wrap):
+    """Inside, ``module.<name>`` is ``wrap(<the original>)``; the original
+    is put back on the way out."""
+    original = getattr(module, name)
+    setattr(module, name, wrap(original))
+    try:
+        yield
+    finally:
+        setattr(module, name, original)
+
+
+@contextlib.contextmanager
+def recorded_routes():
+    """Record each MoE layer's top-k experts (``moe.route``) while inside;
+    yields the list they are appended to, on the device."""
+    from repro_torch.models import moe
+
+    seen = []
+
+    def wrap(route):
+        def record(*args, **kw):
+            r = route(*args, **kw)
+            seen.append(r.topk_idx)
+            return r
+        return record
+
+    with patched(moe, "route", wrap):
+        yield seen
+
+
+def held_routes(routes):
+    """Inside, each MoE layer, in call order, routes to the experts
+    ``routes`` holds (another run's top-k), with this run's own
+    probabilities."""
+    from repro_torch.models import moe
+
+    given = iter(routes)
+
+    def held(probs, k):
+        idx = next(given)
+        return probs.gather(-1, idx), idx
+
+    return patched(moe, "top_k", lambda _: held)
+
+
+def route_flips(torch, got, want) -> Optional[dict]:
+    """The share of (token, k) assignments whose expert is not among the
+    other run's top-k for that token, over every MoE layer; and the share
+    of tokens with such an assignment in some layer."""
+    if not got:
+        return None
+    check(len(got) == len(want), f"routes: {len(got)} against {len(want)}")
+    flipped = assignments = 0
+    token_flipped = None
+    for a, b in zip(got, want):
+        missing = ~(a[..., :, None] == b[..., None, :]).any(-1)  # [B,S,K]
+        flipped += int(missing.sum())
+        assignments += missing.numel()
+        tok = missing.any(-1)
+        token_flipped = tok if token_flipped is None else token_flipped | tok
+    return {"moe_layers": len(got), "assignments": assignments,
+            "flipped": flipped, "share": flipped / assignments,
+            "tokens_flipped_share": float(token_flipped.float().mean())}
+
+
+def make_held(torch, op: str, plain, tol, l2_limit, errs, l2s, kernel):
+    """``kernel`` (``ops.<op>``) with its output held against ``plain`` on
+    the same inputs, within ``tol`` elementwise and ``l2_limit`` relative
+    L2; each call appends its errors."""
     def held(*args, impl="auto", chunk=None, **kw):
         check(impl == "auto" and args[0].is_cuda, f"{op} layers: impl {impl}")
         got = kernel(*args, **kw)
@@ -1425,16 +1644,38 @@ def held_layers(torch, model, params, tokens, op: str, plain, tol,
               f"{l2s[-1]} >= {l2_limit[xd]}")
         return got
 
-    setattr(ops, op, held)
-    try:
+    return held
+
+
+def held_layers(torch, model, params, tokens, expected: dict) -> dict:
+    """One bf16 prefill with each layer's kernel held against its plain
+    version on that layer's own inputs (LAYER_HOLDS), every kernel of the
+    model at once.  Returns, per kernel, the largest and median errors
+    over its layers."""
+    from repro_torch.kernels import ops
+    from repro_torch.train import make_prefill
+
+    holds = {}
+    with contextlib.ExitStack() as stack:
+        for kernel, n in expected.items():
+            if not n:
+                continue
+            key, op, plain, tol, l2_limit = LAYER_HOLDS[kernel]
+            errs, l2s = [], []
+            holds[key] = (errs, l2s, tol, l2_limit, n, op)
+            stack.enter_context(patched(ops, op, functools.partial(
+                make_held, torch, op, plain, tol, l2_limit, errs, l2s)))
         make_prefill(model)(params, tokens=tokens)
-    finally:
-        setattr(ops, op, kernel)
-    check(len(errs) == model.cfg.num_layers, f"{op} layers: {len(errs)}")
-    return {"layers": len(errs), "max_abs_err": max(errs),
-            "median_abs_err": statistics.median(errs),
-            "max_rel_l2": max(l2s), "median_rel_l2": statistics.median(l2s),
-            "tol": tol["bfloat16"], "rel_l2_limit": l2_limit["bfloat16"]}
+    out = {}
+    for key, (errs, l2s, tol, l2_limit, n, op) in holds.items():
+        check(len(errs) == n, f"{op} layers: {len(errs)} held, {n} expected")
+        out[key] = {"layers": n, "max_abs_err": max(errs),
+                    "median_abs_err": statistics.median(errs),
+                    "max_rel_l2": max(l2s),
+                    "median_rel_l2": statistics.median(l2s),
+                    "tol": tol["bfloat16"],
+                    "rel_l2_limit": l2_limit["bfloat16"]}
+    return out
 
 
 def plain_ssd(x, dt, a, b, c, *, d_skip=None):
@@ -1459,86 +1700,120 @@ LAYER_HOLDS = {
 
 
 def phase_prefill(torch, seed: int, backend, which: str):
-    """An LM at full width and depth: 4 requests of 2048 tokens through
-    ``make_prefill``, one kernel launch a layer, logits held against the
-    plain run.  Returns (line, model, params)."""
+    """An LM at full width (and depth, unless LM_PHASES cuts it): 4
+    requests of 2048 tokens through ``make_prefill``, each kernel launched
+    once per layer of its kind, logits held against the plain run (with
+    the share of MoE routing that differs between the two runs).  Returns
+    (line, model, params)."""
     from repro_torch.configs import get_config
     from repro_torch.models import build
     from repro_torch.models.model_zoo import padded_vocab
     from repro_torch.train import make_prefill
 
-    arch, kernel, plain_prefill, limit, _ = LM_PHASES[which]
+    phase = LM_PHASES[which]
     t0 = time.perf_counter()
-    cfg = get_config(arch)
+    cfg = lm_config(which)
     check(cfg.dtype == "bfloat16" and cfg.attention_impl == "auto",
-          f"{arch}: dtype {cfg.dtype}, attention_impl {cfg.attention_impl}")
+          f"{cfg.arch_id}: dtype {cfg.dtype}, attention_impl "
+          f"{cfg.attention_impl}")
+    expected = expected_launches(cfg)
     model = build(cfg)
     torch.cuda.reset_peak_memory_stats()
     params, init_s = synced(torch, lambda: model.init(seed))
     leaves = list(param_leaves(params))
     n_params = sum(t.numel() for t in leaves)
     param_bytes = sum(t.numel() * t.element_size() for t in leaves)
-    check(all(t.is_cuda for t in leaves), f"{arch}: params off the card")
+    check(all(t.is_cuda for t in leaves), f"{which}: params off the card")
     g = torch.Generator(device="cuda").manual_seed(seed + 1)
     tokens = torch.randint(0, cfg.vocab_size, (PREFILL_BATCH, PREFILL_LEN),
                            generator=g, device="cuda")
     prefill = make_prefill(model)
-    _, first_s = synced(torch, lambda: prefill(params, tokens=tokens))
+    # the first prefill's logits are freed before the timed one, as a
+    # server frees a response, so the timed run reuses the first one's
+    # blocks (prefill_watch counts the cudaMalloc calls it still makes)
+    first_s = synced(torch, lambda: prefill(params, tokens=tokens))[1]
     backend.reset_launch_counts()
-    logits, prefill_s = synced(torch, lambda: prefill(params, tokens=tokens))
+    with recorded_routes() as routes:
+        logits, prefill_s, prefill_watch = watched(
+            torch, lambda: prefill(params, tokens=tokens))
     launches = backend.launch_counts()
-    peak = torch.cuda.max_memory_allocated()
-    check(launches[kernel] == cfg.num_layers,
-          f"{which} prefill: launches {launches}")
+    check(all(launches[k] == n for k, n in expected.items()),
+          f"{which} prefill: launches {launches}, expected {expected}")
     check(tuple(logits.shape) == (PREFILL_BATCH, PREFILL_LEN,
                                   padded_vocab(cfg))
           and logits.dtype == torch.bfloat16, f"{which} prefill: logits shape")
     check(bool(torch.isfinite(logits).all()), f"{which} prefill: non-finite")
-    repeat_s = [synced(torch, lambda: prefill(params, tokens=tokens))[1]
-                for _ in range(2)]
+    repeats = [watched(torch, lambda: prefill(params, tokens=tokens))[1:]
+               for _ in range(2)]
 
-    want, plain_s = synced(torch, lambda: plain_prefill(model, params,
-                                                        tokens))
+    with recorded_routes() as plain_routes:
+        want, plain_s = synced(torch, lambda: plain_prefill(model, params,
+                                                            tokens))
+    flips = route_flips(torch, routes, plain_routes)
     diff = logits_diff(torch, logits, want)
-    check(diff["rel_l2"] < limit, f"{which} prefill: relative L2 "
-          f"{diff['rel_l2']} against the plain run")
-    del want, logits
+    del want, plain_routes
+    held_diff = None
+    if routes:
+        with held_routes(routes):
+            want = plain_prefill(model, params, tokens)
+        held_diff = logits_diff(torch, logits, want)
+        del want
+    del logits, routes
     torch.cuda.empty_cache()
-    key, op, plain, tol, l2_limit = LAYER_HOLDS[kernel]
-    extra = {key: held_layers(torch, model, params, tokens, op, plain, tol,
-                              l2_limit)}
+    holds = held_layers(torch, model, params, tokens, expected)
     breakdown = profile_breakdown(torch, lambda: prefill(params,
-                                                         tokens=tokens),
-                                  kernel=kernel)
-    tokens_n = PREFILL_BATCH * PREFILL_LEN
-    return {"phase": f"{which}_prefill", "arch": arch, "kernel": kernel,
+                                                         tokens=tokens))
+    moe_ms = (moe_step_ms(torch, lambda: prefill(params, tokens=tokens))
+              if cfg.is_moe else None)
+    peak = torch.cuda.max_memory_allocated()
+    line = {"phase": f"{which}_prefill", "arch": cfg.arch_id,
             "requests": PREFILL_BATCH, "tokens_each": PREFILL_LEN,
-            "layers": cfg.num_layers, "d_model": cfg.d_model,
-            "params": n_params, "param_bytes": param_bytes,
-            "init_s": init_s, "first_prefill_s": first_s,
-            "prefill_s": prefill_s, "repeat_prefill_s": repeat_s,
-            "tokens_per_s": tokens_n / prefill_s, "launches": launches,
+            "layers": cfg.num_layers,
+            "full_layers": get_config(phase.arch).num_layers,
+            "d_model": cfg.d_model, "params": n_params,
+            "param_bytes": param_bytes, "init_s": init_s,
+            "first_prefill_s": first_s, "prefill_s": prefill_s,
+            "prefill_watch": prefill_watch,
+            "repeat_prefill_s": [r[0] for r in repeats],
+            "repeat_watch": [r[1] for r in repeats],
+            "tokens_per_s": PREFILL_BATCH * PREFILL_LEN / prefill_s,
+            "launches": launches, "expected_launches": expected,
             "plain_prefill_s": plain_s, "vs_plain": diff,
-            "rel_l2_limit": limit, **extra,
-            "peak_device_bytes": peak,
-            "breakdown": breakdown,
-            "seconds": time.perf_counter() - t0}, model, params
+            "rel_l2_limit": phase.rel_l2_limit, "route_flips": flips,
+            "vs_plain_held_routes": held_diff,
+            "held_routes_rel_l2_limit": phase.held_routes_rel_l2_limit,
+            **holds, "peak_device_bytes": peak, "breakdown": breakdown,
+            "moe_step_ms": moe_ms}
+    check(diff["rel_l2"] < phase.rel_l2_limit, f"{which} prefill: relative "
+          f"L2 {diff['rel_l2']} against the plain run (route flips {flips})")
+    check(held_diff is None
+          or held_diff["rel_l2"] < phase.held_routes_rel_l2_limit,
+          f"{which} prefill: relative L2 {held_diff} against the plain run "
+          "routed as the kernel run")
+    line["seconds"] = time.perf_counter() - t0
+    return line, model, params
 
 
 def phase_generate(torch, seed: int, backend, model, params,
                    which: str) -> dict:
     """greedy_generate twice on the same prompts, then the prompts' decode
     logits against make_prefill's.  The decode path launches no kernel (the
-    JAX package has no decode kernel); the check's prefill launches one a
-    layer."""
+    JAX package has no decode kernel); the check's prefill launches each
+    one once per layer of its kind.  The check's KV cache takes the check's
+    dtype.  An MoE model's check runs at capacity factor E, so that its
+    prefill drops nothing, reports the tokens routed differently in the two
+    runs, and allows one position whose logits differ through a router
+    near-tie (tests/test_models.py:117-124)."""
+    from repro_torch.models import build
+    from repro_torch.models.transformer import init_block_caches
     from repro_torch.train import (greedy_generate, make_decode_step,
                                    make_prefill)
 
-    from repro_torch.models import build
-
-    arch, kernel, _, _, check_dtype = LM_PHASES[which]
+    phase = LM_PHASES[which]
     t0 = time.perf_counter()
     cfg = model.cfg
+    expected = expected_launches(cfg)
+    torch.cuda.reset_peak_memory_stats()
     g = torch.Generator(device="cuda").manual_seed(seed + 2)
     prompt = torch.randint(0, cfg.vocab_size, (GEN_BATCH, GEN_PROMPT),
                            generator=g, device="cuda", dtype=torch.int32)
@@ -1556,40 +1831,65 @@ def phase_generate(torch, seed: int, backend, model, params,
     check(0 <= int(out.min()) and int(out.max()) < cfg.vocab_size,
           "generate: token outside the vocabulary")
     check(torch.equal(out, again), "generate: two runs differ")
-    check(gen_launches[kernel] == 0,
+    check(not any(gen_launches.values()),
           f"{which} generate: decode launched {gen_launches}")
     steps = GEN_PROMPT + GEN_NEW
 
-    checked = model if check_dtype is None else build(
-        dataclasses.replace(cfg, dtype=check_dtype))
+    change = {}
+    if phase.check_dtype:
+        change["dtype"] = phase.check_dtype
+    if cfg.is_moe:
+        change["capacity_factor"] = float(cfg.num_experts)
+    checked = build(dataclasses.replace(cfg, **change)) if change else model
     step = make_decode_step(checked)
-    state = checked.init_decode(params, GEN_BATCH, max_len)
+    # the KV cache in the check's dtype (the served path's is bf16)
+    state = init_block_caches(
+        checked.cfg, GEN_BATCH, max_len, prompt.device,
+        getattr(torch, phase.check_dtype or "bfloat16"))
     outs = []
-    for t in range(GEN_PROMPT):
-        state, logits = step(params, state, prompt[:, t:t + 1])
-        outs.append(logits)
+    with recorded_routes() as step_routes:
+        for t in range(GEN_PROMPT):
+            state, logits = step(params, state, prompt[:, t:t + 1])
+            outs.append(logits)
     decoded = torch.cat(outs, dim=1)
+    del state, outs
     backend.reset_launch_counts()
-    full = make_prefill(checked)(params, tokens=prompt)
+    with recorded_routes() as prefill_routes:
+        full = make_prefill(checked)(params, tokens=prompt)
     torch.cuda.synchronize()
     prefill_launches = backend.launch_counts()
-    check(prefill_launches[kernel] == cfg.num_layers,
+    layers = len(prefill_routes)
+    check_flips = route_flips(torch, [torch.cat(step_routes[i::layers], 1)
+                                      for i in range(layers)],
+                              prefill_routes)
+    del step_routes, prefill_routes
+    check(all(prefill_launches[k] == n for k, n in expected.items()),
           f"{which} generate: prefill launches {prefill_launches}")
     diff = logits_diff(torch, decoded, full)
     check(diff["argmax_agreement"] > DECODE_AGREEMENT,
           f"decode/prefill argmax agreement {diff['argmax_agreement']}")
-    torch.testing.assert_close(decoded.float(), full.float(),
-                               rtol=DECODE_RTOL, atol=DECODE_ATOL,
-                               msg="decode path against prefill")
-    del decoded, full
+    near_ties = None
+    if cfg.is_moe:
+        pos_diff = (decoded.float() - full.float()).abs().amax(dim=(0, 2))
+        near_ties = int((pos_diff > DECODE_ATOL).sum())
+        check(near_ties <= MOE_NEAR_TIE_POSITIONS,
+              f"{which}: decode and prefill differ by more than "
+              f"{DECODE_ATOL} at {near_ties} positions")
+    else:
+        torch.testing.assert_close(decoded.float(), full.float(),
+                                   rtol=DECODE_RTOL, atol=DECODE_ATOL,
+                                   msg="decode path against prefill")
+    del decoded, full, checked
+    torch.cuda.empty_cache()
     step = make_decode_step(model)
     state = model.init_decode(params, GEN_BATCH, max_len)
     for t in range(GEN_PROMPT):
         state, _ = step(params, state, prompt[:, t:t + 1])
     token = prompt[:, -1:]
     breakdown = profile_breakdown(
-        torch, lambda: step(params, list(state), token), kernel=kernel)
-    return {"phase": f"{which}_generate", "arch": arch, "requests": GEN_BATCH,
+        torch, lambda: step(params, list(state), token))
+    return {"phase": f"{which}_generate", "arch": cfg.arch_id,
+            "layers": cfg.num_layers, "requests": GEN_BATCH,
             "prompt_tokens": GEN_PROMPT, "new_tokens": GEN_NEW,
             "decode_steps": steps, "generate_s": gen_s,
             "repeat_generate_s": again_s, "step_ms": gen_s / steps * 1e3,
@@ -1600,8 +1900,12 @@ def phase_generate(torch, seed: int, backend, model, params,
             "prefill_check_launches": prefill_launches,
             "decode_vs_prefill": diff,
             "criterion": {"argmax_agreement": DECODE_AGREEMENT,
-                          "rtol": DECODE_RTOL, "atol": DECODE_ATOL},
-            "checked_in": str(checked.cfg.dtype),
+                          "rtol": DECODE_RTOL, "atol": DECODE_ATOL,
+                          "moe_near_tie_positions": MOE_NEAR_TIE_POSITIONS},
+            "near_tie_positions": near_ties, "check_route_flips": check_flips,
+            "checked_in": change.get("dtype", cfg.dtype),
+            "checked_capacity_factor": change.get("capacity_factor"),
+            "peak_device_bytes": torch.cuda.max_memory_allocated(),
             "decode_step_breakdown": breakdown,
             "seconds": time.perf_counter() - t0}
 
@@ -1676,21 +1980,24 @@ def main() -> int:
     examples = phase_examples()
     emit(examples)
     peak = max(peak, torch.cuda.max_memory_allocated())
-    prefill, model, params = phase_prefill(torch, args.seed, backend, "llama")
-    emit(prefill)
-    generate = phase_generate(torch, args.seed, backend, model, params,
-                              "llama")
-    emit(generate)
-    del model, params
-    torch.cuda.empty_cache()
-    peak = max(peak, torch.cuda.max_memory_allocated())  # reset next
-    m_prefill, model, params = phase_prefill(torch, args.seed, backend,
-                                             "mamba")
-    emit(m_prefill)
-    m_generate = phase_generate(torch, args.seed, backend, model, params,
-                                "mamba")
-    emit(m_generate)
-    del model, params
+    lm_lines = []
+    for which, phase in LM_PHASES.items():
+        line, model, params = phase_prefill(torch, args.seed, backend, which)
+        emit(line)
+        lm_lines.append(line)
+        if phase.generate:
+            line = phase_generate(torch, args.seed, backend, model, params,
+                                  which)
+            emit(line)
+            lm_lines.append(line)
+        del model, params
+        torch.cuda.empty_cache()
+        peak = max([peak] + [ln["peak_device_bytes"] for ln in lm_lines])
+
+    def lm_launches(kernel: str) -> int:
+        """The main paths' launches: each served prefill and generate run;
+        not the decode checks' prefills, which verify."""
+        return sum(ln["launches"][kernel] for ln in lm_lines)
 
     emit({"kernels": [
         kernel_line("composite", kernels["results"], TOL,
@@ -1700,13 +2007,9 @@ def main() -> int:
                     seg_tile["launches"]["grad_mag"]
                     + seg_campaign["launches"]["grad_mag"]),
         kernel_line("flash_attention", flash["results"], TOL,
-                    prefill["launches"]["flash_attention"]
-                    + generate["launches"]["flash_attention"]
-                    + generate["prefill_check_launches"]["flash_attention"]),
+                    lm_launches("flash_attention")),
         kernel_line("ssd_scan", ssd["results"], SSD_TOL,
-                    m_prefill["launches"]["ssd_scan"]
-                    + m_generate["launches"]["ssd_scan"]
-                    + m_generate["prefill_check_launches"]["ssd_scan"])]})
+                    lm_launches("ssd_scan"))]})
     emit({"max_memory_allocated": max(peak,
                                       torch.cuda.max_memory_allocated())})
     print(device["nvidia_smi"], flush=True)

@@ -8,15 +8,17 @@ stack crosses over as numpy arrays and is moved to the device here.
 
 The LM stack's state is its parameter tree.  The JAX package's tree crosses
 over as numpy arrays (``jax.tree.map(np.asarray, params)``) and
-:func:`params_from_numpy` lays it out as the port's, for the dense and ssm
-families: the scanned ``blocks`` stack is split into one dict per layer,
-and each leaf takes the dtype the port stores it in.
+:func:`params_from_numpy` lays it out as the port's, for the dense, moe,
+ssm and hybrid families: the scanned ``blocks`` stack is split into one
+dict per layer (a hybrid super-block's stacked sublayers too: see
+:func:`_block_leaves`), and each leaf takes the dtype the port stores it
+in.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Mapping, Optional, Tuple
+from typing import Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -50,48 +52,106 @@ def stack_to_device(images: np.ndarray, valid: Optional[np.ndarray],
 F32_LEAVES = ("a_log", "d_skip", "dt_bias")
 
 
-def _leaf_shapes(cfg: ModelConfig
-                 ) -> Tuple[Dict[str, tuple], Dict[str, tuple]]:
-    """The dense or ssm family's leaves, '/'-joined paths -> shapes: the
-    top-level ones, and one layer's (the JAX package stacks them on a
-    leading axis)."""
-    d, V = cfg.d_model, cfg.vocab_size
-    norm = {"scale": (d,)}
-    if cfg.norm == "layernorm":
-        norm["bias"] = (d,)
-    top = {"embed": (V, d), **{f"norm_out/{k}": s for k, s in norm.items()}}
-    if not cfg.tie_embeddings:
-        top["unembed"] = (V, d)
-    if cfg.family == "ssm":
-        return top, _mamba_block_shapes(cfg, norm)
+def _norm_shapes(cfg: ModelConfig) -> Dict[str, tuple]:
+    d = cfg.d_model
+    return {"scale": (d,), **({"bias": (d,)} if cfg.norm == "layernorm"
+                              else {})}
+
+
+def _ffn_shapes(cfg: ModelConfig, d_ff: int) -> Dict[str, tuple]:
+    d = cfg.d_model
+    if cfg.act in ("swiglu", "geglu"):
+        return {"w_gate": (d, d_ff), "w_up": (d, d_ff), "w_down": (d_ff, d)}
+    return {"w_in": (d, d_ff), "b_in": (d_ff,), "w_out": (d_ff, d),
+            "b_out": (d,)}
+
+
+def _mixer_shapes(cfg: ModelConfig, mixer: str) -> Dict[str, tuple]:
+    d = cfg.d_model
+    if mixer == "mamba":
+        di, n, h = cfg.ssm_d_inner, cfg.ssm_state, cfg.ssm_heads
+        w = cfg.ssm_conv_width
+        return {"w_xz": (d, 2 * di), "w_bc": (d, 2 * n), "w_dt": (d, h),
+                "conv_x_w": (w, di), "conv_x_b": (di,),
+                "conv_bc_w": (w, 2 * n), "conv_bc_b": (2 * n,),
+                "a_log": (h,), "d_skip": (h,), "dt_bias": (h,),
+                "norm/scale": (di,), "out_proj": (di, d)}
     dq = cfg.num_heads * cfg.head_dim
     dkv = cfg.num_kv_heads * cfg.head_dim
-    block = {"attn/wq": (d, dq), "attn/wk": (d, dkv), "attn/wv": (d, dkv),
-             "attn/wo": (dq, d)}
+    out = {"wq": (d, dq), "wk": (d, dkv), "wv": (d, dkv), "wo": (dq, d)}
     if cfg.qkv_bias:
-        block.update({"attn/bq": (dq,), "attn/bk": (dkv,), "attn/bv": (dkv,)})
-    for name in ("norm_attn", "norm_ffn"):
-        block.update({f"{name}/{k}": s for k, s in norm.items()})
-    if cfg.act in ("swiglu", "geglu"):
-        block.update({"ffn/w_gate": (d, cfg.d_ff), "ffn/w_up": (d, cfg.d_ff),
-                      "ffn/w_down": (cfg.d_ff, d)})
-    else:
-        block.update({"ffn/w_in": (d, cfg.d_ff), "ffn/b_in": (cfg.d_ff,),
-                      "ffn/w_out": (cfg.d_ff, d), "ffn/b_out": (d,)})
-    return top, block
+        out.update({"bq": (dq,), "bk": (dkv,), "bv": (dkv,)})
+    return out
 
 
-def _mamba_block_shapes(cfg: ModelConfig, norm: dict) -> Dict[str, tuple]:
-    d, di = cfg.d_model, cfg.ssm_d_inner
-    n, h, w = cfg.ssm_state, cfg.ssm_heads, cfg.ssm_conv_width
-    block = {f"norm_mix/{k}": s for k, s in norm.items()}
-    block.update({f"mamba/{k}": s for k, s in {
-        "w_xz": (d, 2 * di), "w_bc": (d, 2 * n), "w_dt": (d, h),
-        "conv_x_w": (w, di), "conv_x_b": (di,),
-        "conv_bc_w": (w, 2 * n), "conv_bc_b": (2 * n,),
-        "a_log": (h,), "d_skip": (h,), "dt_bias": (h,),
-        "norm/scale": (di,), "out_proj": (di, d)}.items()})
-    return block
+def _ff_shapes(cfg: ModelConfig, ff: str) -> Dict[str, tuple]:
+    if ff == "ffn":
+        return _ffn_shapes(cfg, cfg.d_ff)
+    d, e, f = cfg.d_model, cfg.num_experts, cfg.moe_d_ff
+    out = {"router": (d, e), "w_gate": (e, d, f), "w_up": (e, d, f),
+           "w_down": (e, f, d)}
+    if cfg.num_shared_experts:
+        out.update({f"shared/{k}": s for k, s in _ffn_shapes(
+            cfg, f * cfg.num_shared_experts).items()})
+    return out
+
+
+def _layer_shapes(cfg: ModelConfig, mixer: str, ff: str
+                  ) -> Dict[str, tuple]:
+    """One port layer's leaves ('/'-joined paths inside its dict) ->
+    shapes (``transformer.init_block``'s layout)."""
+    from repro_torch.models.transformer import mixer_norm_name
+
+    norm = _norm_shapes(cfg)
+    name = mixer_norm_name(cfg, mixer)
+    out = {f"{name}/{k}": s for k, s in norm.items()}
+    out.update({f"{mixer}/{k}": s
+                for k, s in _mixer_shapes(cfg, mixer).items()})
+    if ff:
+        out.update({f"norm_ffn/{k}": s for k, s in norm.items()})
+        out.update({f"{ff}/{k}": s for k, s in _ff_shapes(cfg, ff).items()})
+    return out
+
+
+def _block_leaves(cfg: ModelConfig
+                  ) -> Dict[str, Tuple[tuple, List[Tuple[int, tuple]]]]:
+    """The JAX package's leaves under ``blocks/`` -> (their shape, and for
+    each port layer that takes a slice of the leaf: (layer, the slice's
+    index)).  A dense, moe or ssm leaf stacks the layers on axis 0.  A
+    hybrid super-block of P sublayers (``nb`` of them) stacks ``attn/*``
+    as [nb, ...] (the sublayer at ``attn_layer_offset``), ``mamba/*``,
+    ``ffn/*`` and ``moe/*`` as [nb, n, ...] over the n sublayers of that
+    kind in order, and ``norm_mix/*``, ``norm_ffn/*`` as [nb, P, ...]."""
+    from repro_torch.models.transformer import layer_plan, num_blocks
+
+    plan = layer_plan(cfg)
+    if not cfg.is_hybrid:
+        n = len(plan)
+        return {k: ((n,) + s, [(i, (i,)) for i in range(n)])
+                for k, s in _layer_shapes(cfg, *plan[0]).items()}
+    period, nb = cfg.attn_layer_period, num_blocks(cfg)
+    subs: Dict[str, List[int]] = {"mamba": [], "ffn": [], "moe": []}
+    for sub, (mixer, ff) in enumerate(plan[:period]):
+        if mixer == "mamba":
+            subs["mamba"].append(sub)
+        subs[ff].append(sub)
+    out = {}
+    for kind in ("mamba", "ffn", "moe"):
+        shapes = (_mixer_shapes(cfg, kind) if kind == "mamba"
+                  else _ff_shapes(cfg, kind))
+        where = [(b * period + sub, (b, j)) for b in range(nb)
+                 for j, sub in enumerate(subs[kind])]
+        for k, s in shapes.items():
+            out[f"{kind}/{k}"] = ((nb, len(subs[kind])) + s, where)
+    for k, s in _mixer_shapes(cfg, "attn").items():
+        out[f"attn/{k}"] = ((nb,) + s, [(b * period + cfg.attn_layer_offset,
+                                         (b,)) for b in range(nb)])
+    for name in ("norm_mix", "norm_ffn"):
+        for k, s in _norm_shapes(cfg).items():
+            out[f"{name}/{k}"] = ((nb, period) + s, [
+                (b * period + sub, (b, sub)) for b in range(nb)
+                for sub in range(period)])
+    return out
 
 
 def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
@@ -113,22 +173,26 @@ def _put(tree: dict, path: str, value: torch.Tensor) -> None:
 
 
 def params_from_numpy(tree: Mapping, cfg: ModelConfig, device) -> dict:
-    """The JAX package's parameter tree of a dense or ssm model, as numpy
-    arrays -> the port's, on ``device``.  ``cfg`` is the model's config (its
-    vocabulary is padded here as ``build`` pads it).  Norm parameters and
-    the Mamba layers' ``a_log``, ``d_skip`` and ``dt_bias`` stay f32; every
-    other leaf is cast to ``cfg.dtype``, the cast the JAX package makes at
-    each use.  Raises ``ValueError`` on a leaf the port does not know, a
-    missing leaf or a shape that differs."""
+    """The JAX package's parameter tree of a dense, moe, ssm or hybrid
+    model, as numpy arrays -> the port's, on ``device``.  ``cfg`` is the
+    model's config (its vocabulary is padded here as ``build`` pads it).
+    Norm parameters and the Mamba layers' ``a_log``, ``d_skip`` and
+    ``dt_bias`` stay f32; every other leaf (the MoE router too) is cast to
+    ``cfg.dtype``, the cast the JAX package makes at each use.  Raises
+    ``ValueError`` on a leaf the port does not know, a missing leaf or a
+    shape that differs."""
     from repro_torch.models.model_zoo import _padded_cfg
     from repro_torch.models.transformer import model_dtype, require_ported
 
     require_ported(cfg)
     pcfg = _padded_cfg(cfg)
-    top, block = _leaf_shapes(pcfg)
-    layers = pcfg.num_layers
-    expected = {**top, **{f"blocks/{k}": (layers,) + s
-                          for k, s in block.items()}}
+    norm = _norm_shapes(pcfg)
+    V, d = pcfg.vocab_size, pcfg.d_model
+    top = {"embed": (V, d), **{f"norm_out/{k}": s for k, s in norm.items()}}
+    if not pcfg.tie_embeddings:
+        top["unembed"] = (V, d)
+    blocks = _block_leaves(pcfg)
+    expected = {**top, **{f"blocks/{k}": s for k, (s, _) in blocks.items()}}
     flat = _flatten(tree)
     unknown = sorted(set(flat) - set(expected))
     missing = sorted(set(expected) - set(flat))
@@ -151,12 +215,12 @@ def params_from_numpy(tree: Mapping, cfg: ModelConfig, device) -> dict:
         return torch.tensor(arr).to(
             device=device, dtype=torch.float32 if keep_f32 else dtype)
 
-    params: dict = {"blocks": [{} for _ in range(layers)]}
+    params: dict = {"blocks": [{} for _ in range(pcfg.num_layers)]}
     for path, arr in flat.items():
         if path.startswith("blocks/"):
             sub = path[len("blocks/"):]
-            for i in range(layers):
-                _put(params["blocks"][i], sub, tensor(path, arr[i]))
+            for layer, index in blocks[sub][1]:
+                _put(params["blocks"][layer], sub, tensor(path, arr[index]))
         else:
             _put(params, path, tensor(path, arr))
     return params

@@ -1,4 +1,6 @@
-"""Serving CLI: batched greedy generation against a ported arch.
+"""Serving CLI: batched greedy generation against a ported arch (the
+dense, moe, ssm and hybrid families: ``--arch dbrx-132b``,
+``llama4-maverick-400b-a17b``, ``jamba-v0.1-52b`` and the rest).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \\
         --variant smoke --batch 4 --prompt-len 16 --gen 32 [--device cpu]

@@ -2,8 +2,10 @@
 
 `build(cfg)` returns a `Model` bundle of functions, as in the JAX package.
 The port covers the dense family without a modality frontend (llama3-8b,
-gemma-7b, qwen1.5-4b, qwen2-72b) and the ssm family (mamba2-2.7b); `build`
-raises ``NotImplementedError`` for the others.  A model runs on the card
+gemma-7b, qwen1.5-4b, qwen2-72b), the moe family (dbrx-132b,
+llama4-maverick-400b-a17b), the ssm family (mamba2-2.7b) and the hybrid
+family (jamba-v0.1-52b); `build` raises ``NotImplementedError`` for the
+enc-dec and VLM families.  A model runs on the card
 unless it is built with ``device="cpu"``.  The dry-run's ``input_specs`` and ``decode_specs`` come
 with the dry-run slice.
 """
@@ -57,7 +59,7 @@ def build(cfg: ModelConfig, device: DeviceLike = None) -> Model:
         return transformer.forward(params, pcfg, tokens, ssd_impl)
 
     def init_decode(params, batch, max_len):
-        # an ssm model's state does not depend on max_len, as in JAX
+        # a mamba layer's state does not depend on max_len, as in JAX
         return transformer.init_block_caches(pcfg, batch, max_len,
                                              params["embed"].device)
 

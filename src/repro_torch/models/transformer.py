@@ -1,13 +1,20 @@
-"""Decoder-only model assembly, the dense and SSM (Mamba-2) families:
+"""Decoder-only model assembly: the dense, MoE, SSM (Mamba-2) and hybrid
+(Jamba) families:
 
-    dense : [norm -> attn -> +res] [norm -> ffn -> +res]   x L
-    ssm   : [norm -> mamba -> +res]                        x L
+    dense / moe : [norm -> attn -> +res] [norm -> ffn|moe -> +res]   x L
+    ssm         : [norm -> mamba -> +res]                            x L
+    hybrid      : super-blocks of `attn_layer_period` sublayers, one
+                  attention sublayer per block (at `attn_layer_offset`),
+                  the rest mamba, each followed by an FFN, or an MoE every
+                  `moe_layer_period`-th sublayer (Jamba's 1:7 and 1:2)
 
 The counterpart of those paths of ``repro/models/transformer.py``.  The
-JAX package scans one stacked block; here ``params["blocks"]`` is a list of
-per-layer parameter dicts and the layer loop is a Python loop.  The MoE,
-hybrid, encoder-decoder and modality-frontend families come with later
-slices (:func:`require_ported` names them).
+JAX package scans one stacked block (a hybrid super-block holds its
+sublayers' parameters stacked inside); here ``params["blocks"]`` is a list
+of per-layer parameter dicts, one per sublayer, and the layer loop is a
+Python loop.  :func:`layer_plan` says what each layer holds.  The
+encoder-decoder and modality-frontend families come with later slices
+(:func:`require_ported` names them).
 
 Matmul weights and embeddings are stored once in ``cfg.dtype``.  The JAX
 package keeps f32 masters and casts them to ``cfg.dtype`` at every use;
@@ -18,7 +25,7 @@ per layer per step.  Norm scales stay f32.
 
 from __future__ import annotations
 
-from typing import List, Union
+from typing import List, Tuple, Union
 
 import torch
 
@@ -39,20 +46,19 @@ from repro_torch.models.mamba2 import (
     mamba_decode_step,
     mamba_forward,
 )
+from repro_torch.models.moe import init_moe, moe_forward
 
-PORTED = ("dense", "ssm")
+PORTED = ("dense", "moe", "ssm", "hybrid")
 #: family -> where ROADMAP.md puts its slice
 NOT_PORTED = {
-    "moe": "ROADMAP.md queue 1 item 5b (MoE: dbrx-132b, llama4-maverick)",
-    "hybrid": "ROADMAP.md queue 1 item 5c (hybrid: jamba-v0.1-52b)",
-    "encdec": "ROADMAP.md queue 1 item 5d (enc-dec: seamless-m4t)",
-    "vlm": "ROADMAP.md queue 1 item 5e (VLM: internvl2-1b)",
+    "encdec": "ROADMAP.md queue 1 item 5(c) (enc-dec: seamless-m4t)",
+    "vlm": "ROADMAP.md queue 1 item 5(d) (VLM: internvl2-1b)",
 }
 
 
 def require_ported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for a family the port has not yet:
-    every one but dense and ssm without a modality frontend."""
+    enc-dec, and any model with a modality frontend."""
     family = "vlm" if cfg.frontend_tokens else cfg.family
     if family not in PORTED:
         raise NotImplementedError(
@@ -65,36 +71,92 @@ def model_dtype(cfg: ModelConfig) -> torch.dtype:
 
 
 # ---------------------------------------------------------------------------
-# blocks
+# layers
 # ---------------------------------------------------------------------------
-def init_block(generator: torch.Generator, cfg: ModelConfig) -> dict:
-    """One layer's parameters."""
-    dtype, dev = model_dtype(cfg), generator.device
+def _layer_is_moe(cfg: ModelConfig, sub: int) -> bool:
+    """The JAX package's rule, ``sub`` counted inside a hybrid super-block
+    (every layer of an moe model has period 1)."""
+    return cfg.is_moe and (sub % cfg.moe_layer_period
+                           == cfg.moe_layer_period - 1)
+
+
+def num_blocks(cfg: ModelConfig) -> int:
+    """The JAX package's scanned blocks: hybrid super-blocks, or layers."""
+    if cfg.is_hybrid:
+        if cfg.num_layers % cfg.attn_layer_period:
+            raise ValueError("hybrid num_layers must divide attn_layer_period")
+        return cfg.num_layers // cfg.attn_layer_period
+    return cfg.num_layers
+
+
+def layer_plan(cfg: ModelConfig) -> List[Tuple[str, str]]:
+    """Each layer's (mixer, feed-forward): mixer "attn" or "mamba",
+    feed-forward "ffn", "moe" or "" (ssm).  A hybrid super-block's sublayer
+    ``sub`` is attention where ``sub == attn_layer_offset``."""
     if cfg.family == "ssm":
-        return {"norm_mix": common.init_norm(cfg.norm, cfg.d_model, dev),
-                "mamba": init_mamba(generator, cfg, dtype)}
-    return {
-        "norm_attn": common.init_norm(cfg.norm, cfg.d_model, dev),
-        "attn": init_attn(generator, cfg, dtype),
-        "norm_ffn": common.init_norm(cfg.norm, cfg.d_model, dev),
-        "ffn": init_ffn(generator, cfg, dtype),
-    }
+        return [("mamba", "")] * cfg.num_layers
+    if cfg.is_hybrid:
+        period = cfg.attn_layer_period
+        block = [("attn" if sub == cfg.attn_layer_offset else "mamba",
+                  "moe" if _layer_is_moe(cfg, sub) else "ffn")
+                 for sub in range(period)]
+        return block * num_blocks(cfg)
+    return [("attn", "moe" if cfg.is_moe else "ffn")] * cfg.num_layers
+
+
+def mixer_norm_name(cfg: ModelConfig, mixer: str) -> str:
+    """The JAX package's name of the norm before a layer's mixer:
+    ``norm_attn`` before a dense or moe model's attention, ``norm_mix``
+    before a mamba mixer or a hybrid's attention."""
+    return "norm_attn" if mixer == "attn" and not cfg.is_hybrid \
+        else "norm_mix"
+
+
+def init_block(generator: torch.Generator, cfg: ModelConfig, mixer: str,
+               ff: str) -> dict:
+    """One layer's parameters: a ``layer_plan`` entry's mixer and
+    feed-forward, each after its norm."""
+    dtype, dev = model_dtype(cfg), generator.device
+    block = {mixer_norm_name(cfg, mixer):
+             common.init_norm(cfg.norm, cfg.d_model, dev)}
+    block[mixer] = (init_attn(generator, cfg, dtype) if mixer == "attn"
+                    else init_mamba(generator, cfg, dtype))
+    if ff:
+        block["norm_ffn"] = common.init_norm(cfg.norm, cfg.d_model, dev)
+        block[ff] = (init_moe(generator, cfg, dtype) if ff == "moe"
+                     else init_ffn(generator, cfg, dtype))
+    return block
+
+
+def _mixer_norm(block: dict) -> dict:
+    return block["norm_attn"] if "norm_attn" in block else block["norm_mix"]
+
+
+def _feed_forward(block: dict, cfg: ModelConfig, x: torch.Tensor):
+    """The layer's FFN or MoE of its normed input -> (y, aux or None)."""
+    h = common.apply_norm(block["norm_ffn"], x)
+    if "moe" in block:
+        return moe_forward(block["moe"], cfg, h)
+    return ffn_forward(block["ffn"], cfg, h), None
 
 
 def apply_block(block: dict, cfg: ModelConfig, x: torch.Tensor,
                 positions: torch.Tensor, ssd_impl: str = "auto"):
-    """Full-sequence block application -> (x, aux); aux is 0 for dense and
-    ssm.  ``ssd_impl`` picks the SSD's implementation (``kernels.ops.ssd``)
-    in an ssm block."""
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    if cfg.family == "ssm":
-        h = common.apply_norm(block["norm_mix"], x)
-        return x + mamba_forward(block["mamba"], cfg, h, ssd_impl), aux
-    h = common.apply_norm(block["norm_attn"], x)
-    x = x + attn_forward(block["attn"], cfg, h, positions=positions,
-                         rope=cfg.pos_embed == "rope")
-    h = common.apply_norm(block["norm_ffn"], x)
-    return x + ffn_forward(block["ffn"], cfg, h), aux
+    """Full-sequence layer application -> (x, aux); aux is the MoE's
+    load-balancing loss, 0 in a layer without one.  ``ssd_impl`` picks the
+    SSD's implementation (``kernels.ops.ssd``) in a mamba layer."""
+    h = common.apply_norm(_mixer_norm(block), x)
+    if "mamba" in block:
+        x = x + mamba_forward(block["mamba"], cfg, h, ssd_impl)
+    else:
+        x = x + attn_forward(block["attn"], cfg, h, positions=positions,
+                             rope=cfg.pos_embed == "rope")
+    if "norm_ffn" in block:
+        y, aux = _feed_forward(block, cfg, x)
+        x = x + y
+        if aux is not None:
+            return x, aux
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
 # ---------------------------------------------------------------------------
@@ -108,7 +170,8 @@ def init_model(generator: torch.Generator, cfg: ModelConfig) -> dict:
     params = {
         "embed": common.embed_init(generator, cfg.vocab_size, cfg.d_model,
                                    dtype),
-        "blocks": [init_block(generator, cfg) for _ in range(cfg.num_layers)],
+        "blocks": [init_block(generator, cfg, mixer, ff)
+                   for mixer, ff in layer_plan(cfg)],
         "norm_out": common.init_norm(cfg.norm, cfg.d_model, dev),
     }
     if not cfg.tie_embeddings:
@@ -135,8 +198,8 @@ def unembed(params: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
             ssd_impl: str = "auto"):
     """tokens [B, S] -> (logits [B, S, V], aux).  ``ssd_impl`` picks the
-    SSD's implementation in an ssm model (the JAX config has no field for
-    it: there the backend decides)."""
+    SSD's implementation in the mamba layers (the JAX config has no field
+    for it: there the backend decides)."""
     dtype = model_dtype(cfg)
     x = embed_tokens(params, cfg, tokens, dtype)
     positions = torch.arange(x.shape[1], device=x.device)
@@ -154,28 +217,27 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
 def init_block_caches(cfg: ModelConfig, batch: int, max_len: int, device,
                       dtype: torch.dtype = torch.bfloat16
                       ) -> List[Union[KVCache, MambaCache]]:
-    """One cache per layer: a KV cache, bf16 by default whatever
-    ``cfg.dtype``; or, for ssm, a Mamba state (f32 conv tails and state,
-    ``max_len`` and ``dtype`` unused, as in the JAX package)."""
-    if cfg.family == "ssm":
-        return [init_mamba_cache(cfg, batch, device)
-                for _ in range(cfg.num_layers)]
-    return [init_cache(cfg, batch, max_len, device, dtype)
-            for _ in range(cfg.num_layers)]
+    """One cache per layer: a KV cache for an attention layer, bf16 by
+    default whatever ``cfg.dtype``; a Mamba state for a mamba layer (f32
+    conv tails and state, ``max_len`` and ``dtype`` unused, as in the JAX
+    package)."""
+    return [init_cache(cfg, batch, max_len, device, dtype) if mixer == "attn"
+            else init_mamba_cache(cfg, batch, device)
+            for mixer, _ in layer_plan(cfg)]
 
 
 def apply_block_decode(block: dict, cfg: ModelConfig, cache,
                        x: torch.Tensor):
-    """One-token decode through one block -> (cache, x)."""
-    if cfg.family == "ssm":
-        h = common.apply_norm(block["norm_mix"], x)
+    """One-token decode through one layer -> (cache, x)."""
+    h = common.apply_norm(_mixer_norm(block), x)
+    if "mamba" in block:
         cache, y = mamba_decode_step(block["mamba"], cfg, cache, h)
-        return cache, x + y
-    cache, y = attn_decode_step(block["attn"], cfg, cache,
-                                common.apply_norm(block["norm_attn"], x))
+    else:
+        cache, y = attn_decode_step(block["attn"], cfg, cache, h)
     x = x + y
-    h = common.apply_norm(block["norm_ffn"], x)
-    return cache, x + ffn_forward(block["ffn"], cfg, h)
+    if "norm_ffn" in block:
+        x = x + _feed_forward(block, cfg, x)[0]
+    return cache, x
 
 
 def decode_step(params: dict, cfg: ModelConfig, caches: list,

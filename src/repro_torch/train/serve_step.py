@@ -1,9 +1,11 @@
 """Serving steps: prefill and batched incremental decode.
 
 The counterpart of ``repro/train/serve_step.py``.  ``make_prefill`` runs the
-full-sequence forward, whose attention (dense) or SSD (ssm) is a
-hand-written kernel on the card; ``greedy_generate`` feeds the prompt token by token through the decode path
-and then decodes greedily, exactly as the JAX package does.
+full-sequence forward, whose attention layers and SSDs (mamba layers) are
+hand-written kernels on the card; ``greedy_generate`` feeds the prompt
+token by token through the decode path and then decodes greedily, exactly
+as the JAX package does (an MoE layer routes each step's one token per row
+at the config's own capacity factor).
 """
 
 from __future__ import annotations

@@ -358,6 +358,63 @@ def test_mamba_prefill_on_the_card_launches_the_kernel_once_per_layer(card):
     assert float(agree) > 0.95
 
 
+def test_moe_prefill_on_the_card_launches_flash_once_per_layer(card):
+    """dbrx-smoke: flash once per attention layer, none in decode; the
+    logits against the plain run (attention_impl="chunked"), greedy
+    tokens identical twice."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build
+    from repro_torch.train import greedy_generate, make_prefill
+
+    cfg = dataclasses.replace(get_config("dbrx-132b", "smoke"),
+                              attention_impl="auto")
+    model = build(cfg)
+    params = model.init(0)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 64), device=card)
+    backend.reset_launch_counts()
+    logits = make_prefill(model)(params, tokens=tokens)
+    torch.cuda.synchronize()
+    assert backend.launch_counts()["flash_attention"] == cfg.num_layers
+    plain = build(dataclasses.replace(cfg, attention_impl="chunked"))
+    want = make_prefill(plain)(params, tokens=tokens)
+    agree = (logits.argmax(-1) == want.argmax(-1)).float().mean()
+    assert float(agree) > 0.95
+    backend.reset_launch_counts()
+    a = greedy_generate(model, params, tokens[:, :8], 8, max_len=17)
+    b = greedy_generate(model, params, tokens[:, :8], 8, max_len=17)
+    assert torch.equal(a, b)
+    assert backend.launch_counts()["flash_attention"] == 0
+
+
+def test_jamba_prefill_on_the_card_launches_each_kernel_per_sublayer(card):
+    """jamba-smoke: flash once per attention sublayer (2), the SSD once per
+    mamba sublayer (6); the logits against the plain run (both kernels'
+    plain versions), greedy tokens identical twice."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build
+    from repro_torch.train import greedy_generate, make_prefill
+
+    cfg = dataclasses.replace(get_config("jamba-v0.1-52b", "smoke"),
+                              attention_impl="auto")
+    model = build(cfg)
+    params = model.init(0)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 256), device=card)
+    backend.reset_launch_counts()
+    logits = make_prefill(model)(params, tokens=tokens)
+    torch.cuda.synchronize()
+    counts = backend.launch_counts()
+    assert counts["flash_attention"] == 2 and counts["ssd_scan"] == 6
+    plain = build(dataclasses.replace(cfg, attention_impl="chunked"))
+    want = make_prefill(plain)(params, tokens=tokens, ssd_impl="chunked")
+    agree = (logits.argmax(-1) == want.argmax(-1)).float().mean()
+    assert float(agree) > 0.95
+    backend.reset_launch_counts()
+    a = greedy_generate(model, params, tokens[:, :8], 8, max_len=17)
+    b = greedy_generate(model, params, tokens[:, :8], 8, max_len=17)
+    assert torch.equal(a, b)
+    assert backend.launch_counts() == {k: 0 for k in counts}
+
+
 def test_calibration_on_the_card_is_bit_identical_to_the_cpu(card):
     cs = ChunkStore(Festivus(InMemoryObjectStore()), "raw")
     pcal.make_raw_scene(cs, "s", 1024, 1024, seed=4)

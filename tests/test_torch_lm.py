@@ -37,9 +37,7 @@ from repro_torch.models.model_zoo import padded_vocab
 from repro_torch.train import greedy_generate, make_decode_step, make_prefill
 
 DENSE = ["llama3-8b", "gemma-7b", "qwen1.5-4b", "qwen2-72b"]
-NOT_PORTED = {"dbrx-132b": "moe", "llama4-maverick-400b-a17b": "moe",
-              "jamba-v0.1-52b": "hybrid",
-              "seamless-m4t-large-v2": "encdec", "internvl2-1b": "vlm"}
+NOT_PORTED = {"seamless-m4t-large-v2": "encdec", "internvl2-1b": "vlm"}
 F32_TOL = dict(rtol=1e-4, atol=1e-4)
 DECODE_TOL = dict(rtol=2e-3, atol=2e-3)
 
