@@ -16,10 +16,13 @@ Phases, each printing one JSON line with its seconds:
    path's shapes and at ragged ones, with the tolerance stated (and, for
    attention and the SSD, a relative L2 limit as well); the main path's
    cases, and every attention and SSD case (among them one dbrx-132b
-   attention layer and one jamba-v0.1-52b mamba sublayer), are timed with
+   attention layer, seamless-m4t-large-v2's encoder, decoder and
+   cross-attention layers and a decode step's cross-attention, one
+   internvl2-1b and one gemma-7b layer, and one jamba-v0.1-52b mamba
+   sublayer), are timed with
    CUDA events (median of 10; the prefill_32k attention and SSD layers,
-   median of 3), beside their bound and, for bf16 attention at Sq == Sk,
-   PyTorch's
+   median of 3), beside their bound and, for bf16 attention where its
+   mask is the kernel's (non-causal, or Sq == Sk), PyTorch's
    ``scaled_dot_product_attention`` on the same inputs (no single PyTorch
    call computes the SSD);
 2. one full-size composite tile (``DEFAULT``: 4096 px, 4 bands, T = 16)
@@ -49,11 +52,13 @@ Phases, each printing one JSON line with its seconds:
    pyramid under the tile-server example's Zipf spike trace (all requests
    served; hit rate and p50/p99 in the DES's virtual time), and every tile
    of the trace's universe is byte-identical to a direct pyramid read;
-9. the three port examples (``repro_torch.examples.global_composite``,
-   ``field_segmentation``, ``tile_server``), each in its own process on
-   the card, all at once: exit code 0, the marker, and launches of the
-   kernel each runs (``composite``; ``grad_mag``; ``composite``), read
-   in that phase's line only: they include the examples' own cross-checks;
+9. the four port examples (``repro_torch.examples.global_composite``,
+   ``field_segmentation``, ``tile_server``, ``serve_lm``), each in its own
+   process on the card, all at once: exit code 0, the marker, and launches
+   of the kernel each runs (``composite``; ``grad_mag``; ``composite``;
+   none: ``serve_lm``'s smoke configs attend with ``attention_impl="ref"``
+   and it generates through the decode path), read in that phase's line
+   only: they include the examples' own cross-checks;
 10. llama3-8b prefill at full width and depth (bf16 weights drawn on the
    card from ``--seed``): ``make_prefill`` answers 4 requests of 2048
    tokens; 32 ``flash_attention`` launches; logits held against the same
@@ -95,15 +100,33 @@ Phases, each printing one JSON line with its seconds:
    top-2 every other sublayer), as phase 14: 2 ``flash_attention`` and 14
    ``ssd_scan`` launches, each layer's kernels held;
 18. jamba-v0.1-52b generation, as phase 15;
-19. summary: the ``kernels`` line, the peak device memory, the
+19. gemma-7b prefill at full width and depth (28 layers, head_dim 256:
+   the flash kernel's D = 256 instantiation), as phase 10;
+20. gemma-7b generation, as phase 11;
+21. seamless-m4t-large-v2 prefill at full width and depth (24 encoder and
+   24 decoder layers): 4 requests of 2048 decoder tokens on 512 frames of
+   1024 features; 72 ``flash_attention`` launches (the encoder's
+   bidirectional attention, the decoder's causal self-attention and its
+   cross-attention, 2048 queries on 512 frames), each held, the logits
+   against the plain run, as phase 10;
+22. seamless-m4t-large-v2 generation, as phase 13 (the check in f32): the
+   encoder once and the cross-attention in every decoder layer of every
+   step launch the kernel (24 + 96 × 24 launches a run, one query row
+   each);
+23. internvl2-1b prefill at full width and depth (24 layers, 14 query
+   heads on 2): 256 patch embeddings of 1024 features before 1792 tokens,
+   24 launches, as phase 10;
+24. internvl2-1b generation, as phase 13 (the check in f32), without the
+   image prefix, as the JAX package's greedy_generate and its tests;
+25. summary: the ``kernels`` line, the peak device memory, the
     ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.
 
 Each LM is freed before the next is drawn.  The launch counts are set to
-0 just before each main-path run (phases 2-7 and 10-18) and read just
+0 just before each main-path run (phases 2-7 and 10-24) and read just
 after it; the ``kernels`` line adds those counts.  The decode checks'
-prefills (phases 11, 13, 15 and 18) verify: their launches stay in their
-phase's line (``prefill_check_launches``).  Each example process counts
-its own from 0, and phase 8 runs no device work.
+prefills (phases 11, 13, 15, 18, 20, 22 and 24) verify: their launches
+stay in their phase's line (``prefill_check_launches``).  Each example
+process counts its own from 0, and phase 8 runs no device work.
 
 Any mismatch raises and the script exits nonzero.  Without CUDA, or run
 from a directory that holds nothing else of the repository, it exits
@@ -156,6 +179,9 @@ MAMBA = "mamba2-2.7b"
 DBRX = "dbrx-132b"
 MAVERICK = "llama4-maverick-400b-a17b"
 JAMBA = "jamba-v0.1-52b"
+GEMMA = "gemma-7b"
+SEAMLESS = "seamless-m4t-large-v2"
+INTERNVL = "internvl2-1b"
 PREFILL_BATCH, PREFILL_LEN = 4, 2048
 GEN_BATCH, GEN_PROMPT, GEN_NEW = 4, 64, 32
 #: the kernel's logits against the plain run's, relative L2 over [4, 2048, V]
@@ -492,7 +518,12 @@ def phase_grad_mag(torch, seed: int, copy_rate: float) -> dict:
 # SHAPES["prefill_32k"] for one request; the dbrx layer one of dbrx-132b's
 # (48 query heads); then tests/test_kernels.py:53-60
 # in f32 and bf16, ragged lengths, and bf16 cases across the tensor-core
-# kernel's tile edges (128 query rows; 128 keys, 64 at D = 256).
+# kernel's tile edges (128 query rows; 128 keys, 64 at D = 256); last the
+# seamless-m4t-large-v2 layers: its encoder (512 frames, full attention),
+# decoder self-attention, cross-attention (2048 queries on 512 frames) and
+# one decode step's cross-attention (one query row), q, k and v as the
+# layers hand them over; one internvl2-1b layer (14 query heads on 2) and
+# one gemma-7b layer (head_dim 256).
 FLASH_CASES = [
     ("main_path", (4, 32, 8, 2048, 2048, 128), True, "bfloat16", TIMED_RUNS,
      False),
@@ -517,6 +548,14 @@ FLASH_CASES = [
      TIMED_RUNS, False),
     *[(f"qk_transposed_{dt}", (2, 8, 2, 300, 300, 64), True, dt, TIMED_RUNS,
        True) for dt in ("float32", "bfloat16")],
+    *[(name, shape, causal, "bfloat16", TIMED_RUNS, True)
+      for name, shape, causal in [
+          ("seamless_enc", (4, 16, 16, 512, 512, 64), False),
+          ("seamless_dec_self", (4, 16, 16, 2048, 2048, 64), True),
+          ("seamless_cross", (4, 16, 16, 2048, 512, 64), False),
+          ("seamless_cross_decode", (4, 16, 16, 1, 512, 64), False),
+          ("internvl_layer", (4, 14, 2, 2048, 2048, 64), True),
+          ("gemma_layer", (4, 16, 16, 2048, 2048, 256), True)]],
 ]
 
 
@@ -538,11 +577,11 @@ def flash_bound(shape, causal: bool, x_bytes: int):
 
 def sdpa_ms(torch, q, k, v, causal: bool, runs: int) -> float:
     """PyTorch's ``scaled_dot_product_attention(..., enable_gqa=True)`` on
-    the same inputs, a yardstick only (the port never calls it), at
-    Sq == Sk, where its causal mask (top-left aligned) is the kernel's.  It
-    may pick among PyTorch's fused backends (cuDNN, flash) as it does by
-    default, but not fall back to one that materialises the [Sq, Sk]
-    scores."""
+    the same inputs, a yardstick only (the port never calls it), where its
+    mask is the kernel's: non-causal, or causal at Sq == Sk (its causal
+    mask is top-left aligned).  It may pick among PyTorch's fused backends
+    (cuDNN, flash) as it does by default, but not fall back to one that
+    materialises the [Sq, Sk] scores."""
     from torch.nn.attention import SDPBackend, sdpa_kernel
     from torch.nn.functional import scaled_dot_product_attention as sdpa
 
@@ -551,6 +590,19 @@ def sdpa_ms(torch, q, k, v, causal: bool, runs: int) -> float:
         return median_ms(
             torch, lambda: sdpa(q, k, v, is_causal=causal, enable_gqa=True),
             runs=runs, warmup=1)
+
+
+def sdpa_attention(q, k, v, causal=True, impl="auto"):
+    """``sdpa_ms``'s call as a stand-in for ``ops.flash_attention`` in
+    ``library_prefill`` (``impl`` unused), where its mask is the kernel's."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+
+    check(not causal or q.shape[2] == k.shape[2],
+          f"sdpa: causal with Sq {q.shape[2]} != Sk {k.shape[2]}")
+    with sdpa_kernel([SDPBackend.CUDNN_ATTENTION,
+                      SDPBackend.FLASH_ATTENTION]):
+        return sdpa(q, k, v, is_causal=causal, enable_gqa=True)
 
 
 def rel_l2(torch, got, want) -> float:
@@ -606,7 +658,8 @@ def phase_flash(torch, seed: int, copy_rate: float) -> dict:
         # SDPA's fused backends take bf16, and its causal mask is the
         # kernel's only at Sq == Sk
         library_ms = (sdpa_ms(torch, q, k, v, causal, runs)
-                      if Sq == Sk and xd == "bfloat16" else None)
+                      if (Sq == Sk or not causal) and xd == "bfloat16"
+                      else None)
         case = {"name": name, "shape": [B, Hq, Hkv, Sq, Sk, D],
                 "causal": causal, "dtype": xd, "qk_transposed": qk_t,
                 "max_abs_err": err,
@@ -1243,7 +1296,9 @@ SERVE_CACHE_TILES = 512
 #: each port example and the kernels it must launch on the card
 EXAMPLES = {"global_composite": ("GLOBAL_COMPOSITE_OK", ("composite",)),
             "field_segmentation": ("FIELD_SEGMENTATION_OK", ("grad_mag",)),
-            "tile_server": ("TILE_SERVER_OK", ("composite",))}
+            "tile_server": ("TILE_SERVER_OK", ("composite",)),
+            # smoke configs at attention_impl="ref", and the decode path
+            "serve_lm": ("SERVE_LM_OK", ())}
 EXAMPLE_TIMEOUT_S = 300
 
 
@@ -1415,7 +1470,7 @@ def phase_tile_serving(cs, names) -> dict:
 
 
 def phase_examples() -> dict:
-    """Each port example in its own process on the card, all three at
+    """Each port example in its own process on the card, all four at
     once; each prints its kernels' launch counts after its marker."""
     t0 = time.perf_counter()
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -1484,7 +1539,7 @@ def logits_diff(torch, got, want, rows: int = 256) -> dict:
             "argmax_agreement": agree / (B * S)}
 
 
-def plain_prefill(model, params, tokens):
+def plain_prefill(model, params, inputs):
     """The same weights through both kernels' plain versions: attention
     with attention_impl="chunked", the SSD with ssd_impl="chunked"."""
     from repro_torch.models import build
@@ -1492,7 +1547,17 @@ def plain_prefill(model, params, tokens):
 
     plain = make_prefill(build(dataclasses.replace(
         model.cfg, attention_impl="chunked")))
-    return plain(params, tokens=tokens, ssd_impl="chunked")
+    return plain(params, **inputs, ssd_impl="chunked")
+
+
+def library_prefill(model, params, inputs):
+    """The same weights with ``sdpa_attention`` (PyTorch's fused attention,
+    a yardstick) in place of the flash kernel; the SSD's kernel stays."""
+    from repro_torch.kernels import ops
+    from repro_torch.train import make_prefill
+
+    with patched(ops, "flash_attention", lambda _: sdpa_attention):
+        return make_prefill(model)(params, **inputs)
 
 
 class LMPhase(NamedTuple):
@@ -1537,6 +1602,11 @@ LM_PHASES = {
                         False),
     "jamba": LMPhase(JAMBA, 16, MOE_PREFILL_REL_L2, MAMBA_PREFILL_REL_L2,
                      "float32", True),
+    "gemma": LMPhase(GEMMA, None, PREFILL_REL_L2, None, None, True),
+    "seamless": LMPhase(SEAMLESS, None, PREFILL_REL_L2, None, "float32",
+                        True),
+    "internvl": LMPhase(INTERNVL, None, PREFILL_REL_L2, None, "float32",
+                        True),
 }
 
 
@@ -1552,12 +1622,44 @@ def lm_config(which: str):
 
 def expected_launches(cfg) -> dict:
     """Each LM kernel's launches in one prefill: flash once per attention
-    layer, the SSD once per mamba layer."""
+    layer (an enc-dec model: once per encoder layer, twice per decoder
+    layer, self- and cross-attention), the SSD once per mamba layer."""
     from repro_torch.models.transformer import layer_plan
 
+    if cfg.is_encdec:
+        return {"flash_attention": cfg.enc_layers + 2 * cfg.num_layers,
+                "ssd_scan": 0}
     plan = layer_plan(cfg)
     return {"flash_attention": sum(m == "attn" for m, _ in plan),
             "ssd_scan": sum(m == "mamba" for m, _ in plan)}
+
+
+def expected_generate_launches(cfg, steps: int) -> dict:
+    """Each LM kernel's launches in one greedy_generate of ``steps`` decode
+    steps: an enc-dec model encodes once (flash once per encoder layer)
+    and cross-attends through flash in every decoder layer of every step;
+    any other decode path launches no kernel."""
+    return {"flash_attention": (cfg.enc_layers + steps * cfg.num_layers
+                                if cfg.is_encdec else 0),
+            "ssd_scan": 0}
+
+
+def lm_inputs(torch, cfg, g, batch: int, positions: int) -> dict:
+    """A request batch of ``positions`` positions each, drawn from ``g``:
+    tokens; an enc-dec model's decoder tokens and ``max(128, positions //
+    4)`` frames, a VLM's ``frontend_tokens`` patch embeddings before
+    ``positions - frontend_tokens`` tokens (bf16, as
+    ``repro/models/model_zoo.py:input_specs`` gives them)."""
+    text = positions - cfg.frontend_tokens
+    inputs = {"tokens": torch.randint(0, cfg.vocab_size, (batch, text),
+                                      generator=g, device="cuda")}
+    frames = (max(128, positions // 4) if cfg.is_encdec
+              else cfg.frontend_tokens)
+    if frames:
+        inputs["frontend"] = torch.randn(
+            (batch, frames, cfg.frontend_dim or cfg.d_model), generator=g,
+            device="cuda", dtype=torch.bfloat16)
+    return inputs
 
 
 @contextlib.contextmanager
@@ -1647,7 +1749,7 @@ def make_held(torch, op: str, plain, tol, l2_limit, errs, l2s, kernel):
     return held
 
 
-def held_layers(torch, model, params, tokens, expected: dict) -> dict:
+def held_layers(torch, model, params, inputs, expected: dict) -> dict:
     """One bf16 prefill with each layer's kernel held against its plain
     version on that layer's own inputs (LAYER_HOLDS), every kernel of the
     model at once.  Returns, per kernel, the largest and median errors
@@ -1665,7 +1767,7 @@ def held_layers(torch, model, params, tokens, expected: dict) -> dict:
             holds[key] = (errs, l2s, tol, l2_limit, n, op)
             stack.enter_context(patched(ops, op, functools.partial(
                 make_held, torch, op, plain, tol, l2_limit, errs, l2s)))
-        make_prefill(model)(params, tokens=tokens)
+        make_prefill(model)(params, **inputs)
     out = {}
     for key, (errs, l2s, tol, l2_limit, n, op) in holds.items():
         check(len(errs) == n, f"{op} layers: {len(errs)} held, {n} expected")
@@ -1701,10 +1803,11 @@ LAYER_HOLDS = {
 
 def phase_prefill(torch, seed: int, backend, which: str):
     """An LM at full width (and depth, unless LM_PHASES cuts it): 4
-    requests of 2048 tokens through ``make_prefill``, each kernel launched
-    once per layer of its kind, logits held against the plain run (with
-    the share of MoE routing that differs between the two runs).  Returns
-    (line, model, params)."""
+    requests of 2048 positions through ``make_prefill`` (lm_inputs: an
+    enc-dec model's 2048 decoder tokens on 512 frames, a VLM's 256 patch
+    embeddings and 1792 tokens), each kernel launched once per layer of its
+    kind, logits held against the plain run (with the share of MoE routing
+    that differs between the two runs).  Returns (line, model, params)."""
     from repro_torch.configs import get_config
     from repro_torch.models import build
     from repro_torch.models.model_zoo import padded_vocab
@@ -1725,17 +1828,16 @@ def phase_prefill(torch, seed: int, backend, which: str):
     param_bytes = sum(t.numel() * t.element_size() for t in leaves)
     check(all(t.is_cuda for t in leaves), f"{which}: params off the card")
     g = torch.Generator(device="cuda").manual_seed(seed + 1)
-    tokens = torch.randint(0, cfg.vocab_size, (PREFILL_BATCH, PREFILL_LEN),
-                           generator=g, device="cuda")
+    inputs = lm_inputs(torch, cfg, g, PREFILL_BATCH, PREFILL_LEN)
     prefill = make_prefill(model)
     # the first prefill's logits are freed before the timed one, as a
     # server frees a response, so the timed run reuses the first one's
     # blocks (prefill_watch counts the cudaMalloc calls it still makes)
-    first_s = synced(torch, lambda: prefill(params, tokens=tokens))[1]
+    first_s = synced(torch, lambda: prefill(params, **inputs))[1]
     backend.reset_launch_counts()
     with recorded_routes() as routes:
         logits, prefill_s, prefill_watch = watched(
-            torch, lambda: prefill(params, tokens=tokens))
+            torch, lambda: prefill(params, **inputs))
     launches = backend.launch_counts()
     check(all(launches[k] == n for k, n in expected.items()),
           f"{which} prefill: launches {launches}, expected {expected}")
@@ -1743,32 +1845,39 @@ def phase_prefill(torch, seed: int, backend, which: str):
                                   padded_vocab(cfg))
           and logits.dtype == torch.bfloat16, f"{which} prefill: logits shape")
     check(bool(torch.isfinite(logits).all()), f"{which} prefill: non-finite")
-    repeats = [watched(torch, lambda: prefill(params, tokens=tokens))[1:]
+    repeats = [watched(torch, lambda: prefill(params, **inputs))[1:]
                for _ in range(2)]
 
     with recorded_routes() as plain_routes:
         want, plain_s = synced(torch, lambda: plain_prefill(model, params,
-                                                            tokens))
+                                                            inputs))
     flips = route_flips(torch, routes, plain_routes)
     diff = logits_diff(torch, logits, want)
-    del want, plain_routes
+    # the same prefill with PyTorch's attention in place of the kernel,
+    # against the same plain run: how far a library's bf16 attention (P
+    # rounded to bf16 as well) moves these logits
+    library, library_s = synced(torch, lambda: library_prefill(
+        model, params, inputs))
+    library_diff = logits_diff(torch, library, want)
+    del want, plain_routes, library
     held_diff = None
     if routes:
         with held_routes(routes):
-            want = plain_prefill(model, params, tokens)
+            want = plain_prefill(model, params, inputs)
         held_diff = logits_diff(torch, logits, want)
         del want
     del logits, routes
     torch.cuda.empty_cache()
-    holds = held_layers(torch, model, params, tokens, expected)
-    breakdown = profile_breakdown(torch, lambda: prefill(params,
-                                                         tokens=tokens))
-    moe_ms = (moe_step_ms(torch, lambda: prefill(params, tokens=tokens))
+    holds = held_layers(torch, model, params, inputs, expected)
+    breakdown = profile_breakdown(torch, lambda: prefill(params, **inputs))
+    moe_ms = (moe_step_ms(torch, lambda: prefill(params, **inputs))
               if cfg.is_moe else None)
     peak = torch.cuda.max_memory_allocated()
     line = {"phase": f"{which}_prefill", "arch": cfg.arch_id,
             "requests": PREFILL_BATCH, "tokens_each": PREFILL_LEN,
-            "layers": cfg.num_layers,
+            "frontend_shape": (list(inputs["frontend"].shape)
+                               if "frontend" in inputs else None),
+            "layers": cfg.num_layers, "enc_layers": cfg.enc_layers,
             "full_layers": get_config(phase.arch).num_layers,
             "d_model": cfg.d_model, "params": n_params,
             "param_bytes": param_bytes, "init_s": init_s,
@@ -1779,13 +1888,15 @@ def phase_prefill(torch, seed: int, backend, which: str):
             "tokens_per_s": PREFILL_BATCH * PREFILL_LEN / prefill_s,
             "launches": launches, "expected_launches": expected,
             "plain_prefill_s": plain_s, "vs_plain": diff,
+            "library_prefill_s": library_s, "library_vs_plain": library_diff,
             "rel_l2_limit": phase.rel_l2_limit, "route_flips": flips,
             "vs_plain_held_routes": held_diff,
             "held_routes_rel_l2_limit": phase.held_routes_rel_l2_limit,
             **holds, "peak_device_bytes": peak, "breakdown": breakdown,
             "moe_step_ms": moe_ms}
     check(diff["rel_l2"] < phase.rel_l2_limit, f"{which} prefill: relative "
-          f"L2 {diff['rel_l2']} against the plain run (route flips {flips})")
+          f"L2 {diff['rel_l2']} against the plain run (route flips {flips}; "
+          f"SDPA in place of the kernel: {library_diff['rel_l2']})")
     check(held_diff is None
           or held_diff["rel_l2"] < phase.held_routes_rel_l2_limit,
           f"{which} prefill: relative L2 {held_diff} against the plain run "
@@ -1798,13 +1909,20 @@ def phase_generate(torch, seed: int, backend, model, params,
                    which: str) -> dict:
     """greedy_generate twice on the same prompts, then the prompts' decode
     logits against make_prefill's.  The decode path launches no kernel (the
-    JAX package has no decode kernel); the check's prefill launches each
-    one once per layer of its kind.  The check's KV cache takes the check's
-    dtype.  An MoE model's check runs at capacity factor E, so that its
-    prefill drops nothing, reports the tokens routed differently in the two
-    runs, and allows one position whose logits differ through a router
-    near-tie (tests/test_models.py:117-124)."""
-    from repro_torch.models import build
+    JAX package has no decode kernel), except an enc-dec model's: its
+    encoder and its cross-attention in every step and layer
+    (expected_generate_launches); the check's prefill launches each one
+    once per layer of its kind.  An enc-dec model decodes against the
+    memory of 512 frames; a VLM generates from its prompt alone, without
+    the image prefix, and its check runs without it, as the JAX package's
+    greedy_generate and tests do (tests/test_models.py:100-101).  The
+    check's KV cache takes the check's dtype.  An MoE model's check runs at
+    capacity factor E, so that its prefill drops nothing, reports the
+    tokens routed differently in the two runs, and allows one position
+    whose logits differ through a router near-tie
+    (tests/test_models.py:117-124)."""
+    from repro_torch.models import build, encdec
+    from repro_torch.models.model_zoo import _padded_cfg
     from repro_torch.models.transformer import init_block_caches
     from repro_torch.train import (greedy_generate, make_decode_step,
                                    make_prefill)
@@ -1813,14 +1931,22 @@ def phase_generate(torch, seed: int, backend, model, params,
     t0 = time.perf_counter()
     cfg = model.cfg
     expected = expected_launches(cfg)
+    steps = GEN_PROMPT + GEN_NEW
+    expected_gen = expected_generate_launches(cfg, steps)
     torch.cuda.reset_peak_memory_stats()
     g = torch.Generator(device="cuda").manual_seed(seed + 2)
     prompt = torch.randint(0, cfg.vocab_size, (GEN_BATCH, GEN_PROMPT),
                            generator=g, device="cuda", dtype=torch.int32)
+    # the frontend a request carries: an enc-dec model's frames (those of a
+    # 2048-position prefill), a VLM's patch embeddings (which generation
+    # ignores, as in the JAX package)
+    frontend = lm_inputs(torch, cfg, g, GEN_BATCH, PREFILL_LEN).get(
+        "frontend")
     max_len = GEN_PROMPT + GEN_NEW + 1
 
     def generate():
-        return greedy_generate(model, params, prompt, GEN_NEW, max_len=max_len)
+        return greedy_generate(model, params, prompt, GEN_NEW, max_len=max_len,
+                               frontend=frontend)
 
     backend.reset_launch_counts()
     out, gen_s = synced(torch, generate)
@@ -1831,9 +1957,20 @@ def phase_generate(torch, seed: int, backend, model, params,
     check(0 <= int(out.min()) and int(out.max()) < cfg.vocab_size,
           "generate: token outside the vocabulary")
     check(torch.equal(out, again), "generate: two runs differ")
-    check(not any(gen_launches.values()),
-          f"{which} generate: decode launched {gen_launches}")
-    steps = GEN_PROMPT + GEN_NEW
+    check(all(gen_launches[k] == expected_gen.get(k, 0)
+              for k in gen_launches),
+          f"{which} generate: decode launched {gen_launches}, expected "
+          f"{expected_gen}")
+
+    def decode_state(m, batch, dtype):
+        """A decode state for ``m`` (an enc-dec model's holds the memory's
+        cross K/V) with its KV caches in ``dtype``."""
+        if cfg.is_encdec:
+            pcfg = _padded_cfg(m.cfg)
+            return encdec.init_decode_state(
+                params, pcfg, encdec.encode(params, pcfg, frontend), batch,
+                max_len, dtype)
+        return init_block_caches(m.cfg, batch, max_len, prompt.device, dtype)
 
     change = {}
     if phase.check_dtype:
@@ -1843,9 +1980,8 @@ def phase_generate(torch, seed: int, backend, model, params,
     checked = build(dataclasses.replace(cfg, **change)) if change else model
     step = make_decode_step(checked)
     # the KV cache in the check's dtype (the served path's is bf16)
-    state = init_block_caches(
-        checked.cfg, GEN_BATCH, max_len, prompt.device,
-        getattr(torch, phase.check_dtype or "bfloat16"))
+    state = decode_state(checked, GEN_BATCH,
+                         getattr(torch, phase.check_dtype or "bfloat16"))
     outs = []
     with recorded_routes() as step_routes:
         for t in range(GEN_PROMPT):
@@ -1855,7 +1991,9 @@ def phase_generate(torch, seed: int, backend, model, params,
     del state, outs
     backend.reset_launch_counts()
     with recorded_routes() as prefill_routes:
-        full = make_prefill(checked)(params, tokens=prompt)
+        full = make_prefill(checked)(
+            params, tokens=prompt,
+            **({"frontend": frontend} if cfg.is_encdec else {}))
     torch.cuda.synchronize()
     prefill_launches = backend.launch_counts()
     layers = len(prefill_routes)
@@ -1882,12 +2020,11 @@ def phase_generate(torch, seed: int, backend, model, params,
     del decoded, full, checked
     torch.cuda.empty_cache()
     step = make_decode_step(model)
-    state = model.init_decode(params, GEN_BATCH, max_len)
+    state = decode_state(model, GEN_BATCH, torch.bfloat16)
     for t in range(GEN_PROMPT):
         state, _ = step(params, state, prompt[:, t:t + 1])
     token = prompt[:, -1:]
-    breakdown = profile_breakdown(
-        torch, lambda: step(params, list(state), token))
+    breakdown = profile_breakdown(torch, lambda: step(params, state, token))
     return {"phase": f"{which}_generate", "arch": cfg.arch_id,
             "layers": cfg.num_layers, "requests": GEN_BATCH,
             "prompt_tokens": GEN_PROMPT, "new_tokens": GEN_NEW,
@@ -1896,7 +2033,9 @@ def phase_generate(torch, seed: int, backend, model, params,
             "new_tokens_per_s": GEN_BATCH * GEN_NEW / gen_s,
             "decode_tokens_per_s": GEN_BATCH * steps / gen_s,
             "identical_twice": True, "generated": out[0].tolist(),
-            "launches": gen_launches,
+            "launches": gen_launches, "expected_launches": expected_gen,
+            "frontend_shape": (list(frontend.shape) if frontend is not None
+                               else None),
             "prefill_check_launches": prefill_launches,
             "decode_vs_prefill": diff,
             "criterion": {"argmax_agreement": DECODE_AGREEMENT,

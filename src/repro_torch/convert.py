@@ -8,11 +8,11 @@ stack crosses over as numpy arrays and is moved to the device here.
 
 The LM stack's state is its parameter tree.  The JAX package's tree crosses
 over as numpy arrays (``jax.tree.map(np.asarray, params)``) and
-:func:`params_from_numpy` lays it out as the port's, for the dense, moe,
-ssm and hybrid families: the scanned ``blocks`` stack is split into one
-dict per layer (a hybrid super-block's stacked sublayers too: see
-:func:`_block_leaves`), and each leaf takes the dtype the port stores it
-in.
+:func:`params_from_numpy` lays it out as the port's, for every family: each
+scanned stack (``blocks``; an enc-dec model's ``encoder`` and ``decoder``)
+is split into one dict per layer (a hybrid super-block's stacked
+sublayers too: see :func:`_block_leaves`), and each leaf takes the dtype
+the port stores it in.
 """
 
 from __future__ import annotations
@@ -154,6 +154,35 @@ def _block_leaves(cfg: ModelConfig
     return out
 
 
+#: an enc-dec layer's parts in each stack, in the JAX package's names
+ENCDEC_PARTS = {
+    "encoder": (("norm_attn", "norm"), ("attn", "attn"),
+                ("norm_ffn", "norm"), ("ffn", "ffn")),
+    "decoder": (("norm_self", "norm"), ("self_attn", "attn"),
+                ("norm_cross", "norm"), ("cross_attn", "attn"),
+                ("norm_ffn", "norm"), ("ffn", "ffn")),
+}
+
+
+def _stacks(cfg: ModelConfig
+            ) -> Dict[str, Tuple[int, Dict[str, Tuple[tuple, list]]]]:
+    """Each scanned stack of the JAX tree -> (the port's layers in it, and
+    its leaves as :func:`_block_leaves` gives them): ``blocks``, or an
+    enc-dec model's ``encoder`` and ``decoder`` (layers on axis 0)."""
+    if not cfg.is_encdec:
+        return {"blocks": (cfg.num_layers, _block_leaves(cfg))}
+    kinds = {"norm": _norm_shapes(cfg), "attn": _mixer_shapes(cfg, "attn"),
+             "ffn": _ffn_shapes(cfg, cfg.d_ff)}
+    out = {}
+    for stack, n in (("encoder", cfg.enc_layers),
+                     ("decoder", cfg.num_layers)):
+        out[stack] = (n, {f"{name}/{k}": ((n,) + s,
+                                           [(i, (i,)) for i in range(n)])
+                          for name, kind in ENCDEC_PARTS[stack]
+                          for k, s in kinds[kind].items()})
+    return out
+
+
 def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
     out = {}
     for k, v in tree.items():
@@ -173,11 +202,11 @@ def _put(tree: dict, path: str, value: torch.Tensor) -> None:
 
 
 def params_from_numpy(tree: Mapping, cfg: ModelConfig, device) -> dict:
-    """The JAX package's parameter tree of a dense, moe, ssm or hybrid
-    model, as numpy arrays -> the port's, on ``device``.  ``cfg`` is the
-    model's config (its vocabulary is padded here as ``build`` pads it).
-    Norm parameters and the Mamba layers' ``a_log``, ``d_skip`` and
-    ``dt_bias`` stay f32; every other leaf (the MoE router too) is cast to
+    """The JAX package's parameter tree of a model of any family, as numpy
+    arrays -> the port's, on ``device``.  ``cfg`` is the model's config
+    (its vocabulary is padded here as ``build`` pads it).  Norm parameters
+    and the Mamba layers' ``a_log``, ``d_skip`` and ``dt_bias`` stay f32;
+    every other leaf (the MoE router and ``frontend_proj`` too) is cast to
     ``cfg.dtype``, the cast the JAX package makes at each use.  Raises
     ``ValueError`` on a leaf the port does not know, a missing leaf or a
     shape that differs."""
@@ -188,11 +217,17 @@ def params_from_numpy(tree: Mapping, cfg: ModelConfig, device) -> dict:
     pcfg = _padded_cfg(cfg)
     norm = _norm_shapes(pcfg)
     V, d = pcfg.vocab_size, pcfg.d_model
-    top = {"embed": (V, d), **{f"norm_out/{k}": s for k, s in norm.items()}}
-    if not pcfg.tie_embeddings:
+    norms = ("norm_enc", "norm_out") if pcfg.is_encdec else ("norm_out",)
+    top = {"embed": (V, d), **{f"{name}/{k}": s for name in norms
+                               for k, s in norm.items()}}
+    if not pcfg.tie_embeddings and not pcfg.is_encdec:
         top["unembed"] = (V, d)
-    blocks = _block_leaves(pcfg)
-    expected = {**top, **{f"blocks/{k}": s for k, (s, _) in blocks.items()}}
+    if pcfg.is_encdec or pcfg.frontend_tokens:
+        top["frontend_proj"] = (pcfg.frontend_dim or d, d)
+    stacks = _stacks(pcfg)
+    expected = {**top, **{f"{stack}/{k}": s
+                          for stack, (_, leaves) in stacks.items()
+                          for k, (s, _) in leaves.items()}}
     flat = _flatten(tree)
     unknown = sorted(set(flat) - set(expected))
     missing = sorted(set(expected) - set(flat))
@@ -215,12 +250,13 @@ def params_from_numpy(tree: Mapping, cfg: ModelConfig, device) -> dict:
         return torch.tensor(arr).to(
             device=device, dtype=torch.float32 if keep_f32 else dtype)
 
-    params: dict = {"blocks": [{} for _ in range(pcfg.num_layers)]}
+    params: dict = {stack: [{} for _ in range(n)]
+                    for stack, (n, _) in stacks.items()}
     for path, arr in flat.items():
-        if path.startswith("blocks/"):
-            sub = path[len("blocks/"):]
-            for layer, index in blocks[sub][1]:
-                _put(params["blocks"][layer], sub, tensor(path, arr[index]))
+        stack, _, sub = path.partition("/")
+        if stack in stacks:
+            for layer, index in stacks[stack][1][sub][1]:
+                _put(params[stack][layer], sub, tensor(path, arr[index]))
         else:
             _put(params, path, tensor(path, arr))
     return params

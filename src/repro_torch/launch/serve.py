@@ -1,13 +1,16 @@
-"""Serving CLI: batched greedy generation against a ported arch (the
-dense, moe, ssm and hybrid families: ``--arch dbrx-132b``,
-``llama4-maverick-400b-a17b``, ``jamba-v0.1-52b`` and the rest).
+"""Serving CLI: batched greedy generation against any arch of the zoo
+(``--arch dbrx-132b``, ``jamba-v0.1-52b``, ``seamless-m4t-large-v2``,
+``internvl2-1b`` and the rest).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \\
         --variant smoke --batch 4 --prompt-len 16 --gen 32 [--device cpu]
 
 The flags of ``repro/launch/serve.py`` plus ``--device`` (default: the
-card).  Weights are random, drawn from ``--seed``; so is the prompt.  Prints
-one ``[serve]`` JSON line: the JAX CLI's keys plus the device's name.
+card).  Weights are random, drawn from ``--seed``; so are the prompt and,
+for an enc-dec or VLM arch, ``frontend_tokens or 16`` frontend embeddings of
+``frontend_dim`` (the encoder's frames; a VLM's generation ignores them, as
+in the JAX package).  Prints one ``[serve]`` JSON line: the JAX CLI's keys
+plus the device's name.
 """
 
 from __future__ import annotations
@@ -47,11 +50,17 @@ def main(argv=None):
     g = torch.Generator(device=dev).manual_seed(args.seed)
     prompt = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
                            generator=g, device=dev, dtype=torch.int32)
+    frontend = None
+    if cfg.is_encdec or cfg.frontend_tokens:
+        n = cfg.frontend_tokens or 16
+        frontend = torch.randn((args.batch, n, cfg.frontend_dim or cfg.d_model),
+                               generator=g, device=dev).to(torch.bfloat16)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     t0 = time.perf_counter()
     out = greedy_generate(model, params, prompt, args.gen,
-                          max_len=args.prompt_len + args.gen + 1).cpu()
+                          max_len=args.prompt_len + args.gen + 1,
+                          frontend=frontend).cpu()
     dt = time.perf_counter() - t0
     print("[serve]", json.dumps({
         "arch": args.arch, "batch": args.batch,

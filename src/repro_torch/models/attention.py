@@ -4,7 +4,10 @@ path.
 The prefill path reaches the hand-written flash-attention kernel through
 ``kernels.ops.flash_attention`` (``cfg.attention_impl``).  The decode path
 attends with the plain ``kernels.ref.decode_attention``, as the JAX package
-does (it has no Pallas decode kernel).
+does (it has no Pallas decode kernel).  Cross-attention (the enc-dec
+decoder) reaches the flash kernel, non-causal, in the prefill and in every
+decode step (one query row against the encoder's K/V), as in the JAX
+package.
 
 The KV cache is bf16 whatever ``cfg.dtype`` is, as in the JAX package.
 Where the JAX package writes the new token's K and V with
@@ -86,6 +89,38 @@ def attn_forward(params: dict, cfg: ModelConfig, x: torch.Tensor,
                                impl=cfg.attention_impl)
     out = out.transpose(1, 2).reshape(B, S, -1)
     return out @ params["wo"].to(x.dtype)
+
+
+def cross_attn_forward(params: dict, cfg: ModelConfig, x: torch.Tensor,
+                       memory_kv: tuple) -> torch.Tensor:
+    """Decoder cross-attention against precomputed encoder K/V (from
+    :func:`encode_memory_kv`): x [B, S, d_model], non-causal, S == 1 in a
+    decode step."""
+    B, S, _ = x.shape
+    q = x @ params["wq"].to(x.dtype)
+    if cfg.qkv_bias:
+        q = q + params["bq"].to(x.dtype)
+    q = q.reshape(B, S, cfg.num_heads, cfg.head_dim).transpose(1, 2)
+    k, v = memory_kv
+    out = kops.flash_attention(q, k, v, causal=False,
+                               impl=cfg.attention_impl)
+    out = out.transpose(1, 2).reshape(B, S, -1)
+    return out @ params["wo"].to(x.dtype)
+
+
+def encode_memory_kv(params: dict, cfg: ModelConfig, memory: torch.Tensor):
+    """Project the encoder's output once into cross-attention K and V,
+    [B, Hkv, S_enc, D] each: transposed views of the projections, which
+    the flash kernel reads through their strides."""
+    B, S, _ = memory.shape
+    k = memory @ params["wk"].to(memory.dtype)
+    v = memory @ params["wv"].to(memory.dtype)
+    if cfg.qkv_bias:
+        k = k + params["bk"].to(memory.dtype)
+        v = v + params["bv"].to(memory.dtype)
+    k = k.reshape(B, S, cfg.num_kv_heads, cfg.head_dim).transpose(1, 2)
+    v = v.reshape(B, S, cfg.num_kv_heads, cfg.head_dim).transpose(1, 2)
+    return k, v
 
 
 # ---------------------------------------------------------------------------

@@ -7,11 +7,12 @@ Every function keeps the JAX package's arithmetic: which dtype each step
 runs in and where it rounds.
 
 Left for later slices: the activation mesh and ``constrain`` (one card;
-meshes are ROADMAP.md queue 1 item 8), sinusoidal positions (enc-dec) and
-``cross_entropy`` (training).
+meshes are ROADMAP.md queue 1 item 8) and ``cross_entropy`` (training).
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -98,6 +99,35 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# sinusoidal positions (the enc-dec stacks)
+# ---------------------------------------------------------------------------
+def _sinusoid_div(dim: int, device) -> torch.Tensor:
+    return torch.exp(torch.arange(0, dim, 2, dtype=torch.float32,
+                                  device=device)
+                     * (-math.log(10000.0) / dim))
+
+
+def sinusoidal_at(position: int, dim: int, device=None) -> torch.Tensor:
+    """The sinusoidal embedding of one position, [dim] f32: sin on even
+    channels, cos on odd.  ``position`` is a host int (a ``KVCache.length``),
+    so a decode step computes it on the device without a sync."""
+    angles = _sinusoid_div(dim, device) * float(position)
+    return torch.stack([torch.sin(angles), torch.cos(angles)],
+                       dim=-1).reshape(dim)
+
+
+def sinusoidal_positions(seq_len: int, dim: int, device=None) -> torch.Tensor:
+    """Additive absolute positions [seq_len, dim] f32 (the seamless enc
+    and dec stacks)."""
+    pos = torch.arange(seq_len, dtype=torch.float32, device=device)[:, None]
+    angles = pos * _sinusoid_div(dim, device)
+    pe = torch.zeros((seq_len, dim), dtype=torch.float32, device=device)
+    pe[:, 0::2] = torch.sin(angles)
+    pe[:, 1::2] = torch.cos(angles)
+    return pe
 
 
 # ---------------------------------------------------------------------------

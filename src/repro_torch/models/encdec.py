@@ -1,0 +1,172 @@
+"""Encoder-decoder assembly (the seamless-m4t family).
+
+The counterpart of ``repro/models/encdec.py``.  The speech frontend is a
+stub, as in the JAX package: the encoder takes precomputed frame embeddings
+[B, S_enc, frontend_dim].  Above it: a bidirectional encoder, a decoder
+with causal self-attention and cross-attention, sinusoidal positions,
+plain-GELU FFNs, LayerNorm and a tied unembedding over the padded
+vocabulary.  Every attention (the encoder's, the decoder's self- and
+cross-attention) reaches the flash kernel through ``kernels.ops``.
+
+The JAX package scans stacked layers; here ``params["encoder"]`` and
+``params["decoder"]`` are lists of per-layer dicts and the layer loops are
+Python loops, as in ``models/transformer.py``.
+
+Decode: per-layer self-attention KV caches, and the cross-attention K/V
+computed once from the encoder memory (:class:`DecCache`).  Each step's
+cross-attention is the flash kernel with one query row.
+"""
+
+from __future__ import annotations
+
+from typing import List, NamedTuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import common
+from repro_torch.models.attention import (
+    KVCache,
+    attn_decode_step,
+    attn_forward,
+    cross_attn_forward,
+    encode_memory_kv,
+    init_attn,
+    init_cache,
+)
+from repro_torch.models.ffn import ffn_forward, init_ffn
+from repro_torch.models.transformer import model_dtype, unembed
+
+
+def init_enc_block(generator: torch.Generator, cfg: ModelConfig,
+                   dtype: torch.dtype) -> dict:
+    dev = generator.device
+    return {
+        "norm_attn": common.init_norm(cfg.norm, cfg.d_model, dev),
+        "attn": init_attn(generator, cfg, dtype),
+        "norm_ffn": common.init_norm(cfg.norm, cfg.d_model, dev),
+        "ffn": init_ffn(generator, cfg, dtype),
+    }
+
+
+def init_dec_block(generator: torch.Generator, cfg: ModelConfig,
+                   dtype: torch.dtype) -> dict:
+    dev = generator.device
+    return {
+        "norm_self": common.init_norm(cfg.norm, cfg.d_model, dev),
+        "self_attn": init_attn(generator, cfg, dtype),
+        "norm_cross": common.init_norm(cfg.norm, cfg.d_model, dev),
+        "cross_attn": init_attn(generator, cfg, dtype),
+        "norm_ffn": common.init_norm(cfg.norm, cfg.d_model, dev),
+        "ffn": init_ffn(generator, cfg, dtype),
+    }
+
+
+def init_model(generator: torch.Generator, cfg: ModelConfig) -> dict:
+    """Parameters on the generator's device, drawn from it in a fixed
+    order: embedding, frontend projection, encoder, decoder.  Matmul
+    weights in ``cfg.dtype``, norms f32 (see ``transformer.py``)."""
+    dtype, dev = model_dtype(cfg), generator.device
+    return {
+        "embed": common.embed_init(generator, cfg.vocab_size, cfg.d_model,
+                                   dtype),
+        "frontend_proj": common.dense_init(
+            generator, cfg.frontend_dim or cfg.d_model, cfg.d_model, dtype),
+        "encoder": [init_enc_block(generator, cfg, dtype)
+                    for _ in range(cfg.enc_layers)],
+        "decoder": [init_dec_block(generator, cfg, dtype)
+                    for _ in range(cfg.num_layers)],
+        "norm_enc": common.init_norm(cfg.norm, cfg.d_model, dev),
+        "norm_out": common.init_norm(cfg.norm, cfg.d_model, dev),
+    }
+
+
+def encode(params: dict, cfg: ModelConfig,
+           frontend: torch.Tensor) -> torch.Tensor:
+    """frontend [B, S_enc, frontend_dim] -> memory [B, S_enc, d_model]."""
+    dtype = model_dtype(cfg)
+    x = frontend.to(dtype) @ params["frontend_proj"].to(dtype)
+    x = x + common.sinusoidal_positions(x.shape[1], cfg.d_model,
+                                        x.device).to(dtype)
+    for block in params["encoder"]:
+        a = common.apply_norm(block["norm_attn"], x)
+        x = x + attn_forward(block["attn"], cfg, a, causal=False, rope=False)
+        f = common.apply_norm(block["norm_ffn"], x)
+        x = x + ffn_forward(block["ffn"], cfg, f)
+    return common.apply_norm(params["norm_enc"], x)
+
+
+def decode_train(params: dict, cfg: ModelConfig, memory: torch.Tensor,
+                 tokens: torch.Tensor) -> torch.Tensor:
+    """Teacher-forced decoder pass -> logits [B, S_dec, V]."""
+    dtype = model_dtype(cfg)
+    x = params["embed"].to(dtype)[tokens.long()]
+    x = x + common.sinusoidal_positions(x.shape[1], cfg.d_model,
+                                        x.device).to(dtype)
+    for block in params["decoder"]:
+        a = common.apply_norm(block["norm_self"], x)
+        x = x + attn_forward(block["self_attn"], cfg, a, causal=True,
+                             rope=False)
+        c = common.apply_norm(block["norm_cross"], x)
+        mem_kv = encode_memory_kv(block["cross_attn"], cfg, memory)
+        x = x + cross_attn_forward(block["cross_attn"], cfg, c, mem_kv)
+        f = common.apply_norm(block["norm_ffn"], x)
+        x = x + ffn_forward(block["ffn"], cfg, f)
+    x = common.apply_norm(params["norm_out"], x)
+    return unembed(params, cfg, x)
+
+
+def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
+            frontend: torch.Tensor):
+    """Prefill: tokens [B, S] and frontend [B, S_enc, frontend_dim] ->
+    (logits [B, S, V], aux = 0)."""
+    memory = encode(params, cfg, frontend)
+    return (decode_train(params, cfg, memory, tokens),
+            torch.zeros((), dtype=torch.float32, device=memory.device))
+
+
+# ---------------------------------------------------------------------------
+# incremental decode
+# ---------------------------------------------------------------------------
+class DecCache(NamedTuple):
+    self_kv: List[KVCache]  # one per decoder layer
+    cross_k: List[torch.Tensor]  # [B, Hkv, S_enc, D] per layer, precomputed
+    cross_v: List[torch.Tensor]
+
+
+def init_decode_state(params: dict, cfg: ModelConfig, memory: torch.Tensor,
+                      batch: int, max_len: int,
+                      dtype: torch.dtype = torch.bfloat16) -> DecCache:
+    """Project the memory into each layer's cross K/V once; allocate the
+    self-attention caches (``dtype``, bf16 by default, as in JAX)."""
+    cross = [encode_memory_kv(block["cross_attn"], cfg, memory)
+             for block in params["decoder"]]
+    return DecCache(
+        self_kv=[init_cache(cfg, batch, max_len, memory.device, dtype)
+                 for _ in params["decoder"]],
+        cross_k=[k for k, _ in cross], cross_v=[v for _, v in cross])
+
+
+def decode_step(params: dict, cfg: ModelConfig, state: DecCache,
+                token: torch.Tensor):
+    """token [B, 1] -> (state, logits [B, 1, V]).  The self-attention
+    caches are written in place (see ``attention.attn_decode_step``)."""
+    dtype = model_dtype(cfg)
+    x = params["embed"].to(dtype)[token.long()]
+    # the incoming token's position: the caches' length, a host int
+    pos = state.self_kv[0].length
+    x = x + common.sinusoidal_at(pos, cfg.d_model, x.device).to(dtype)
+    new_self = []
+    for block, cache, ck, cv in zip(params["decoder"], state.self_kv,
+                                    state.cross_k, state.cross_v):
+        a = common.apply_norm(block["norm_self"], x)
+        cache, y = attn_decode_step(block["self_attn"], cfg, cache, a,
+                                    rope=False)
+        x = x + y
+        c = common.apply_norm(block["norm_cross"], x)
+        x = x + cross_attn_forward(block["cross_attn"], cfg, c, (ck, cv))
+        f = common.apply_norm(block["norm_ffn"], x)
+        x = x + ffn_forward(block["ffn"], cfg, f)
+        new_self.append(cache)
+    x = common.apply_norm(params["norm_out"], x)
+    return state._replace(self_kv=new_self), unembed(params, cfg, x)

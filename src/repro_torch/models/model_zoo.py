@@ -1,13 +1,15 @@
-"""Model zoo: one entry point over the ported architectures.
+"""Model zoo: one entry point over every architecture.
 
-`build(cfg)` returns a `Model` bundle of functions, as in the JAX package.
-The port covers the dense family without a modality frontend (llama3-8b,
-gemma-7b, qwen1.5-4b, qwen2-72b), the moe family (dbrx-132b,
-llama4-maverick-400b-a17b), the ssm family (mamba2-2.7b) and the hybrid
-family (jamba-v0.1-52b); `build` raises ``NotImplementedError`` for the
-enc-dec and VLM families.  A model runs on the card
-unless it is built with ``device="cpu"``.  The dry-run's ``input_specs`` and ``decode_specs`` come
-with the dry-run slice.
+`build(cfg)` returns a `Model` bundle of functions, as in the JAX package,
+for all ten architectures: the dense family (llama3-8b, gemma-7b,
+qwen1.5-4b, qwen2-72b), the moe family (dbrx-132b,
+llama4-maverick-400b-a17b), the ssm family (mamba2-2.7b), the hybrid
+family (jamba-v0.1-52b), the VLM family (internvl2-1b: ``forward`` takes
+``frontend`` embeddings, put before the tokens) and the enc-dec family
+(seamless-m4t-large-v2: ``forward`` takes ``tokens`` and ``frontend``
+frames, ``init_decode`` the encoder's ``memory``).  A model runs on the
+card unless it is built with ``device="cpu"``.  The dry-run's
+``input_specs`` and ``decode_specs`` come with the dry-run slice.
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.backend import DeviceLike, resolve_device
-from repro_torch.models import transformer
+from repro_torch.models import encdec, transformer
 
 VOCAB_PAD_MULTIPLE = 256
 
@@ -41,22 +43,41 @@ class Model:
     cfg: ModelConfig
     device: DeviceLike  # None: the card
     init: Callable  # (seed) -> params on the resolved device
-    forward: Callable  # (params, *, tokens, ssd_impl="auto") -> (logits, aux)
-    init_decode: Callable  # (params, batch, max_len) -> caches
+    # (params, *, tokens, frontend=None, ssd_impl="auto") -> (logits, aux)
+    forward: Callable
+    # (params, batch, max_len[, memory=]) -> caches (enc-dec: a DecCache)
+    init_decode: Callable
     decode_step: Callable  # (params, caches, token) -> (caches, logits)
 
 
 def build(cfg: ModelConfig, device: DeviceLike = None) -> Model:
     transformer.require_ported(cfg)
     pcfg = _padded_cfg(cfg)
+    family = encdec if cfg.is_encdec else transformer
 
     def init(seed: int = 0):
         dev = resolve_device(device)
         generator = torch.Generator(device=dev).manual_seed(seed)
-        return transformer.init_model(generator, pcfg)
+        return family.init_model(generator, pcfg)
 
-    def forward(params, *, tokens, ssd_impl="auto", **_):
-        return transformer.forward(params, pcfg, tokens, ssd_impl)
+    if cfg.is_encdec:
+        def forward(params, *, tokens, frontend, **_):
+            return encdec.forward(params, pcfg, tokens, frontend)
+
+        def init_decode(params, batch, max_len, memory=None):
+            if memory is None:
+                raise ValueError("enc-dec decode needs encoder memory")
+            return encdec.init_decode_state(params, pcfg, memory, batch,
+                                            max_len)
+
+        return Model(
+            cfg=cfg, device=device, init=init, forward=forward,
+            init_decode=init_decode,
+            decode_step=lambda p, s, t: encdec.decode_step(p, pcfg, s, t))
+
+    def forward(params, *, tokens, frontend=None, ssd_impl="auto", **_):
+        return transformer.forward(params, pcfg, tokens, ssd_impl,
+                                   frontend=frontend)
 
     def init_decode(params, batch, max_len):
         # a mamba layer's state does not depend on max_len, as in JAX

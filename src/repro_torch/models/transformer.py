@@ -12,9 +12,10 @@ The counterpart of those paths of ``repro/models/transformer.py``.  The
 JAX package scans one stacked block (a hybrid super-block holds its
 sublayers' parameters stacked inside); here ``params["blocks"]`` is a list
 of per-layer parameter dicts, one per sublayer, and the layer loop is a
-Python loop.  :func:`layer_plan` says what each layer holds.  The
-encoder-decoder and modality-frontend families come with later slices
-(:func:`require_ported` names them).
+Python loop.  :func:`layer_plan` says what each layer holds.  A model with
+a modality frontend (the VLM family, internvl2-1b) projects its
+precomputed embeddings with ``frontend_proj`` and puts them before the
+token embeddings.  The encoder-decoder family is ``models/encdec.py``.
 
 Matmul weights and embeddings are stored once in ``cfg.dtype``.  The JAX
 package keeps f32 masters and casts them to ``cfg.dtype`` at every use;
@@ -25,7 +26,7 @@ per layer per step.  Norm scales stay f32.
 
 from __future__ import annotations
 
-from typing import List, Tuple, Union
+from typing import List, Optional, Tuple, Union
 
 import torch
 
@@ -48,22 +49,16 @@ from repro_torch.models.mamba2 import (
 )
 from repro_torch.models.moe import init_moe, moe_forward
 
-PORTED = ("dense", "moe", "ssm", "hybrid")
-#: family -> where ROADMAP.md puts its slice
-NOT_PORTED = {
-    "encdec": "ROADMAP.md queue 1 item 5(c) (enc-dec: seamless-m4t)",
-    "vlm": "ROADMAP.md queue 1 item 5(d) (VLM: internvl2-1b)",
-}
+PORTED = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
 
 
 def require_ported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for a family the port has not yet:
-    enc-dec, and any model with a modality frontend."""
-    family = "vlm" if cfg.frontend_tokens else cfg.family
-    if family not in PORTED:
+    """Raise ``NotImplementedError`` for a family neither package
+    knows."""
+    if cfg.family not in PORTED:
         raise NotImplementedError(
-            f"{cfg.arch_id}: the {family} family is not ported yet; see "
-            f"{NOT_PORTED.get(family, 'ROADMAP.md queue 1 item 5')}")
+            f"{cfg.arch_id}: unknown model family {cfg.family!r}; the port "
+            f"builds {', '.join(PORTED)}")
 
 
 def model_dtype(cfg: ModelConfig) -> torch.dtype:
@@ -164,7 +159,7 @@ def apply_block(block: dict, cfg: ModelConfig, x: torch.Tensor,
 # ---------------------------------------------------------------------------
 def init_model(generator: torch.Generator, cfg: ModelConfig) -> dict:
     """Parameters on the generator's device, drawn from it in a fixed
-    order: embedding, blocks, unembedding."""
+    order: embedding, blocks, unembedding, frontend projection."""
     require_ported(cfg)
     dtype, dev = model_dtype(cfg), generator.device
     params = {
@@ -177,6 +172,9 @@ def init_model(generator: torch.Generator, cfg: ModelConfig) -> dict:
     if not cfg.tie_embeddings:
         params["unembed"] = common.embed_init(generator, cfg.vocab_size,
                                               cfg.d_model, dtype)
+    if cfg.frontend_tokens:
+        params["frontend_proj"] = common.dense_init(
+            generator, cfg.frontend_dim or cfg.d_model, cfg.d_model, dtype)
     return params
 
 
@@ -196,13 +194,24 @@ def unembed(params: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 
 
 def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
-            ssd_impl: str = "auto"):
-    """tokens [B, S] -> (logits [B, S, V], aux).  ``ssd_impl`` picks the
-    SSD's implementation in the mamba layers (the JAX config has no field
-    for it: there the backend decides)."""
+            ssd_impl: str = "auto", frontend: Optional[torch.Tensor] = None):
+    """tokens [B, S] (and frontend embeddings [B, F, frontend_dim]) ->
+    (logits [B, F + S, V], aux): with a frontend the logits cover the
+    whole sequence, as in JAX; callers slice.  ``ssd_impl`` picks the SSD's
+    implementation in the mamba layers (the JAX config has no field for
+    it: there the backend decides)."""
     dtype = model_dtype(cfg)
     x = embed_tokens(params, cfg, tokens, dtype)
-    positions = torch.arange(x.shape[1], device=x.device)
+    if frontend is not None:
+        fx = frontend.to(dtype) @ params["frontend_proj"].to(dtype)
+        x = torch.cat([fx, x], dim=1)
+    S = x.shape[1]
+    if cfg.pos_embed == "sinusoidal":
+        x = x + common.sinusoidal_positions(S, cfg.d_model,
+                                            x.device).to(dtype)
+        positions = None
+    else:
+        positions = torch.arange(S, device=x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for block in params["blocks"]:
         x, a = apply_block(block, cfg, x, positions, ssd_impl)

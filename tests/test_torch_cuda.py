@@ -177,6 +177,43 @@ def test_flash_attention_kernel_matches_plain_version(card, case, dtype):
         rtol=TOL[dtype], atol=TOL[dtype])
 
 
+# the enc-dec and VLM paths' shapes (B, Hq, Hkv, Sq, Sk, D, causal), as
+# chip_smoke.py's FLASH_CASES names them: seamless's encoder, decoder self-
+# and cross-attention (prefill and one decode step), an internvl2-1b layer,
+# a gemma-7b layer; batch cut to 1-2
+MODEL_ATTN_CASES = [
+    ("seamless_enc", (2, 16, 16, 512, 512, 64, False)),
+    ("seamless_dec_self", (1, 16, 16, 2048, 2048, 64, True)),
+    ("seamless_cross", (2, 16, 16, 2048, 512, 64, False)),
+    ("seamless_cross_decode", (4, 16, 16, 1, 512, 64, False)),
+    ("internvl_layer", (1, 14, 2, 2048, 2048, 64, True)),
+    ("gemma_layer", (1, 16, 16, 2048, 2048, 256, True)),
+]
+
+
+@pytest.mark.parametrize("name,case", MODEL_ATTN_CASES,
+                         ids=[n for n, _ in MODEL_ATTN_CASES])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_at_the_model_paths_shapes(card, name, case,
+                                                          dtype):
+    """q, k and v as the attention layers hand them over: transposed
+    [B, S, H, D] views of the projections (the cross K/V of
+    ``encode_memory_kv`` too, sequence stride Hkv * D)."""
+    B, Hq, Hkv, Sq, Sk, D, causal = case
+    g = torch.Generator(device=card).manual_seed(5)
+    q, k, v = (torch.randn((B, S, H, D), generator=g, device=card,
+                           dtype=dtype).transpose(1, 2)
+               for H, S in ((Hq, Sq), (Hkv, Sk), (Hkv, Sk)))
+    before = kflash.launches.count
+    got = ops.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert kflash.launches.count == before + 1
+    assert got.shape == (B, Hq, Sq, D) and got.is_contiguous()
+    torch.testing.assert_close(
+        got.float(), ref.attention_chunked(q, k, v, causal=causal).float(),
+        rtol=TOL[dtype], atol=TOL[dtype])
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_kernel_takes_transposed_q_k_v(card, dtype):
     """q, k and v all as the attention layer's transposed [B, S, H, D]
@@ -413,6 +450,66 @@ def test_jamba_prefill_on_the_card_launches_each_kernel_per_sublayer(card):
     b = greedy_generate(model, params, tokens[:, :8], 8, max_len=17)
     assert torch.equal(a, b)
     assert backend.launch_counts() == {k: 0 for k in counts}
+
+
+def test_seamless_on_the_card_launches_flash_in_every_attention(card):
+    """seamless-smoke: flash once per encoder layer and twice per decoder
+    layer (self and cross) in a prefill; in generation once per encoder
+    layer and once per decoder layer and step (cross-attention, one query
+    row).  The logits against the plain run, greedy tokens identical
+    twice."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build
+    from repro_torch.train import greedy_generate, make_prefill
+
+    cfg = dataclasses.replace(get_config("seamless-m4t-large-v2", "smoke"),
+                              attention_impl="auto")
+    model = build(cfg)
+    params = model.init(0)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 64), device=card)
+    frames = torch.randn((2, 48, cfg.frontend_dim), device=card)
+    backend.reset_launch_counts()
+    logits = make_prefill(model)(params, tokens=tokens, frontend=frames)
+    torch.cuda.synchronize()
+    assert backend.launch_counts()["flash_attention"] == (
+        cfg.enc_layers + 2 * cfg.num_layers)
+    plain = build(dataclasses.replace(cfg, attention_impl="chunked"))
+    want = make_prefill(plain)(params, tokens=tokens, frontend=frames)
+    agree = (logits.argmax(-1) == want.argmax(-1)).float().mean()
+    assert float(agree) > 0.95
+    backend.reset_launch_counts()
+    a = greedy_generate(model, params, tokens[:, :8], 8, max_len=17,
+                        frontend=frames)
+    b = greedy_generate(model, params, tokens[:, :8], 8, max_len=17,
+                        frontend=frames)
+    assert torch.equal(a, b)
+    assert backend.launch_counts()["flash_attention"] == 2 * (
+        cfg.enc_layers + 16 * cfg.num_layers)
+
+
+def test_internvl_prefill_with_prefix_on_the_card(card):
+    """internvl-smoke with its 8 patch embeddings before 56 tokens: flash
+    once per layer, logits over F + S positions against the plain run."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build
+    from repro_torch.train import make_prefill
+
+    cfg = dataclasses.replace(get_config("internvl2-1b", "smoke"),
+                              attention_impl="auto")
+    model = build(cfg)
+    params = model.init(0)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 56), device=card)
+    patches = torch.randn((2, cfg.frontend_tokens, cfg.frontend_dim),
+                          device=card)
+    backend.reset_launch_counts()
+    logits = make_prefill(model)(params, tokens=tokens, frontend=patches)
+    torch.cuda.synchronize()
+    assert backend.launch_counts()["flash_attention"] == cfg.num_layers
+    assert logits.shape[1] == cfg.frontend_tokens + 56
+    plain = build(dataclasses.replace(cfg, attention_impl="chunked"))
+    want = make_prefill(plain)(params, tokens=tokens, frontend=patches)
+    agree = (logits.argmax(-1) == want.argmax(-1)).float().mean()
+    assert float(agree) > 0.95
 
 
 def test_calibration_on_the_card_is_bit_identical_to_the_cpu(card):

@@ -19,7 +19,7 @@ from repro_torch.configs.festivus_imagery import SMOKE
 from repro_torch.configs import get_config
 from repro_torch.core import ChunkStore, Festivus, InMemoryObjectStore
 from repro_torch.examples import (field_segmentation, global_composite,
-                                  tile_server)
+                                  serve_lm, tile_server)
 from repro_torch.launch import serve as pserve
 from repro_torch.models import build
 from repro_torch.train import greedy_generate
@@ -126,6 +126,24 @@ def test_lm_entry_points_without_device_raise_without_cuda(monkeypatch):
                         2, max_len=5)
 
 
+@pytest.mark.parametrize("arch", ["seamless-m4t-large-v2", "internvl2-1b"])
+def test_encdec_and_vlm_entry_points_raise_without_cuda(monkeypatch, capsys,
+                                                        arch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_config(arch, "smoke")
+    model = build(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        model.init(0)
+    params = build(cfg, device="cpu").init(0)
+    frontend = torch.zeros((1, 4, cfg.frontend_dim))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        greedy_generate(model, params, torch.zeros((1, 2), dtype=torch.int32),
+                        2, max_len=5, frontend=frontend)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        pserve.main(["--arch", arch, "--variant", "smoke", "--gen", "2"])
+    assert "[serve]" not in capsys.readouterr().out
+
+
 def test_serve_cli_without_device_raises_without_cuda(monkeypatch, capsys):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -152,9 +170,9 @@ def test_calibration_without_device_raises_before_any_work(monkeypatch):
 
 
 @pytest.mark.parametrize("example", [global_composite, field_segmentation,
-                                     tile_server],
+                                     tile_server, serve_lm],
                          ids=["global_composite", "field_segmentation",
-                              "tile_server"])
+                              "tile_server", "serve_lm"])
 def test_examples_without_device_raise_before_any_work(monkeypatch, capsys,
                                                        example):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

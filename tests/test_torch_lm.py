@@ -37,7 +37,8 @@ from repro_torch.models.model_zoo import padded_vocab
 from repro_torch.train import greedy_generate, make_decode_step, make_prefill
 
 DENSE = ["llama3-8b", "gemma-7b", "qwen1.5-4b", "qwen2-72b"]
-NOT_PORTED = {"seamless-m4t-large-v2": "encdec", "internvl2-1b": "vlm"}
+#: families neither package knows (every one of the ten archs' is ported)
+UNKNOWN_FAMILIES = ["rnn", "diffusion"]
 F32_TOL = dict(rtol=1e-4, atol=1e-4)
 DECODE_TOL = dict(rtol=2e-3, atol=2e-3)
 
@@ -276,22 +277,55 @@ def test_params_from_numpy_rejects_a_shape_that_differs():
         params_from_numpy(tree, get_config("llama3-8b", "smoke"), "cpu")
 
 
-@pytest.mark.parametrize("arch", sorted(NOT_PORTED))
-def test_build_raises_for_families_not_ported(arch):
+@pytest.mark.parametrize("family", UNKNOWN_FAMILIES)
+def test_build_raises_for_an_unknown_family(family):
+    cfg = dataclasses.replace(get_config("llama3-8b", "smoke"), family=family)
     with pytest.raises(NotImplementedError,
-                       match=f"{NOT_PORTED[arch]} family.*ROADMAP.md"):
-        build(get_config(arch, "smoke"), device="cpu")
+                       match=f"unknown model family '{family}'"):
+        build(cfg, device="cpu")
 
 
-@pytest.mark.parametrize("arch", sorted(NOT_PORTED))
-def test_params_from_numpy_raises_for_families_not_ported(arch):
-    with pytest.raises(NotImplementedError):
-        params_from_numpy({}, get_config(arch, "smoke"), "cpu")
+@pytest.mark.parametrize("family", UNKNOWN_FAMILIES)
+def test_params_from_numpy_raises_for_an_unknown_family(family):
+    cfg = dataclasses.replace(get_config("llama3-8b", "smoke"), family=family)
+    with pytest.raises(NotImplementedError,
+                       match=f"unknown model family '{family}'"):
+        params_from_numpy(_jax_tree(), cfg, "cpu")
 
 
 # ---------------------------------------------------------------------------
-# the serving CLI
+# the serving CLI and example
 # ---------------------------------------------------------------------------
+def test_serve_lm_example_on_cpu(capsys):
+    """examples/serve_lm.py's counterpart: both archs generate, their
+    decode states are the JAX example's sizes (KV caches; O(1) SSM state),
+    and it ends with its marker; no kernel launches."""
+    from repro_torch.examples import serve_lm
+    from repro_torch.kernels import backend
+
+    before = backend.launch_counts()
+    serve_lm.main("cpu")
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert lines[-1] == "SERVE_LM_OK" and len(lines) == 3
+    assert "(4, 24)" in lines[0] and "KV cache grows" in lines[0]
+    assert "(4, 24)" in lines[1] and "O(1) SSM state" in lines[1]
+    assert backend.launch_counts() == before
+    for arch in serve_lm.ARCHS:
+        jmodel = jbuild(jget_config(arch, "smoke"))
+        jstate = jmodel.init_decode(None, serve_lm.BATCH, serve_lm.MAX_LEN)
+        model = build(get_config(arch, "smoke"), device="cpu")
+        state = model.init_decode(model.init(0), serve_lm.BATCH,
+                                  serve_lm.MAX_LEN)
+        # the caches' and states' floating-point tensors (a KV cache's
+        # length is a host int in the port, an int32 in JAX)
+        want = sum(x.size * x.dtype.itemsize for x in jax.tree.leaves(jstate)
+                   if jnp.issubdtype(x.dtype, jnp.floating))
+        got = serve_lm.state_bytes([t for c in state for t in c
+                                    if isinstance(t, torch.Tensor)
+                                    and t.is_floating_point()])
+        assert got == want > 0
+
+
 def test_serve_cli_on_cpu(capsys):
     before = kflash.launches.count
     assert pserve.main(["--arch", "llama3-8b", "--variant", "smoke",
