@@ -12,7 +12,10 @@ over as numpy arrays (``jax.tree.map(np.asarray, params)``) and
 scanned stack (``blocks``; an enc-dec model's ``encoder`` and ``decoder``)
 is split into one dict per layer (a hybrid super-block's stacked
 sublayers too: see :func:`_block_leaves`), and each leaf takes the dtype
-the port stores it in.
+the port stores it in.  :func:`params_to_numpy` is its inverse (training
+state crosses back, for checkpoints in the JAX layout), and
+:func:`reference_shapes` gives each port leaf the shape of the JAX leaf it
+is part of (the optimizer decides on those shapes).
 """
 
 from __future__ import annotations
@@ -183,35 +186,43 @@ def _stacks(cfg: ModelConfig
     return out
 
 
-def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
+def _is_qtensor(x) -> bool:
+    from repro_torch.train.optimizer import QTensor
+
+    return isinstance(x, QTensor)
+
+
+def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, object]:
+    """'/'-joined paths -> leaves: numpy arrays, or QTensors as they are."""
     out = {}
     for k, v in tree.items():
         path = f"{prefix}{k}"
         if isinstance(v, Mapping):
             out.update(_flatten(v, path + "/"))
         else:
-            out[path] = np.asarray(v)
+            out[path] = v if _is_qtensor(v) else np.asarray(v)
     return out
 
 
-def _put(tree: dict, path: str, value: torch.Tensor) -> None:
+def _put(tree: dict, path: str, value) -> None:
     *parents, leaf = path.split("/")
     for p in parents:
         tree = tree.setdefault(p, {})
     tree[leaf] = value
 
 
-def params_from_numpy(tree: Mapping, cfg: ModelConfig, device) -> dict:
-    """The JAX package's parameter tree of a model of any family, as numpy
-    arrays -> the port's, on ``device``.  ``cfg`` is the model's config
-    (its vocabulary is padded here as ``build`` pads it).  Norm parameters
-    and the Mamba layers' ``a_log``, ``d_skip`` and ``dt_bias`` stay f32;
-    every other leaf (the MoE router and ``frontend_proj`` too) is cast to
-    ``cfg.dtype``, the cast the JAX package makes at each use.  Raises
-    ``ValueError`` on a leaf the port does not know, a missing leaf or a
-    shape that differs."""
+def _get(tree, path: str):
+    for p in path.split("/"):
+        tree = tree[p]
+    return tree
+
+
+def _layout(cfg: ModelConfig):
+    """The JAX package's tree for ``cfg``: (the padded config, its
+    top-level leaves -> shapes, its stacks as :func:`_stacks` gives
+    them)."""
     from repro_torch.models.model_zoo import _padded_cfg
-    from repro_torch.models.transformer import model_dtype, require_ported
+    from repro_torch.models.transformer import require_ported
 
     require_ported(cfg)
     pcfg = _padded_cfg(cfg)
@@ -224,7 +235,25 @@ def params_from_numpy(tree: Mapping, cfg: ModelConfig, device) -> dict:
         top["unembed"] = (V, d)
     if pcfg.is_encdec or pcfg.frontend_tokens:
         top["frontend_proj"] = (pcfg.frontend_dim or d, d)
-    stacks = _stacks(pcfg)
+    return pcfg, top, _stacks(pcfg)
+
+
+def params_from_numpy(tree: Mapping, cfg: ModelConfig, device,
+                      param_dtype: Optional[torch.dtype] = None) -> dict:
+    """The JAX package's parameter tree of a model of any family, as numpy
+    arrays -> the port's, on ``device``.  ``cfg`` is the model's config
+    (its vocabulary is padded here as ``build`` pads it).  Norm parameters
+    and the Mamba layers' ``a_log``, ``d_skip`` and ``dt_bias`` stay f32;
+    every other leaf (the MoE router and ``frontend_proj`` too) is cast to
+    ``param_dtype`` (default ``cfg.dtype``, the cast the JAX package makes
+    at each use; ``torch.float32`` keeps its f32 masters).  A leaf may also
+    be a ``train.optimizer.QTensor`` (int8 Adam moments): its payload and
+    row scales are split into layers as a leaf is.  Raises ``ValueError``
+    on a leaf the port does not know, a missing leaf or a shape that
+    differs."""
+    from repro_torch.models.transformer import model_dtype
+
+    pcfg, top, stacks = _layout(cfg)
     expected = {**top, **{f"{stack}/{k}": s
                           for stack, (_, leaves) in stacks.items()
                           for k, (s, _) in leaves.items()}}
@@ -239,9 +268,15 @@ def params_from_numpy(tree: Mapping, cfg: ModelConfig, device) -> dict:
             raise ValueError(f"{path}: shape {tuple(arr.shape)} != "
                              f"{expected[path]}")
 
-    dtype = model_dtype(pcfg)
+    dtype = param_dtype or model_dtype(pcfg)
 
-    def tensor(path: str, arr: np.ndarray) -> torch.Tensor:
+    def tensor(path: str, arr):
+        if _is_qtensor(arr):
+            return type(arr)(
+                q=torch.tensor(np.asarray(arr.q)).to(device),
+                scale=torch.tensor(np.asarray(arr.scale),
+                                   dtype=torch.float32).to(device),
+                shape=tuple(np.shape(arr.q)))
         if arr.dtype not in (np.float32, np.float64, np.float16):
             arr = arr.astype(np.float32)  # bf16 widens exactly
         parts = path.split("/")
@@ -256,7 +291,102 @@ def params_from_numpy(tree: Mapping, cfg: ModelConfig, device) -> dict:
         stack, _, sub = path.partition("/")
         if stack in stacks:
             for layer, index in stacks[stack][1][sub][1]:
-                _put(params[stack][layer], sub, tensor(path, arr[index]))
+                _put(params[stack][layer], sub, tensor(path, _index(arr,
+                                                                    index)))
         else:
             _put(params, path, tensor(path, arr))
     return params
+
+
+def _index(arr, index: tuple):
+    """One layer's slice of a stacked leaf (a QTensor's payload and row
+    scales alike)."""
+    if _is_qtensor(arr):
+        q = np.asarray(arr.q)[index]
+        return type(arr)(q=q, scale=np.asarray(arr.scale)[index],
+                         shape=q.shape)
+    return arr[index]
+
+
+def _to_numpy(t):
+    """A port leaf -> a numpy copy: float tensors as f32 (bf16 widens
+    exactly), others (int8 payloads) in their own dtype.  Never a view of
+    the tensor, which the optimizer goes on updating in place."""
+    t = t.detach()
+    t = t.float() if t.is_floating_point() else t
+    return t.numpy().copy() if t.device.type == "cpu" else t.cpu().numpy()
+
+
+def params_to_numpy(params: Mapping, cfg: ModelConfig) -> dict:
+    """The exact inverse of :func:`params_from_numpy`: the port's tree of
+    a model of any family -> the JAX package's, as numpy arrays.  Each
+    stack's per-layer dicts are stacked back into its leaves (a hybrid
+    super-block's sublayers as :func:`_block_leaves` lays them out), in the
+    JAX package's shapes (the vocabulary padded as ``build`` pads it).
+    Float leaves come back f32, bf16 widened exactly.  A leaf may be a
+    ``train.optimizer.QTensor`` (int8 Adam moments): its payload and row
+    scales are stacked as a leaf is, and its ``shape`` is the stacked one.
+    Raises ``KeyError`` on a leaf the tree lacks."""
+    _, top, stacks = _layout(cfg)
+    out: dict = {}
+    for path in top:
+        leaf = _get(params, path)
+        _put(out, path, _qmap(_to_numpy, leaf))
+    for stack, (_, leaves) in stacks.items():
+        for sub, (shape, where) in leaves.items():
+            first = _get(params[stack][where[0][0]], sub)
+            if _is_qtensor(first):
+                q = np.empty(shape, dtype=np.int8)
+                scale = np.empty(shape[:-1], dtype=np.float32)
+                for layer, index in where:
+                    part = _get(params[stack][layer], sub)
+                    q[index] = _to_numpy(part.q)
+                    scale[index] = _to_numpy(part.scale)
+                value = type(first)(q=q, scale=scale, shape=shape)
+            else:
+                value = np.empty(shape, dtype=np.float32)
+                for layer, index in where:
+                    value[index] = _to_numpy(_get(params[stack][layer], sub))
+            _put(out, f"{stack}/{sub}", value)
+    return out
+
+
+def _qmap(fn, leaf):
+    """``fn`` of a leaf, or of a QTensor's payload and row scales."""
+    if _is_qtensor(leaf):
+        return type(leaf)(q=fn(leaf.q), scale=fn(leaf.scale),
+                          shape=tuple(leaf.shape))
+    return fn(leaf)
+
+
+def reference_shapes(cfg: ModelConfig) -> dict:
+    """A tree laid out as the port's parameters of ``cfg``, holding at each
+    leaf the shape of the JAX package's leaf it is (a slice of): a layer's
+    leaf carries its stack's shape.  The optimizer decides weight decay
+    (leaves of two or more dimensions) and int8 moments on these shapes,
+    so the port's per-layer tree is updated as the JAX package updates its
+    stacked one."""
+    _, top, stacks = _layout(cfg)
+    out: dict = {stack: [{} for _ in range(n)]
+                 for stack, (n, _) in stacks.items()}
+    for path, shape in top.items():
+        _put(out, path, shape)
+    for stack, (_, leaves) in stacks.items():
+        for sub, (shape, where) in leaves.items():
+            for layer, _ in where:
+                _put(out[stack][layer], sub, shape)
+    return out
+
+
+def jax_layout(cfg: ModelConfig) -> dict:
+    """The JAX package's parameter tree of ``cfg`` as nested dicts whose
+    leaves are the leaves' shapes (tuples): the structure a checkpoint in
+    the JAX layout has, without any array."""
+    _, top, stacks = _layout(cfg)
+    out: dict = {}
+    for path, shape in top.items():
+        _put(out, path, shape)
+    for stack, (_, leaves) in stacks.items():
+        for sub, (shape, _) in leaves.items():
+            _put(out, f"{stack}/{sub}", shape)
+    return out

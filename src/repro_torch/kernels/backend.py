@@ -8,6 +8,10 @@ or different card raises.  There is no silent CPU fallback.
 
 Every kernel wrapper owns a :class:`LaunchCounter` that it bumps where it
 launches, so a run can show that its main path went through the kernels.
+
+A kernel without a backward refuses to run where autograd records
+(:func:`refuse_autograd`): its output would carry no gradient, and a
+``backward()`` through it would silently leave its inputs' part out.
 """
 
 from __future__ import annotations
@@ -41,6 +45,19 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
             f"{torch.cuda.get_device_name(dev)} has compute capability {cap}; "
             f"the kernels are built for sm_90a {REQUIRED_CAPABILITY}")
     return dev
+
+
+def refuse_autograd(kernel: str, tensors, reason: str) -> None:
+    """Raise ``RuntimeError`` where grad mode is on and any of ``tensors``
+    requires grad: ``kernel`` has no backward (``reason`` says where that
+    stands).  The plain versions, which CPU tensors take, are
+    differentiable."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"the {kernel} kernel has no backward: its output would carry no "
+            f"gradient ({reason}); run it under torch.no_grad() or detach its "
+            f"inputs")
 
 
 class LaunchCounter:

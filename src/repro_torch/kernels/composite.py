@@ -26,7 +26,7 @@ import threading
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.backend import LaunchCounter
+from repro_torch.kernels.backend import LaunchCounter, refuse_autograd
 
 MAX_CHANNELS = 8
 EPS = 1e-6
@@ -57,7 +57,8 @@ def _bind():
 
 
 def check_inputs(images: torch.Tensor, weights: torch.Tensor) -> None:
-    """Raise on anything the kernel does not take."""
+    """Raise on anything the kernel does not take, and under autograd (the
+    kernel has no backward).  The device is checked last."""
     if images.dim() != 4:
         raise ValueError(f"images must be [T, H, W, C], got {tuple(images.shape)}")
     T, H, W, C = images.shape
@@ -74,6 +75,8 @@ def check_inputs(images: torch.Tensor, weights: torch.Tensor) -> None:
     if not (images.is_contiguous() and weights.is_contiguous()):
         raise ValueError("images and weights must be contiguous (the "
                          "wrapper does not copy a stack)")
+    refuse_autograd("composite", (images, weights),
+                    "the imagery path trains nothing")
     if images.device.type != "cuda" or weights.device != images.device:
         raise ValueError(f"the kernel needs both tensors on one CUDA device, "
                          f"got {images.device} and {weights.device}")

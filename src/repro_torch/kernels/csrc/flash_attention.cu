@@ -9,6 +9,7 @@
 //   s[i,j] = (q_i . k_j) * scale              scale = D^-1/2 by default
 //   masked where j >= Sk, or (causal) j > i + Sk - Sq   (right-aligned)
 //   o_i    = sum_j softmax_j(s[i,:]) v_j
+//   lse_i  = log sum_j exp(s[i,j])            (only where lse != nullptr)
 // with an online softmax in f32 (running max m, running sum l, output
 // accumulator acc), as _attn_kernel does.  l == 0 (no key seen) divides by
 // 1, as _attn_kernel's guard does.  Causal with Sq > Sk is refused by the
@@ -74,6 +75,7 @@ namespace {
 
 constexpr float kNegInf = -1e30f;  // _attn_kernel's NEG_INF
 constexpr float kLog2E = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 enum DType : int { kF32 = 0, kBF16 = 1 };
 
@@ -129,7 +131,8 @@ __global__ void __launch_bounds__(kF32Threads, 1)
     flash_attention_kernel_f32(const float* __restrict__ q,
                                const float* __restrict__ k,
                                const float* __restrict__ v,
-                               float* __restrict__ out, int heads_q,
+                               float* __restrict__ out,
+                               float* __restrict__ lse, int heads_q,
                                int group, int64_t seq_q, int64_t seq_k,
                                Strides qs, Strides ks, Strides vs, int causal,
                                float scale) {
@@ -264,12 +267,17 @@ __global__ void __launch_bounds__(kF32Threads, 1)
 #pragma unroll
     for (int c = 0; c < kOutCols; ++c)
       op[row * D + tx + 16 * c] = acc[i][c] / l_safe;
+    // m and l are the row's (reduced over the half-warp); natural log
+    if (lse != nullptr && tx == 0)
+      lse[static_cast<int64_t>(bh) * seq_q + row] =
+          l[i] > 0.0f ? m[i] + logf(l[i]) : -INFINITY;
   }
 }
 
 template <int D>
 cudaError_t launch_f32(const void* q, const void* k, const void* v,
-                       void* out, int64_t batch, int heads_q, int group,
+                       void* out, float* lse, int64_t batch, int heads_q,
+                       int group,
                        int64_t seq_q, int64_t seq_k, Strides qs, Strides ks,
                        Strides vs, int causal, float scale,
                        cudaStream_t stream) {
@@ -286,8 +294,8 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v,
       static_cast<unsigned>(batch * heads_q));
   kernel<<<grid, kF32Threads, bytes, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(out), heads_q, group,
-      seq_q, seq_k, qs, ks, vs, causal, scale);
+      static_cast<const float*>(v), static_cast<float*>(out), lse, heads_q,
+      group, seq_q, seq_k, qs, ks, vs, causal, scale);
   return cudaGetLastError();
 }
 
@@ -563,12 +571,15 @@ __device__ __forceinline__ void softmax_tile(float (&s)[kCols / 2],
   for (int r = 0; r < 2; ++r) l[r] = l[r] * corr[r] + sum[r];
 }
 
-template <int D>
+// kLse: write the row log-sum-exp (training); serving's instantiation has
+// no code for it
+template <int D, bool kLse>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_attention_kernel_bf16(const __grid_constant__ CUtensorMap q_map,
                                 const __grid_constant__ CUtensorMap k_map,
                                 const __grid_constant__ CUtensorMap v_map,
-                                __nv_bfloat16* __restrict__ out, int heads_q,
+                                __nv_bfloat16* __restrict__ out,
+                                float* __restrict__ lse, int heads_q,
                                 int group, int seq_q, int seq_k, int causal,
                                 float scale_log2) {
   using T = Tile<D>;
@@ -727,11 +738,11 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
 
     // o / l, rounded to bf16 once
-    float l_safe[2];
+    float l_tot[2], l_safe[2];
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      const float lt = quad_sum(l[r]);
-      l_safe[r] = lt == 0.0f ? 1.0f : lt;
+      l_tot[r] = quad_sum(l[r]);
+      l_safe[r] = l_tot[r] == 0.0f ? 1.0f : l_tot[r];
     }
     __nv_bfloat16* op = out + static_cast<int64_t>(bh) * seq_q * D;
 #pragma unroll
@@ -744,6 +755,20 @@ __global__ void __launch_bounds__(kThreads, 1)
         const __nv_bfloat162 v2 = __floats2bfloat162_rn(
             o[4 * j + 2 * r] / l_safe[r], o[4 * j + 2 * r + 1] / l_safe[r]);
         *reinterpret_cast<__nv_bfloat162*>(rp + 8 * j) = v2;
+      }
+    }
+    // the row log-sum-exp, natural log: m is in the log2 domain of the
+    // scaled scores and the same on the row's quad
+    if constexpr (kLse) {
+      if ((lane & 3) == 0) {
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int row = row0 + 8 * r;
+          if (row < seq_q)
+            lse[static_cast<int64_t>(bh) * seq_q + row] =
+                l_tot[r] > 0.0f ? (m[r] + log2f(l_tot[r])) * kLn2
+                                : -INFINITY;
+        }
       }
     }
   }
@@ -800,7 +825,7 @@ bool encode(CUtensorMap* map, const void* ptr, int64_t batch, int64_t heads,
 
 template <int D>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v,
-                        void* out, int64_t batch, int heads_q,
+                        void* out, float* lse, int64_t batch, int heads_q,
                         int64_t heads_kv, int group, int64_t seq_q,
                         int64_t seq_k, Strides qs, Strides ks, Strides vs,
                         int causal, float scale, cudaStream_t stream) {
@@ -812,30 +837,31 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v,
       !encode<D>(&k_map, k, batch, heads_kv, seq_k, ks, T::kBlockK) ||
       !encode<D>(&v_map, v, batch, heads_kv, seq_k, vs, T::kBlockK))
     return cudaErrorInvalidValue;
-  auto kernel = flash_attention_kernel_bf16<D>;
+  auto kernel = &flash_attention_kernel_bf16<D, false>;
+  if (lse != nullptr) kernel = &flash_attention_kernel_bf16<D, true>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T::kSmemBytes);
   if (err != cudaSuccess) return err;
   const dim3 grid(static_cast<unsigned>((seq_q + kBlockQ - 1) / kBlockQ),
                   static_cast<unsigned>(batch * heads_q));
   kernel<<<grid, kThreads, T::kSmemBytes, stream>>>(
-      q_map, k_map, v_map, static_cast<__nv_bfloat16*>(out), heads_q, group,
-      static_cast<int>(seq_q), static_cast<int>(seq_k), causal,
+      q_map, k_map, v_map, static_cast<__nv_bfloat16*>(out), lse, heads_q,
+      group, static_cast<int>(seq_q), static_cast<int>(seq_k), causal,
       scale * kLog2E);
   return cudaGetLastError();
 }
 
 template <int D>
 cudaError_t launch(int dtype, const void* q, const void* k, const void* v,
-                   void* out, int64_t batch, int heads_q, int64_t heads_kv,
-                   int group, int64_t seq_q, int64_t seq_k, Strides qs,
-                   Strides ks, Strides vs, int causal, float scale,
-                   cudaStream_t s) {
+                   void* out, float* lse, int64_t batch, int heads_q,
+                   int64_t heads_kv, int group, int64_t seq_q, int64_t seq_k,
+                   Strides qs, Strides ks, Strides vs, int causal,
+                   float scale, cudaStream_t s) {
   if (dtype == kF32)
-    return launch_f32<D>(q, k, v, out, batch, heads_q, group, seq_q, seq_k,
-                         qs, ks, vs, causal, scale, s);
+    return launch_f32<D>(q, k, v, out, lse, batch, heads_q, group, seq_q,
+                         seq_k, qs, ks, vs, causal, scale, s);
   if (dtype == kBF16)
-    return launch_bf16<D>(q, k, v, out, batch, heads_q, heads_kv, group,
+    return launch_bf16<D>(q, k, v, out, lse, batch, heads_q, heads_kv, group,
                           seq_q, seq_k, qs, ks, vs, causal, scale, s);
   return cudaErrorInvalidValue;
 }
@@ -849,11 +875,14 @@ extern "C" {
 // through the given element strides (batch, head, sequence; 1 along
 // head_dim).  For bf16 the base pointers and strides must be multiples of
 // 16 bytes (TMA); the wrapper checks.  out [batch, heads_q, seq_q,
-// head_dim], contiguous, same type.  Returns the launch's cudaError_t (0 on
-// success); it does not synchronise.
+// head_dim], contiguous, same type.  lse, when not null: f32 [batch,
+// heads_q, seq_q], each row's log-sum-exp of its scaled scores (natural
+// log), the backward's input; serving passes null.  Returns the launch's
+// cudaError_t (0 on success); it does not synchronise.
 int repro_flash_attention(const void* q, const void* k, const void* v,
-                          void* out, int64_t batch, int64_t heads_q,
-                          int64_t heads_kv, int64_t seq_q, int64_t seq_k,
+                          void* out, void* lse, int64_t batch,
+                          int64_t heads_q, int64_t heads_kv, int64_t seq_q,
+                          int64_t seq_k,
                           int64_t head_dim, int64_t q_sb, int64_t q_sh,
                           int64_t q_ss, int64_t k_sb, int64_t k_sh,
                           int64_t k_ss, int64_t v_sb, int64_t v_sh,
@@ -869,22 +898,23 @@ int repro_flash_attention(const void* q, const void* k, const void* v,
   const int hq = static_cast<int>(heads_q);
   const int group = static_cast<int>(heads_q / heads_kv);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* lse_f = static_cast<float*>(lse);
   switch (head_dim) {
     case 16:
-      return launch<16>(dtype, q, k, v, out, batch, hq, heads_kv, group,
-                        seq_q, seq_k, qs, ks, vs, causal, scale, s);
+      return launch<16>(dtype, q, k, v, out, lse_f, batch, hq, heads_kv,
+                        group, seq_q, seq_k, qs, ks, vs, causal, scale, s);
     case 32:
-      return launch<32>(dtype, q, k, v, out, batch, hq, heads_kv, group,
-                        seq_q, seq_k, qs, ks, vs, causal, scale, s);
+      return launch<32>(dtype, q, k, v, out, lse_f, batch, hq, heads_kv,
+                        group, seq_q, seq_k, qs, ks, vs, causal, scale, s);
     case 64:
-      return launch<64>(dtype, q, k, v, out, batch, hq, heads_kv, group,
-                        seq_q, seq_k, qs, ks, vs, causal, scale, s);
+      return launch<64>(dtype, q, k, v, out, lse_f, batch, hq, heads_kv,
+                        group, seq_q, seq_k, qs, ks, vs, causal, scale, s);
     case 128:
-      return launch<128>(dtype, q, k, v, out, batch, hq, heads_kv, group,
-                         seq_q, seq_k, qs, ks, vs, causal, scale, s);
+      return launch<128>(dtype, q, k, v, out, lse_f, batch, hq, heads_kv,
+                         group, seq_q, seq_k, qs, ks, vs, causal, scale, s);
     case 256:
-      return launch<256>(dtype, q, k, v, out, batch, hq, heads_kv, group,
-                         seq_q, seq_k, qs, ks, vs, causal, scale, s);
+      return launch<256>(dtype, q, k, v, out, lse_f, batch, hq, heads_kv,
+                         group, seq_q, seq_k, qs, ks, vs, causal, scale, s);
     default:
       return cudaErrorInvalidValue;
   }

@@ -1,5 +1,6 @@
-"""Grouped-query flash attention on the card: the ctypes wrapper of
-``csrc/flash_attention.cu``.
+"""Grouped-query flash attention on the card: the ctypes wrappers of
+``csrc/flash_attention.cu`` (the forward) and ``csrc/flash_attention_bwd.cu``
+(its backward).
 
 Replaces the Pallas TPU kernel ``repro/kernels/flash_attention.py``:
 ``flash_attention_fwd`` / ``_attn_kernel``.  Its plain versions are
@@ -17,12 +18,17 @@ instantiation on the f32 cores, held to 3e-5.  Both walk the key tiles from
 through their strides, so the transposed views the attention layer hands
 over are not copied.
 
-The wrapper checks shapes, dtype, head_dim and the strides and raises on
-anything the kernel does not take (for bf16, TMA needs the base pointers
+The backward (no TPU counterpart: the JAX package differentiates its plain
+attention) recomputes P from q, k and the forward's row log-sum-exp; its
+plain version is :func:`repro_torch.kernels.ref.attention_bwd`.
+:class:`FlashAttentionFn` ties the two together for autograd.
+
+The wrappers check shapes, dtype, head_dim and the strides and raise on
+anything the kernels do not take (for bf16, TMA needs the base pointers
 and the batch, head and sequence strides in multiples of 16 bytes),
 allocates the output with ``torch.empty``, launches on the current stream
 without synchronising, raises if the launch is refused, and counts its
-launches.
+launches (the forward in ``launches``, the backward in ``bwd_launches``).
 """
 
 from __future__ import annotations
@@ -44,26 +50,30 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 TMA_ALIGN = 16
 
 launches = LaunchCounter("flash_attention")
+bwd_launches = LaunchCounter("flash_attention_bwd")
 
 _bind_lock = threading.Lock()
-_bound = None
+_bound = {}
 
 
-def _bind():
-    global _bound
+def _bind(name: str):
+    """(``repro_<name>``, its error-string function) from
+    ``csrc/<name>.cu``'s library, bound once."""
     with _bind_lock:
-        if _bound is None:
-            lib = build.load("flash_attention")
-            fn = lib.repro_flash_attention
-            fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int64] * 15
+        if name not in _bound:
+            lib = build.load(name)
+            fn = getattr(lib, f"repro_{name}")
+            pointers = 5 if name == "flash_attention" else 10
+            fn.argtypes = ([ctypes.c_void_p] * pointers
+                           + [ctypes.c_int64] * 15
                            + [ctypes.c_int, ctypes.c_int, ctypes.c_float,
                               ctypes.c_void_p])
             fn.restype = ctypes.c_int
-            err = lib.repro_flash_attention_error_string
+            err = getattr(lib, f"repro_{name}_error_string")
             err.argtypes = [ctypes.c_int]
             err.restype = ctypes.c_char_p
-            _bound = (fn, err)
-    return _bound
+            _bound[name] = (fn, err)
+    return _bound[name]
 
 
 def _strides(t: torch.Tensor) -> tuple:
@@ -76,7 +86,7 @@ def _strides(t: torch.Tensor) -> tuple:
 
 def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  causal: bool) -> None:
-    """Raise on anything the kernel does not take.  The device is checked
+    """Raise on anything the kernels do not take.  The device is checked
     last, so each of the other checks can be seen on CPU tensors."""
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("q, k and v must be [B, H, S, D]")
@@ -113,25 +123,117 @@ def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{q.device}, {k.device}, {v.device}")
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    causal: bool = True) -> torch.Tensor:
-    """q [B, Hq, Sq, D], k and v [B, Hkv, Sk, D], f32 or bf16, on the card
-    -> [B, Hq, Sq, D] contiguous in q's dtype; scores scaled by D^-1/2."""
+def _raise_on(err: int, err_string, what: str) -> None:
+    if err:
+        raise RuntimeError(f"{what} kernel launch failed: "
+                           f"{err_string(err).decode()} (cudaError {err})")
+
+
+def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             causal: bool, with_lse: bool):
+    """Launch the forward kernel -> (out, lse or None)."""
     check_inputs(q, k, v, causal)
     B, Hq, Sq, D = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
     out = torch.empty((B, Hq, Sq, D), dtype=q.dtype, device=q.device)
+    lse = (torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
+           if with_lse else None)
     if out.numel() == 0:
-        return out
-    fn, err_string = _bind()
+        return out, lse
+    fn, err_string = _bind("flash_attention")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 lse.data_ptr() if with_lse else 0,
                  B, Hq, Hkv, Sq, Sk, D,
                  *_strides(q), *_strides(k), *_strides(v),
                  _DTYPE_CODES[q.dtype], int(causal), D ** -0.5, stream)
-    if err:
-        raise RuntimeError(f"flash_attention kernel launch failed: "
-                           f"{err_string(err).decode()} (cudaError {err})")
+    _raise_on(err, err_string, "flash_attention")
     launches.add()
-    return out
+    return out, lse
+
+
+def flash_attention_with_lse(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, causal: bool = True):
+    """The forward kernel, also writing each row's log-sum-exp of its
+    scaled scores: -> (out [B, Hq, Sq, D], lse [B, Hq, Sq] f32, natural
+    log), the backward's inputs."""
+    return _forward(q, k, v, causal, with_lse=True)
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                        causal: bool = True):
+    """The backward kernel: q, k, v as the forward took them, its output o
+    and log-sum-exp lse, and the output's gradient do -> (dq, dk, dv),
+    contiguous in q's dtype (dk and dv summed over each KV head's group).
+    o and do must be contiguous [B, Hq, Sq, D] in q's dtype and lse f32
+    [B, Hq, Sq]: the wrapper copies nothing.  Launches two kernels (dq with
+    the rows' D = sum(do * o), then dk and dv), counted as one launch."""
+    check_inputs(q, k, v, causal)
+    B, Hq, Sq, D = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    for name, t in (("o", o), ("do", do)):
+        if (tuple(t.shape) != (B, Hq, Sq, D) or t.dtype != q.dtype
+                or not t.is_contiguous() or t.device != q.device):
+            raise ValueError(f"{name} must be contiguous {(B, Hq, Sq, D)} "
+                             f"{q.dtype} on {q.device}, got "
+                             f"{tuple(t.shape)} {t.dtype} {t.device}")
+    if (tuple(lse.shape) != (B, Hq, Sq) or lse.dtype != torch.float32
+            or not lse.is_contiguous() or lse.device != q.device):
+        raise ValueError(f"lse must be contiguous {(B, Hq, Sq)} float32, got "
+                         f"{tuple(lse.shape)} {lse.dtype}")
+    dq = torch.empty((B, Hq, Sq, D), dtype=q.dtype, device=q.device)
+    dk = torch.empty((B, Hkv, Sk, D), dtype=q.dtype, device=q.device)
+    dv = torch.empty_like(dk)
+    if dq.numel() == 0 or Sk == 0:
+        return dq.zero_(), dk, dv
+    delta = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
+    fn, err_string = _bind("flash_attention_bwd")
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                 do.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                 dv.data_ptr(), delta.data_ptr(),
+                 B, Hq, Hkv, Sq, Sk, D,
+                 *_strides(q), *_strides(k), *_strides(v),
+                 _DTYPE_CODES[q.dtype], int(causal), D ** -0.5, stream)
+    _raise_on(err, err_string, "flash_attention_bwd")
+    bwd_launches.add()
+    return dq, dk, dv
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """The forward kernel with the backward kernel as its gradient.  The
+    forward saves q, k, v (views, not copies), its output and the
+    log-sum-exp; under ``torch.utils.checkpoint`` they are those of the
+    recompute.  The backward makes the incoming gradient contiguous (it
+    arrives as a transposed view from the attention layer) and launches
+    ``flash_attention_bwd``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        out, lse = flash_attention_with_lse(q, k, v, causal)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal = causal
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, do.contiguous(),
+                                         ctx.causal)
+        return dq, dk, dv, None
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True) -> torch.Tensor:
+    """q [B, Hq, Sq, D], k and v [B, Hkv, Sk, D], f32 or bf16, on the card
+    -> [B, Hq, Sq, D] contiguous in q's dtype; scores scaled by D^-1/2.
+    Where autograd records (grad mode on and an input requires grad) it
+    runs through :class:`FlashAttentionFn`, whose backward is the backward
+    kernel; otherwise the forward kernel alone, writing no log-sum-exp."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttentionFn.apply(q, k, v, causal)
+    return _forward(q, k, v, causal, with_lse=False)[0]

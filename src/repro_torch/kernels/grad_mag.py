@@ -26,7 +26,7 @@ import threading
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.backend import LaunchCounter
+from repro_torch.kernels.backend import LaunchCounter, refuse_autograd
 
 MAX_CHANNELS = 8
 EPS = 1e-6
@@ -57,7 +57,8 @@ def _bind():
 
 
 def check_inputs(images: torch.Tensor, valid: torch.Tensor) -> None:
-    """Raise on anything the kernel does not take."""
+    """Raise on anything the kernel does not take, and under autograd (the
+    kernel has no backward).  The device is checked last."""
     if images.dim() != 4:
         raise ValueError(f"images must be [T, H, W, C], got {tuple(images.shape)}")
     T, H, W, C = images.shape
@@ -73,6 +74,8 @@ def check_inputs(images: torch.Tensor, valid: torch.Tensor) -> None:
     if not (images.is_contiguous() and valid.is_contiguous()):
         raise ValueError("images and valid must be contiguous (the wrapper "
                          "does not copy a stack)")
+    refuse_autograd("grad_mag", (images, valid),
+                    "the imagery path trains nothing")
     if images.device.type != "cuda" or valid.device != images.device:
         raise ValueError(f"the kernel needs both tensors on one CUDA device, "
                          f"got {images.device} and {valid.device}")

@@ -90,6 +90,59 @@ def attention_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
+def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  do: torch.Tensor, causal: bool = True,
+                  scale: float | None = None, chunk: int = 1024):
+    """The gradients of :func:`attention` with respect to q, k and v for
+    the output's gradient ``do`` [B, Hq, Sq, D], written out step by step in
+    f32 (the backward kernel's plain version):
+
+        S = scale q kᵀ (masked), P = softmax(S), O = P v,
+        Δ_i = Σ_d dO_id O_id, dV = Pᵀ dO, dP = dO vᵀ, dS = P ∘ (dP − Δ),
+        dq = scale dS k, dk = scale dSᵀ q,
+
+    with dk and dv summed over each KV head's group of query heads.
+    Returns (dq, dk, dv) in q's, k's and v's dtypes.  Query rows are taken
+    ``chunk`` at a time, so the [chunk, Sk] f32 intermediates, not the
+    whole [Sq, Sk], are live; dk and dv are summed over the chunks."""
+    B, Hq, Sq, D = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    if Hq % Hkv:
+        raise ValueError(f"Hq={Hq} not a multiple of Hkv={Hkv}")
+    check_causal(Sq, Sk, causal)
+    group = Hq // Hkv
+    scale = (D ** -0.5) if scale is None else scale
+    kf, vf = k.float(), v.float()
+    dq = torch.empty((B, Hkv, group, Sq, D), dtype=torch.float32,
+                     device=q.device)
+    dk = torch.zeros((B, Hkv, Sk, D), dtype=torch.float32, device=q.device)
+    dv = torch.zeros_like(dk)
+    for row0 in range(0, Sq, chunk):
+        rows = min(chunk, Sq - row0)
+        qb = q[:, :, row0:row0 + rows].float().reshape(B, Hkv, group, rows, D)
+        dob = do[:, :, row0:row0 + rows].float().reshape(B, Hkv, group, rows,
+                                                          D)
+        s = torch.einsum("bhgqd,bhkd->bhgqk", qb, kf) * scale
+        if causal:
+            s = s.masked_fill(_causal_hidden(Sq, Sk, row0, rows, q.device),
+                              float("-inf"))
+        p = torch.softmax(s, dim=-1)
+        del s
+        o = torch.einsum("bhgqk,bhkd->bhgqd", p, vf)
+        delta = (dob * o).sum(dim=-1, keepdim=True)
+        del o
+        dv += torch.einsum("bhgqk,bhgqd->bhkd", p, dob)
+        dp = torch.einsum("bhgqd,bhkd->bhgqk", dob, vf)
+        ds = p * (dp - delta)
+        del p, dp
+        dq[:, :, :, row0:row0 + rows] = torch.einsum(
+            "bhgqk,bhkd->bhgqd", ds, kf) * scale
+        dk += torch.einsum("bhgqk,bhgqd->bhkd", ds, qb) * scale
+        del ds
+    return (dq.reshape(B, Hq, Sq, D).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
+
+
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, cache_len: int) -> torch.Tensor:
     """One-token decode: q [B, Hq, 1, D], caches [B, Hkv, S, D] ->

@@ -18,7 +18,8 @@ masked).  The D-skip is applied in f32 inside the kernel, before y is
 rounded to x's dtype.
 
 The wrapper checks shapes, dtypes, strides, alignment and the device, and
-raises on anything the kernel does not take, allocates y (and in bf16 the
+raises on anything the kernel does not take (and, as the kernel has no
+backward yet, under autograd), allocates y (and in bf16 the
 c·b scratch) with ``torch.empty``, launches on the current stream without
 synchronising, raises if the launch is refused, and counts one launch a
 call.
@@ -33,7 +34,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.backend import LaunchCounter
+from repro_torch.kernels.backend import LaunchCounter, refuse_autograd
 
 #: P and N the kernel takes: those of tests/test_kernels.py:137-141 and of
 #: the mamba2 and jamba configs
@@ -49,6 +50,9 @@ CP_ASYNC_ALIGN = 16
 CHUNK = 64
 CB_TILE_FLOATS = 10 * 256
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+#: where the SSD's backward kernel stands
+SSD_BACKWARD = ("its backward kernel is the next slice, ROADMAP.md queue 2 "
+                "item 1; until then mamba and jamba train on the CPU only")
 
 launches = LaunchCounter("ssd_scan")
 
@@ -119,6 +123,7 @@ def check_inputs(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     if B > MAX_GRID_YZ or H > MAX_GRID_YZ:
         raise ValueError(f"B={B} and H={H} must be <= {MAX_GRID_YZ}")
     tensors = [x, dt, a, b, c] + ([d_skip] if d_skip is not None else [])
+    refuse_autograd("ssd_scan", tensors, SSD_BACKWARD)
     if x.device.type != "cuda" or any(t.device != x.device for t in tensors):
         raise ValueError(f"the kernel needs every input on one CUDA device, "
                          f"got {sorted({str(t.device) for t in tensors})}")

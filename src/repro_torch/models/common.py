@@ -6,13 +6,14 @@ parameter tree carries across leaf for leaf (``repro_torch.convert``).
 Every function keeps the JAX package's arithmetic: which dtype each step
 runs in and where it rounds.
 
-Left for later slices: the activation mesh and ``constrain`` (one card;
-meshes are ROADMAP.md queue 1 item 8) and ``cross_entropy`` (training).
+Left for a later slice: the activation mesh and ``constrain`` (one card;
+meshes are ROADMAP.md queue 1 item 8).
 """
 
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -139,3 +140,37 @@ def gated_act(act: str, gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
     if act == "geglu":
         return F.gelu(gate, approximate="tanh") * up
     raise ValueError(f"{act} is not a gated activation")
+
+
+# ---------------------------------------------------------------------------
+# losses
+# ---------------------------------------------------------------------------
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask: Optional[torch.Tensor] = None,
+                  z_loss_weight: float = 1e-4):
+    """Stable softmax cross-entropy with z-loss (PaLM-style logit drift
+    guard), the JAX package's ``repro.models.common.cross_entropy``.
+
+    logits [..., V] (any dtype; reduced in f32), labels [...] int.  Returns
+    (mean loss, metrics) with the same metrics: ``nll``, ``z_loss`` and
+    ``tokens``.  The log-sum-exp is taken in f32 after subtracting the
+    row's max (held out of the gradient, as ``stop_gradient`` there).
+
+    The JAX package picks each label's logit with a one-hot sum, for
+    GSPMD's sake (a gather along a sharded vocab axis all-gathers the
+    logits); on one card that one-hot would be a [..., V] f32 tensor (4.2
+    GB at 2 x 4096 x 128256), so the port picks it with ``torch.gather``:
+    the same value, the one product of a one-hot row being exact."""
+    logits = logits.float()
+    m = logits.max(dim=-1, keepdim=True).values.detach()
+    shifted = logits - m
+    lse = torch.log(torch.exp(shifted).sum(dim=-1)) + m[..., 0]
+    ll = shifted.gather(-1, labels.long()[..., None])[..., 0] + m[..., 0]
+    nll = lse - ll
+    z = lse * lse
+    mask = torch.ones_like(nll) if mask is None else mask.float()
+    denom = mask.sum().clamp_min(1.0)
+    loss = (nll * mask).sum() / denom
+    zloss = (z * mask).sum() / denom
+    total = loss + z_loss_weight * zloss
+    return total, {"nll": loss, "z_loss": zloss, "tokens": denom}

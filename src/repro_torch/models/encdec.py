@@ -19,7 +19,7 @@ cross-attention is the flash kernel with one query row.
 
 from __future__ import annotations
 
-from typing import List, NamedTuple
+from typing import List, NamedTuple, Optional
 
 import torch
 
@@ -35,7 +35,7 @@ from repro_torch.models.attention import (
     init_cache,
 )
 from repro_torch.models.ffn import ffn_forward, init_ffn
-from repro_torch.models.transformer import model_dtype, unembed
+from repro_torch.models.transformer import model_dtype, remat_call, unembed
 
 
 def init_enc_block(generator: torch.Generator, cfg: ModelConfig,
@@ -62,11 +62,13 @@ def init_dec_block(generator: torch.Generator, cfg: ModelConfig,
     }
 
 
-def init_model(generator: torch.Generator, cfg: ModelConfig) -> dict:
+def init_model(generator: torch.Generator, cfg: ModelConfig,
+               param_dtype: Optional[torch.dtype] = None) -> dict:
     """Parameters on the generator's device, drawn from it in a fixed
     order: embedding, frontend projection, encoder, decoder.  Matmul
-    weights in ``cfg.dtype``, norms f32 (see ``transformer.py``)."""
-    dtype, dev = model_dtype(cfg), generator.device
+    weights in ``param_dtype`` (default ``cfg.dtype``), norms f32 (see
+    ``transformer.init_model``)."""
+    dtype, dev = param_dtype or model_dtype(cfg), generator.device
     return {
         "embed": common.embed_init(generator, cfg.vocab_size, cfg.d_model,
                                    dtype),
@@ -89,11 +91,26 @@ def encode(params: dict, cfg: ModelConfig,
     x = x + common.sinusoidal_positions(x.shape[1], cfg.d_model,
                                         x.device).to(dtype)
     for block in params["encoder"]:
-        a = common.apply_norm(block["norm_attn"], x)
-        x = x + attn_forward(block["attn"], cfg, a, causal=False, rope=False)
-        f = common.apply_norm(block["norm_ffn"], x)
-        x = x + ffn_forward(block["ffn"], cfg, f)
+        x = remat_call(cfg, _enc_layer, block, cfg, x)
     return common.apply_norm(params["norm_enc"], x)
+
+
+def _enc_layer(block: dict, cfg: ModelConfig, x: torch.Tensor):
+    a = common.apply_norm(block["norm_attn"], x)
+    x = x + attn_forward(block["attn"], cfg, a, causal=False, rope=False)
+    f = common.apply_norm(block["norm_ffn"], x)
+    return x + ffn_forward(block["ffn"], cfg, f)
+
+
+def _dec_layer(block: dict, cfg: ModelConfig, x: torch.Tensor,
+               memory: torch.Tensor):
+    a = common.apply_norm(block["norm_self"], x)
+    x = x + attn_forward(block["self_attn"], cfg, a, causal=True, rope=False)
+    c = common.apply_norm(block["norm_cross"], x)
+    mem_kv = encode_memory_kv(block["cross_attn"], cfg, memory)
+    x = x + cross_attn_forward(block["cross_attn"], cfg, c, mem_kv)
+    f = common.apply_norm(block["norm_ffn"], x)
+    return x + ffn_forward(block["ffn"], cfg, f)
 
 
 def decode_train(params: dict, cfg: ModelConfig, memory: torch.Tensor,
@@ -104,14 +121,7 @@ def decode_train(params: dict, cfg: ModelConfig, memory: torch.Tensor,
     x = x + common.sinusoidal_positions(x.shape[1], cfg.d_model,
                                         x.device).to(dtype)
     for block in params["decoder"]:
-        a = common.apply_norm(block["norm_self"], x)
-        x = x + attn_forward(block["self_attn"], cfg, a, causal=True,
-                             rope=False)
-        c = common.apply_norm(block["norm_cross"], x)
-        mem_kv = encode_memory_kv(block["cross_attn"], cfg, memory)
-        x = x + cross_attn_forward(block["cross_attn"], cfg, c, mem_kv)
-        f = common.apply_norm(block["norm_ffn"], x)
-        x = x + ffn_forward(block["ffn"], cfg, f)
+        x = remat_call(cfg, _dec_layer, block, cfg, x, memory)
     x = common.apply_norm(params["norm_out"], x)
     return unembed(params, cfg, x)
 

@@ -15,7 +15,7 @@ card unless it is built with ``device="cpu"``.  The dry-run's
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 
@@ -42,7 +42,9 @@ def _padded_cfg(cfg: ModelConfig) -> ModelConfig:
 class Model:
     cfg: ModelConfig
     device: DeviceLike  # None: the card
-    init: Callable  # (seed) -> params on the resolved device
+    # (seed, param_dtype=None) -> params on the resolved device; matmul
+    # weights in param_dtype (default cfg.dtype; torch.float32: f32 masters)
+    init: Callable
     # (params, *, tokens, frontend=None, ssd_impl="auto") -> (logits, aux)
     forward: Callable
     # (params, batch, max_len[, memory=]) -> caches (enc-dec: a DecCache)
@@ -55,10 +57,10 @@ def build(cfg: ModelConfig, device: DeviceLike = None) -> Model:
     pcfg = _padded_cfg(cfg)
     family = encdec if cfg.is_encdec else transformer
 
-    def init(seed: int = 0):
+    def init(seed: int = 0, param_dtype: Optional[torch.dtype] = None):
         dev = resolve_device(device)
         generator = torch.Generator(device=dev).manual_seed(seed)
-        return family.init_model(generator, pcfg)
+        return family.init_model(generator, pcfg, param_dtype)
 
     if cfg.is_encdec:
         def forward(params, *, tokens, frontend, **_):

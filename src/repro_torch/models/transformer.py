@@ -17,18 +17,31 @@ a modality frontend (the VLM family, internvl2-1b) projects its
 precomputed embeddings with ``frontend_proj`` and puts them before the
 token embeddings.  The encoder-decoder family is ``models/encdec.py``.
 
-Matmul weights and embeddings are stored once in ``cfg.dtype``.  The JAX
-package keeps f32 masters and casts them to ``cfg.dtype`` at every use;
-the cast rounds to nearest even either way, so the numbers are the same,
-and a bf16 llama3-8b holds 16 GB on the card instead of 32 GB plus a cast
-per layer per step.  Norm scales stay f32.
+Matmul weights and embeddings are stored in ``cfg.dtype`` by default
+(serving).  The JAX package keeps f32 masters and casts them to
+``cfg.dtype`` at every use; the cast rounds to nearest even either way, so
+the numbers are the same, and a bf16 llama3-8b holds 16 GB on the card
+instead of 32 GB plus a cast per layer per step.  Training asks for the
+JAX package's f32 masters (``init_model(..., param_dtype=torch.float32)``):
+every layer casts each weight to the activations' dtype where it uses it
+(``.to(x.dtype)``), so one forward serves both storages.  Norm scales stay
+f32.
+
+With ``cfg.remat`` and autograd recording, each layer runs under
+``torch.utils.checkpoint`` (:func:`remat_call`): the layer's activations
+are recomputed in the backward, as the JAX package's ``jax.checkpoint``
+of its scanned block does; ``remat_policy="dots"`` keeps the matmul
+outputs instead of recomputing them.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Tuple, Union
+import functools
+from typing import Callable, List, Optional, Tuple, Union
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import common
@@ -108,10 +121,10 @@ def mixer_norm_name(cfg: ModelConfig, mixer: str) -> str:
 
 
 def init_block(generator: torch.Generator, cfg: ModelConfig, mixer: str,
-               ff: str) -> dict:
+               ff: str, dtype: torch.dtype) -> dict:
     """One layer's parameters: a ``layer_plan`` entry's mixer and
-    feed-forward, each after its norm."""
-    dtype, dev = model_dtype(cfg), generator.device
+    feed-forward, each after its norm; matmul weights in ``dtype``."""
+    dev = generator.device
     block = {mixer_norm_name(cfg, mixer):
              common.init_norm(cfg.norm, cfg.d_model, dev)}
     block[mixer] = (init_attn(generator, cfg, dtype) if mixer == "attn"
@@ -154,18 +167,47 @@ def apply_block(block: dict, cfg: ModelConfig, x: torch.Tensor,
     return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
+def _save_matmuls(ctx, op, *args, **kwargs):
+    """The selective-checkpoint policy of ``remat_policy="dots"``: keep the
+    outputs of the weight matmuls (``x @ W`` reaches ``aten.mm`` /
+    ``aten.addmm``), recompute the rest; the counterpart of
+    ``jax.checkpoint_policies.dots_with_no_batch_dims_saveable`` (the
+    attention's batched products, ``aten.bmm``, are recomputed)."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def remat_call(cfg: ModelConfig, fn: Callable, *args):
+    """``fn(*args)``, under ``torch.utils.checkpoint`` (non-reentrant) where
+    ``cfg.remat`` is set and autograd records; as it is otherwise (serving,
+    decode, ``torch.no_grad()``)."""
+    if not (cfg.remat and torch.is_grad_enabled()):
+        return fn(*args)
+    context_fn = (functools.partial(create_selective_checkpoint_contexts,
+                                    _save_matmuls)
+                  if cfg.remat_policy == "dots" else None)
+    if context_fn is None:
+        return checkpoint(fn, *args, use_reentrant=False)
+    return checkpoint(fn, *args, use_reentrant=False, context_fn=context_fn)
+
+
 # ---------------------------------------------------------------------------
 # model init / forward
 # ---------------------------------------------------------------------------
-def init_model(generator: torch.Generator, cfg: ModelConfig) -> dict:
+def init_model(generator: torch.Generator, cfg: ModelConfig,
+               param_dtype: Optional[torch.dtype] = None) -> dict:
     """Parameters on the generator's device, drawn from it in a fixed
-    order: embedding, blocks, unembedding, frontend projection."""
+    order: embedding, blocks, unembedding, frontend projection.  Matmul
+    weights and embeddings are stored in ``param_dtype`` (default
+    ``cfg.dtype``; ``torch.float32`` gives the JAX package's f32 masters):
+    each is drawn in f32 and cast, so the two storages hold the same draws."""
     require_ported(cfg)
-    dtype, dev = model_dtype(cfg), generator.device
+    dtype, dev = param_dtype or model_dtype(cfg), generator.device
     params = {
         "embed": common.embed_init(generator, cfg.vocab_size, cfg.d_model,
                                    dtype),
-        "blocks": [init_block(generator, cfg, mixer, ff)
+        "blocks": [init_block(generator, cfg, mixer, ff, dtype)
                    for mixer, ff in layer_plan(cfg)],
         "norm_out": common.init_norm(cfg.norm, cfg.d_model, dev),
     }
@@ -214,7 +256,8 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
         positions = torch.arange(S, device=x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for block in params["blocks"]:
-        x, a = apply_block(block, cfg, x, positions, ssd_impl)
+        x, a = remat_call(cfg, apply_block, block, cfg, x, positions,
+                          ssd_impl)
         aux = aux + a
     x = common.apply_norm(params["norm_out"], x)
     return unembed(params, cfg, x), aux

@@ -1,0 +1,120 @@
+"""Training step: loss, gradients, optimizer update, microbatching.
+
+The counterpart of ``repro/train/train_step.py`` on autograd: where the
+JAX package differentiates its loss with ``jax.value_and_grad`` and scans
+its microbatches, the port calls ``torch.autograd.grad`` and loops in
+Python.  On the card the attention layers run the hand-written forward and
+backward kernels (``kernels.flash_attention.FlashAttentionFn``); the SSD
+kernel has no backward yet and raises under autograd (``ROADMAP.md`` queue
+2 item 1), so a mamba or hybrid model trains on the CPU only.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import torch
+
+from repro_torch.convert import reference_shapes
+from repro_torch.models import Model
+from repro_torch.models.common import cross_entropy
+from repro_torch.train import optimizer as opt_mod
+
+
+def make_loss_fn(model: Model):
+    """loss_fn(params, batch) -> (loss, metrics): the next-token cross
+    entropy of ``batch["labels"]`` plus the MoE's load-balancing loss; a
+    VLM's frontend positions are dropped from the loss."""
+    cfg = model.cfg
+
+    def loss_fn(params, batch: Dict[str, Any]):
+        inputs = {k: v for k, v in batch.items() if k != "labels"}
+        logits, aux = model.forward(params, **inputs)
+        labels = batch["labels"]
+        if cfg.frontend_tokens and not cfg.is_encdec:
+            # drop the vision/audio prefix positions from the LM loss
+            logits = logits[:, cfg.frontend_tokens:, :]
+        # next-token objective: logits[t] predicts labels[t+1]
+        loss, metrics = cross_entropy(logits[:, :-1, :], labels[:, 1:])
+        total = loss + aux
+        metrics = dict(metrics, moe_aux=aux, loss=total)
+        return total, metrics
+
+    return loss_fn
+
+
+def _split_microbatches(batch, num_micro: int):
+    """The batch's rows in ``num_micro`` consecutive parts (the JAX
+    package's reshape to [num_micro, B / num_micro, ...])."""
+    sizes = {v.shape[0] for v in batch.values()}
+    for b in sizes:
+        if b % num_micro:
+            raise ValueError(f"batch {b} not divisible by {num_micro} "
+                             f"microbatches")
+    return [{k: v[i * (v.shape[0] // num_micro):
+                  (i + 1) * (v.shape[0] // num_micro)]
+             for k, v in batch.items()} for i in range(num_micro)]
+
+
+def make_train_step(model: Model, opt_cfg: opt_mod.OptimizerConfig,
+                    num_microbatches: int = 1, grads_dtype: str = "float32"):
+    """Returns train_step(params, opt_state, batch) -> (params, state,
+    metrics).
+
+    ``batch`` holds tensors on the params' device.  num_microbatches > 1
+    sums the microbatches' gradients in ``grads_dtype`` and divides by
+    their count, as the JAX package's scan does; the metrics are their
+    means.  grads_dtype "bfloat16" keeps the gradient tree in bf16 (the
+    update's math stays f32).  The update is the optimizer's, in place,
+    with weight decay and int8 moments decided on the JAX package's leaf
+    shapes (``convert.reference_shapes``)."""
+    loss_fn = make_loss_fn(model)
+    gdtype = getattr(torch, grads_dtype)
+    shapes = reference_shapes(model.cfg)
+
+    def grads_of(params, batch):
+        leaves = opt_mod.tree_leaves(params)
+        for p in leaves:
+            p.requires_grad_(True)
+        loss, metrics = loss_fn(params, batch)
+        flat = torch.autograd.grad(loss, leaves)
+        it = iter(flat)
+        grads = opt_mod.tree_map(lambda _: next(it), params)
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        return grads, metrics
+
+    def train_step(params, opt_state, batch):
+        if num_microbatches == 1:
+            grads, metrics = grads_of(params, batch)
+            grads = opt_mod.tree_map(lambda g: g.to(gdtype), grads)
+        else:
+            grads, ms = None, []
+            for mb in _split_microbatches(batch, num_microbatches):
+                g, m = grads_of(params, mb)
+                ms.append(m)
+                if grads is None:
+                    grads = opt_mod.tree_map(lambda x: x.to(gdtype), g)
+                else:
+                    grads = opt_mod.tree_map(
+                        lambda a, x: a.add_(x.to(gdtype)), grads, g)
+                del g
+            grads = opt_mod.tree_map(
+                lambda g: (g.float() / num_microbatches).to(gdtype), grads)
+            metrics = {k: torch.stack([m[k] for m in ms]).mean()
+                       for k in ms[0]}
+        new_params, new_state, opt_metrics = opt_mod.update(
+            grads, opt_state, params, opt_cfg, shapes)
+        return new_params, new_state, {**metrics, **opt_metrics}
+
+    return train_step
+
+
+def make_eval_step(model: Model):
+    loss_fn = make_loss_fn(model)
+
+    @torch.no_grad()
+    def eval_step(params, batch):
+        _, metrics = loss_fn(params, batch)
+        return metrics
+
+    return eval_step

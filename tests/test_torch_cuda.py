@@ -529,3 +529,153 @@ def test_calibration_on_the_card_is_bit_identical_to_the_cpu(card):
     for name in out_cpu.list_arrays():
         assert (out_card.open(name).read_all().tobytes()
                 == out_cpu.open(name).read_all().tobytes()), name
+
+
+# ---------------------------------------------------------------------------
+# training: the flash backward, autograd through the wrappers, the pipeline
+# ---------------------------------------------------------------------------
+#: the backward kernel's outputs against ref.attention_bwd: max-abs error
+#: within BWD_TOL times max(1, the largest |value|), and relative L2.  bf16
+#: rounds P and dS to bf16 as the products' operands and dq, dk, dv once
+#: (2^-8 relative each); f32 differs from the plain version's f32 only in
+#: the order of its sums and in expf
+BWD_TOL = {torch.float32: 3e-5, torch.bfloat16: 2e-2}
+BWD_REL_L2 = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+
+# the forward's cases plus the backward's own: D = 16 and 32, Sq < Sk
+# causal and full, one query row
+BWD_CASES = ATTN_CASES + [
+    (2, 4, 2, 333, 333, 16, True),
+    (1, 4, 4, 100, 300, 32, False),
+    (1, 6, 2, 70, 130, 64, True),
+]
+
+
+def _rel_l2(got, want):
+    d = (got.float() - want.float()).double().norm()
+    return float(d / want.float().double().norm().clamp_min(1e-30))
+
+
+def _hold_bwd(got, want, dtype, what):
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == dtype and a.shape == w.shape and a.is_contiguous()
+        scale = max(1.0, float(w.float().abs().max()))
+        err = float((a.float() - w.float()).abs().max())
+        assert err <= BWD_TOL[dtype] * scale, (what, name, err, scale)
+        assert _rel_l2(a, w) <= BWD_REL_L2[dtype], (what, name, _rel_l2(a, w))
+
+
+@pytest.mark.parametrize("case", BWD_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_bwd_kernel_matches_plain_version(card, case, dtype):
+    causal = case[-1]
+    q, k, v = _attn_inputs(card, case, dtype)
+    g = torch.Generator(device=card).manual_seed(9)
+    do = torch.randn(q.shape, generator=g, device=card, dtype=dtype)
+    out, lse = kflash.flash_attention_with_lse(q, k, v, causal=causal)
+    before = kflash.bwd_launches.count
+    got = kflash.flash_attention_bwd(q, k, v, out, lse, do, causal=causal)
+    torch.cuda.synchronize()
+    assert kflash.bwd_launches.count == before + 1
+    _hold_bwd(got, ref.attention_bwd(q, k, v, do, causal=causal), dtype,
+              case)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_lse_matches_plain_log_sum_exp(card, dtype):
+    q, k, v = _attn_inputs(card, (2, 8, 2, 300, 330, 128, True), dtype)
+    out, lse = kflash.flash_attention_with_lse(q, k, v, causal=True)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(),
+                     k.float().repeat_interleave(4, dim=1)) * 128 ** -0.5
+    hidden = torch.arange(330, device=card)[None, :] > (
+        torch.arange(300, device=card)[:, None] + 30)
+    want = torch.logsumexp(s.masked_fill(hidden, float("-inf")), dim=-1)
+    torch.testing.assert_close(lse, want, rtol=1e-5, atol=1e-4)
+    assert torch.equal(out, kflash.flash_attention(q, k, v, causal=True))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_autograd_matches_the_plain_versions_autograd(
+        card, dtype):
+    """ops.flash_attention under autograd goes through FlashAttentionFn:
+    one forward and one backward launch, and the gradients of a loss of
+    the output equal autograd's through the plain version."""
+    B, Hq, Hkv, S, D = 2, 8, 2, 200, 64
+    g = torch.Generator(device=card).manual_seed(4)
+    q, k, v = (torch.randn((B, S, H, D), generator=g, device=card,
+                           dtype=dtype).transpose(1, 2).requires_grad_()
+               for H in (Hq, Hkv, Hkv))
+    w = torch.randn((B, Hq, S, D), generator=g, device=card, dtype=dtype)
+    before = (kflash.launches.count, kflash.bwd_launches.count)
+    out = ops.flash_attention(q, k, v, causal=True)
+    assert out.grad_fn is not None
+    got = torch.autograd.grad((out.float() * w.float()).sum(), (q, k, v))
+    torch.cuda.synchronize()
+    assert (kflash.launches.count, kflash.bwd_launches.count) == (
+        before[0] + 1, before[1] + 1)
+    want_out = ops.flash_attention(q, k, v, causal=True, impl="ref")
+    want = torch.autograd.grad((want_out.float() * w.float()).sum(),
+                               (q, k, v))
+    _hold_bwd([t.contiguous() for t in got], want, dtype, "autograd")
+
+
+def test_kernels_without_a_backward_raise_under_autograd(card):
+    x, dt, a, b, c, d = _ssd_inputs(card, (1, 64, 2, 16, 8), torch.float32)
+    x.requires_grad_()
+    with pytest.raises(RuntimeError, match="queue 2 item 1"):
+        ops.ssd(x, dt, a, b, c, d_skip=d)
+    with torch.no_grad():
+        ops.ssd(x, dt, a, b, c, d_skip=d)
+    images = torch.rand((2, 8, 8, 3), device=card, requires_grad=True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        ops.composite(images, torch.rand((2, 8, 8), device=card))
+    with pytest.raises(RuntimeError, match="no backward"):
+        ops.grad_mag(images, torch.ones((2, 8, 8), dtype=torch.bool,
+                                        device=card))
+
+
+def test_prefetch_loader_places_batches_on_the_card(card):
+    import numpy as np
+
+    from repro_torch.data import PrefetchLoader
+
+    batches = ({"tokens": np.full((2, 8), i, dtype=np.int32)}
+               for i in range(5))
+    got = list(PrefetchLoader(batches, depth=2, device=card))
+    assert [int(b["tokens"][0, 0]) for b in got] == list(range(5))
+    assert all(b["tokens"].device.type == "cuda" for b in got)
+
+
+def test_train_step_on_the_card_launches_forward_and_backward(card):
+    """A llama3-8b-smoke train step with the kernel and remat: per layer
+    one forward, one recompute and one backward launch; loss and updated
+    parameters near the plain-attention step's."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build
+    from repro_torch.train import OptimizerConfig, make_train_step
+    from repro_torch.train import optimizer as opt
+
+    cfg = dataclasses.replace(get_config("llama3-8b", "smoke"),
+                              attention_impl="auto", remat=True,
+                              dtype="float32")
+    opt_cfg = OptimizerConfig(learning_rate=1e-3, warmup_steps=1)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 64), device=card)
+    batch = {"tokens": tokens, "labels": tokens}
+    results = []
+    for impl in ("auto", "chunked"):
+        model = build(dataclasses.replace(cfg, attention_impl=impl))
+        params = model.init(0, param_dtype=torch.float32)
+        state = opt.init(params, opt_cfg)
+        backend.reset_launch_counts()
+        params, state, m = make_train_step(model, opt_cfg)(params, state,
+                                                           batch)
+        torch.cuda.synchronize()
+        results.append((params, m, backend.launch_counts()))
+    (p_k, m_k, n_k), (p_p, m_p, n_p) = results
+    assert n_k["flash_attention"] == 2 * cfg.num_layers
+    assert n_k["flash_attention_bwd"] == cfg.num_layers
+    assert n_p["flash_attention"] == n_p["flash_attention_bwd"] == 0
+    assert abs(float(m_k["loss"]) - float(m_p["loss"])) < 1e-4
+    torch.testing.assert_close(p_k["blocks"][0]["attn"]["wq"],
+                               p_p["blocks"][0]["attn"]["wq"],
+                               rtol=1e-4, atol=1e-5)

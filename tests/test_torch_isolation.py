@@ -19,8 +19,9 @@ from repro_torch.configs.festivus_imagery import SMOKE
 from repro_torch.configs import get_config
 from repro_torch.core import ChunkStore, Festivus, InMemoryObjectStore
 from repro_torch.examples import (field_segmentation, global_composite,
-                                  serve_lm, tile_server)
+                                  quickstart, serve_lm, tile_server, train_lm)
 from repro_torch.launch import serve as pserve
+from repro_torch.launch import train as ptrain
 from repro_torch.models import build
 from repro_torch.train import greedy_generate
 
@@ -170,12 +171,23 @@ def test_calibration_without_device_raises_before_any_work(monkeypatch):
 
 
 @pytest.mark.parametrize("example", [global_composite, field_segmentation,
-                                     tile_server, serve_lm],
+                                     tile_server, serve_lm, quickstart,
+                                     train_lm],
                          ids=["global_composite", "field_segmentation",
-                              "tile_server", "serve_lm"])
+                              "tile_server", "serve_lm", "quickstart",
+                              "train_lm"])
 def test_examples_without_device_raise_before_any_work(monkeypatch, capsys,
                                                        example):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
-        example.main()
+        example.main([] if example is train_lm else None)
     assert capsys.readouterr().out == ""
+
+
+def test_train_cli_without_device_raises_before_any_work(monkeypatch,
+                                                         capsys):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ptrain.main(["--arch", "llama3-8b", "--variant", "smoke",
+                     "--steps", "1"])
+    assert "[train]" not in capsys.readouterr().out
