@@ -8,7 +8,8 @@ Phases, each printing one JSON line with its seconds:
 0. device and build: the card's name and power limit from ``nvidia-smi``,
    the matmul precision flags (TF32 and reduced-precision bf16 reductions
    off, stated in the line), the kernels compiled with ``nvcc`` from this
-   checkout's sources (registers and spills; the tensor-core instructions
+   checkout's sources (registers and spills, ptxas's performance
+   advisories; the tensor-core instructions
    of each bf16 LM kernel in its SASS, which must not be 0), and the rate
    of a 4 GiB device-to-device copy;
 1. every kernel (``composite``, ``grad_mag``, ``flash_attention``,
@@ -30,7 +31,10 @@ Phases, each printing one JSON line with its seconds:
    Hkv 8, causal), llama's serving layer, internvl2-1b's and gemma-7b's
    layers, seamless's cross-attention and ragged shapes; the timed cases
    beside their bound (10·D operations per visible pair), the plain
-   version and the backward of SDPA where its mask is the kernel's;
+   version and the backward of SDPA where its mask is the kernel's (f32:
+   its memory-efficient backend); the main case run twice more, dk and dv
+   bit-identical and dq's spread between the runs within
+   BWD_DQ_RUN_SPREAD;
 2. one full-size composite tile (``DEFAULT``: 4096 px, 4 bands, T = 16)
    through ``apps.composite.composite_tile``, held against ``impl="ref"``;
 3. the §V.C campaign: 4 tiles of 1024 px, T = 16, written by
@@ -358,6 +362,13 @@ def phase_device(torch, build) -> dict:
             check(bool(names) and all(symbol in n for n in names),
                   f"{source}.cu: a kernel name lacks {symbol!r}: "
                   f"{sorted(names)}")
+    # ptxas's advisories, e.g. wgmma instructions serialized for want of
+    # registers (the backward's design note tells how it avoids them)
+    advisories = {n: [line.split("Potential Performance Loss:", 1)[1]
+                      .strip()[:160]
+                      for line in i["log"].splitlines()
+                      if "Potential Performance Loss" in line]
+                  for n, i in built.items()}
     # every bf16 kernel of the LM sources runs its products on the tensor
     # cores (the SSD's c.b kernel is bf16 only)
     tensor_ops = {s: tensor_core_instructions(build, s)
@@ -382,7 +393,8 @@ def phase_device(torch, build) -> dict:
             "bf16_reduced_precision_reduction":
                 torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction,
             "built": {n: round(i["seconds"], 3) for n, i in built.items()},
-            "ptxas": resources, "tensor_core_instructions": tensor_ops,
+            "ptxas": resources, "ptxas_advisories": advisories,
+            "tensor_core_instructions": tensor_ops,
             "copy_gib": COPY_BYTES / 1024 ** 3,
             "copy_ms": copy_ms, "copy_bytes_per_s": copy_rate,
             "seconds": time.perf_counter() - t0}
@@ -735,10 +747,11 @@ def phase_flash(torch, seed: int, copy_rate: float) -> dict:
 # timed), q and k as transposed [B, S, H, D] views (v always is one, as
 # the attention layer hands them over).  The main path is one layer of the
 # llama_train phase (8192 tokens, causal); then llama's serving layer,
-# internvl2-1b's (14 query heads on 2), gemma-7b's (D = 256: the f32-core
-# path in bf16 too), seamless's cross-attention (2048 queries on 512
-# frames, full); ragged causal Sq = Sk = 333, full Sq 100 on Sk 300, D = 16
-# and 32
+# internvl2-1b's (14 query heads on 2), gemma-7b's (D = 256: the bf16
+# kernel's warpgroups split D), seamless's cross-attention (2048 queries on
+# 512 frames, full); ragged causal Sq = Sk = 333 at D = 16 and, with GQA,
+# at D = 256; full Sq 100 on Sk 300 at D = 32; causal Sq < Sk at D = 64
+# and across the 128-key tile edge at D = 128
 BWD_CASES = [
     ("main_path", (2, 32, 8, 4096, 4096, 128), True, ("bfloat16",),
      TIMED_RUNS, True),
@@ -754,11 +767,20 @@ BWD_CASES = [
      ("float32", "bfloat16"), TIMED_RUNS, True),
     ("ragged_333_d16", (2, 8, 2, 333, 333, 16), True,
      ("float32", "bfloat16"), 0, False),
+    ("gqa_ragged_333_d256", (1, 8, 2, 333, 333, 256), True,
+     ("float32", "bfloat16"), 0, True),
     ("full_100_on_300_d32", (2, 8, 8, 100, 300, 32), False,
      ("float32", "bfloat16"), 0, False),
     ("sq_lt_sk_causal_d64", (1, 6, 2, 200, 328, 64), True,
      ("float32", "bfloat16"), 0, True),
+    ("sq_lt_sk_190_on_260_d128", (1, 8, 2, 190, 260, 128), True,
+     ("float32", "bfloat16"), 0, True),
 ]
+#: the main case's backward run twice: dk and dv must be bit-identical, dq
+#: within BWD_DQ_RUN_SPREAD x max(1, max |dq|) of the other run (its f32
+#: adds into dq_acc land in a varying order; rounded to bf16 once, a value
+#: may land on a neighbouring bf16 number, 2^-8 relative apart)
+BWD_DQ_RUN_SPREAD = 2 ** -7
 
 
 def bwd_bound(shape, causal: bool, x_bytes: int):
@@ -779,20 +801,39 @@ def bwd_bound(shape, causal: bool, x_bytes: int):
         "bytes" if bytes_ms >= ops_ms else "operations")
 
 
-def sdpa_bwd_ms(torch, q, k, v, do, causal: bool, runs: int) -> float:
-    """The backward of PyTorch's ``scaled_dot_product_attention(...,
-    enable_gqa=True)`` on the same inputs (its forward run once, outside
-    the timing), a yardstick only, where its mask is the kernel's; its
-    fused backends, as ``sdpa_ms``."""
+def sdpa_bwd_ms(torch, q, k, v, do, causal: bool, runs: int):
+    """The backward of PyTorch's ``scaled_dot_product_attention`` on the
+    same inputs (its forward run once, outside the timing), a yardstick
+    only, where its mask is the kernel's -> (ms, how it was called).  bf16:
+    ``enable_gqa=True`` on its fused backends, as ``sdpa_ms``.  f32: the
+    memory-efficient backend (the fused one that takes f32); where it
+    refuses ``enable_gqa``, k and v expanded to the query heads outside the
+    timing (its gradients are then per query head, not yet summed over the
+    group)."""
     from torch.nn.attention import SDPBackend, sdpa_kernel
     from torch.nn.functional import scaled_dot_product_attention as sdpa
 
-    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
-    with sdpa_kernel([SDPBackend.CUDNN_ATTENTION,
-                      SDPBackend.FLASH_ATTENTION]):
-        out = sdpa(*leaves, is_causal=causal, enable_gqa=True)
-        return median_ms(torch, lambda: torch.autograd.grad(
+    if q.dtype == torch.float32:
+        backends, how = [SDPBackend.EFFICIENT_ATTENTION], "efficient"
+    else:
+        backends = [SDPBackend.CUDNN_ATTENTION, SDPBackend.FLASH_ATTENTION]
+        how = "cudnn or flash"
+    inputs, gqa = (q, k, v), True
+    with sdpa_kernel(backends):
+        leaves = [t.detach().requires_grad_() for t in inputs]
+        try:
+            out = sdpa(*leaves, is_causal=causal, enable_gqa=True)
+        except RuntimeError:
+            group = q.shape[1] // k.shape[1]
+            inputs = (q, k.repeat_interleave(group, dim=1),
+                      v.repeat_interleave(group, dim=1))
+            leaves = [t.detach().requires_grad_() for t in inputs]
+            out = sdpa(*leaves, is_causal=causal)
+            gqa = False
+        ms = median_ms(torch, lambda: torch.autograd.grad(
             out, leaves, do, retain_graph=True), runs=runs, warmup=1)
+    return ms, (f"sdpa {how}, " + ("enable_gqa" if gqa
+                                   else "k and v expanded to Hq"))
 
 
 def phase_flash_bwd(torch, seed: int, copy_rate: float) -> dict:
@@ -858,16 +899,37 @@ def phase_flash_bwd(torch, seed: int, copy_rate: float) -> dict:
                     "rel_l2_limit": BWD_REL_L2[xd], "runs": runs,
                     "bytes": nbytes, "operations": ops, "bound_ms": bound_ms,
                     "bound_by": bound_by}
+            if name == "main_path":
+                # twice more: dk, dv bit-identical, dq's spread stated
+                first = kflash.flash_attention_bwd(q, k, v, o, lse, do,
+                                                   causal)
+                second = kflash.flash_attention_bwd(q, k, v, o, lse, do,
+                                                    causal)
+                torch.cuda.synchronize()
+                spread = float((first[0].float() - second[0].float())
+                               .abs().max())
+                spread_limit = BWD_DQ_RUN_SPREAD * max(
+                    1.0, float(first[0].float().abs().max()))
+                identical = (torch.equal(first[1], second[1])
+                             and torch.equal(first[2], second[2]))
+                check(identical, f"bwd {name}: dk, dv differ between runs")
+                check(spread <= spread_limit,
+                      f"bwd {name}: dq differs by {spread} > {spread_limit} "
+                      f"between runs")
+                case.update({"dq_run_spread": spread,
+                             "dq_run_spread_limit": spread_limit,
+                             "dk_dv_identical_across_runs": identical})
+                del first, second
             if runs:
                 ms = median_ms(torch, lambda: kflash.flash_attention_bwd(
                     q, k, v, o, lse, do, causal), runs=runs, warmup=1)
                 plain_ms = median_ms(torch, lambda: ref.attention_bwd(
                     q, k, v, do, causal=causal), runs=runs, warmup=1)
-                library_ms = (sdpa_bwd_ms(torch, q, k, v, do, causal, runs)
-                              if (Sq == Sk or not causal)
-                              and xd == "bfloat16" else None)
+                library_ms, library = (
+                    sdpa_bwd_ms(torch, q, k, v, do, causal, runs)
+                    if Sq == Sk or not causal else (None, None))
                 case.update({"ms": ms, "plain_ms": plain_ms,
-                             "library_ms": library_ms,
+                             "library_ms": library_ms, "library": library,
                              "copy_bound_ms": nbytes / copy_rate * 1e3,
                              "flop_per_s": ops / (ms * 1e-3)})
             cases.append(case)

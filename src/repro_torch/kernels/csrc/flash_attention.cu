@@ -64,12 +64,11 @@
 // Every product and sum is f32, and the output is rounded once.
 //
 // Shared memory is dynamic, set per instantiation with
-// cudaFuncSetAttribute; the launch's error is returned to the caller.
+// cudaFuncSetAttribute; the launch's error is returned to the caller.  The
+// mbarrier, TMA and wgmma helpers and the tensor-map encoding live in
+// hopper.cuh, shared with the backward (flash_attention_bwd.cu).
 
-#include <cuda.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "hopper.cuh"
 
 namespace {
 
@@ -308,9 +307,6 @@ constexpr int kThreads = 384;         // producer + two consumer warpgroups
 constexpr int kConsumerWarps = 8;
 constexpr int kProducerRegs = 40;
 constexpr int kConsumerRegs = 232;
-// clock cycles a barrier wait may spin before it traps: a deadlock becomes
-// a launch error, not a hung card (~10 s at the card's clock)
-constexpr long long kWaitLimit = 20000000000LL;
 
 template <int D>
 struct Tile {
@@ -323,210 +319,11 @@ struct Tile {
   static constexpr int kBarrierOffset = kQBytes + 4 * kKVBytes;
   // Q, two stages of K and V, seven barriers, and room to align to 1024
   static constexpr int kSmemBytes = kBarrierOffset + 64 + 1024;
-  // wgmma descriptor layout type: 1 = 128-byte, 2 = 64-byte, 3 = 32-byte
-  static constexpr uint64_t kLayout =
-      kRowBytes == 128 ? 1 : (kRowBytes == 64 ? 2 : 3);
-  static constexpr CUtensorMapSwizzle kSwizzle =
-      kRowBytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
-                       : (kRowBytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
-                                          : CU_TENSOR_MAP_SWIZZLE_32B);
+  // wgmma descriptor layout type (hopper.cuh: layout_for)
+  static constexpr uint64_t kLayout = layout_for(kRowBytes);
   static_assert(D % 16 == 0 && D <= 256, "head_dim");
   static_assert(kSmemBytes <= 232448, "shared memory");
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  const long long start = clock64();
-  uint32_t done = 0;
-  while (true) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (clock64() - start > kWaitLimit) __trap();
-  }
-}
-
-// One 4-D TMA copy of a box at (d, s, h, b) into shared memory at dst,
-// completing on the barrier.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         int d, int s, int h, int b,
-                                         uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(d), "r"(s), "r"(h), "r"(b),
-      "r"(bar)
-      : "memory");
-}
-
-// A wgmma shared-memory matrix descriptor: start address, leading and
-// stride byte offsets (16-byte units), swizzle layout type.
-__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo,
-                                              uint32_t sbo, uint64_t layout) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(lbo >> 4) << 16) |
-         (static_cast<uint64_t>(sbo >> 4) << 32) | (layout << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// Keeps the compiler from moving reads or writes of an accumulator across
-// the wgmma that is still writing it.
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-
-#define ACC8(d, i)                                                       \
-  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),            \
-      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
-#define ACC16(d, i) ACC8(d, i), ACC8(d, i + 8)
-#define ACC32(d, i) ACC16(d, i), ACC16(d, i + 16)
-#define ACC64(d, i) ACC32(d, i), ACC32(d, i + 32)
-#define REGS8 "{%0, %1, %2, %3, %4, %5, %6, %7}"
-#define REGS16                                                          \
-  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "  \
-  "%15}"
-#define REGS32                                                          \
-  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "  \
-  "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "   \
-  "%28, %29, %30, %31}"
-#define REGS64                                                          \
-  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "  \
-  "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "   \
-  "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "   \
-  "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "   \
-  "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
-
-// d[64 x N] (+)= A[64 x 16] B[16 x N]: bf16 in, f32 accumulate, A and B
-// K-major in shared memory.  accumulate == 0 overwrites d.
-template <int N>
-__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a,
-                                         uint64_t b, int accumulate);
-
-template <>
-__device__ __forceinline__ void wgmma_ss<64>(float (&d)[32], uint64_t a,
-                                             uint64_t b, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " REGS32
-      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : ACC32(d, 0)
-      : "l"(a), "l"(b), "r"(accumulate));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_ss<128>(float (&d)[64], uint64_t a,
-                                              uint64_t b, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " REGS64
-      ", %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : ACC64(d, 0)
-      : "l"(a), "l"(b), "r"(accumulate));
-}
-
-// d[64 x N] += A[64 x 16] B[16 x N]: A from registers (four bf16 pairs a
-// thread, the layout of an f32 accumulator fragment), B MN-major in shared
-// memory (the transpose bit).  d points at N / 2 accumulator registers.
-template <int N>
-__device__ __forceinline__ void wgmma_rs(float* d, const uint32_t (&a)[4],
-                                         uint64_t b);
-
-template <>
-__device__ __forceinline__ void wgmma_rs<16>(float* d, const uint32_t (&a)[4],
-                                             uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 " REGS8
-      ", {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
-      : ACC8(d, 0)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_rs<32>(float* d, const uint32_t (&a)[4],
-                                             uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 " REGS16
-      ", {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
-      : ACC16(d, 0)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_rs<64>(float* d, const uint32_t (&a)[4],
-                                             uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " REGS32
-      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : ACC32(d, 0)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_rs<128>(float* d,
-                                              const uint32_t (&a)[4],
-                                              uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " REGS64
-      ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : ACC64(d, 0)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-__device__ __forceinline__ float quad_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
 
 // The online-softmax step on one tile's scores s (this thread's part of
 // the m64n{block_k} fragment: element 4j + 2r + e is row r's column
@@ -774,53 +571,13 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-// cuTensorMapEncodeTiled, reached through the runtime: no -lcuda.
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                 void*, const cuuint64_t*, const cuuint64_t*,
-                                 const cuuint32_t*, const cuuint32_t*,
-                                 CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(p)
-               : nullptr;
-  }();
-  return fn;
-}
-
 // A 4-D bf16 map over [batch, heads, rows, head_dim] with the given element
 // strides, boxes of (row_elems, box_rows) and the tile's swizzle.
 template <int D>
 bool encode(CUtensorMap* map, const void* ptr, int64_t batch, int64_t heads,
             int64_t rows, Strides st, uint32_t box_rows) {
-  const EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return false;
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
-                              static_cast<cuuint64_t>(rows > 0 ? rows : 1),
-                              static_cast<cuuint64_t>(heads),
-                              static_cast<cuuint64_t>(batch)};
-  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(st.s) * 2,
-                                 static_cast<cuuint64_t>(st.h) * 2,
-                                 static_cast<cuuint64_t>(st.b) * 2};
-  const cuuint32_t box[4] = {static_cast<cuuint32_t>(Tile<D>::kRowElems),
-                             box_rows, 1, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
-            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            Tile<D>::kSwizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  return encode_bf16_4d(map, ptr, D, batch, heads, rows, st.b, st.h, st.s,
+                        Tile<D>::kRowElems, box_rows);
 }
 
 template <int D>

@@ -20,7 +20,17 @@ over are not copied.
 
 The backward (no TPU counterpart: the JAX package differentiates its plain
 attention) recomputes P from q, k and the forward's row log-sum-exp; its
-plain version is :func:`repro_torch.kernels.ref.attention_bwd`.
+plain version is :func:`repro_torch.kernels.ref.attention_bwd`.  bf16
+inputs run on the tensor cores, built from the forward's parts (TMA,
+mbarrier rings, ``wgmma``): a prologue kernel writes each row's
+``delta = rowsum(dO * O)`` and zeroes an f32 ``dq_acc``; the main kernel
+owns a (batch, KV head, tile of keys), keeps dK and dV in registers while
+one of its threads streams, with TMA, every query tile of the group that
+sees its keys, computes S and dP once per visible pair and adds each
+step's dQ tile into ``dq_acc`` with one bulk reduce-add; an epilogue
+kernel rounds ``dq_acc · scale`` to bf16.  dk and dv are deterministic;
+dq's last bits may vary from run to run (the order of the adds).  f32
+inputs run on the f32 cores, held to 3e-5.
 :class:`FlashAttentionFn` ties the two together for autograd.
 
 The wrappers check shapes, dtype, head_dim and the strides and raise on
@@ -48,6 +58,10 @@ MAX_BATCH_HEADS = 65535
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 #: TMA's alignment of a tensor's base address and strides, in bytes
 TMA_ALIGN = 16
+#: query rows of one step of the backward kernel; the rows of its f32
+#: scratch (delta; for bf16 also lse2 and dq_acc) are padded to a multiple
+#: of it
+BWD_BLOCK_M = 64
 
 launches = LaunchCounter("flash_attention")
 bwd_launches = LaunchCounter("flash_attention_bwd")
@@ -63,7 +77,7 @@ def _bind(name: str):
         if name not in _bound:
             lib = build.load(name)
             fn = getattr(lib, f"repro_{name}")
-            pointers = 5 if name == "flash_attention" else 10
+            pointers = 5 if name == "flash_attention" else 12
             fn.argtypes = ([ctypes.c_void_p] * pointers
                            + [ctypes.c_int64] * 15
                            + [ctypes.c_int, ctypes.c_int, ctypes.c_float,
@@ -161,6 +175,47 @@ def flash_attention_with_lse(q: torch.Tensor, k: torch.Tensor,
     return _forward(q, k, v, causal, with_lse=True)
 
 
+def check_bwd_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                     causal: bool) -> None:
+    """Raise on anything the backward kernel does not take: o and do
+    contiguous [B, Hq, Sq, D] in q's dtype, lse contiguous f32 [B, Hq, Sq],
+    all on q's device, then :func:`check_inputs` (whose device check comes
+    last, so each check can be seen on CPU tensors)."""
+    if q.dim() == 4:
+        B, Hq, Sq, D = q.shape
+        for name, t in (("o", o), ("do", do)):
+            if (tuple(t.shape) != (B, Hq, Sq, D) or t.dtype != q.dtype
+                    or not t.is_contiguous() or t.device != q.device):
+                raise ValueError(f"{name} must be contiguous "
+                                 f"{(B, Hq, Sq, D)} {q.dtype} on {q.device}, "
+                                 f"got {tuple(t.shape)} {t.dtype} {t.device}")
+        if (tuple(lse.shape) != (B, Hq, Sq) or lse.dtype != torch.float32
+                or not lse.is_contiguous() or lse.device != q.device):
+            raise ValueError(f"lse must be contiguous {(B, Hq, Sq)} float32, "
+                             f"got {tuple(lse.shape)} {lse.dtype}")
+    check_inputs(q, k, v, causal)
+
+
+def bwd_workspace(q: torch.Tensor):
+    """The backward kernel's f32 scratch for q [B, Hq, Sq, D], allocated
+    with ``torch.empty`` on q's device (the kernels write every element
+    they read) -> (delta, lse2, dq_acc), with Sq_pad = Sq rounded up to a
+    multiple of ``BWD_BLOCK_M``: delta [B, Hq, Sq_pad]; for bf16 also lse2
+    (the log-sum-exp in the log2 domain, +inf on the padded rows) of the
+    same shape and dq_acc [B, Hq, Sq_pad, D], where the steps add their dQ
+    tiles (64 rows each, in the kernel's fragment order); None for f32,
+    whose kernels need neither."""
+    B, Hq, Sq, D = q.shape
+    pad = -(-Sq // BWD_BLOCK_M) * BWD_BLOCK_M
+    delta = torch.empty((B, Hq, pad), dtype=torch.float32, device=q.device)
+    if q.dtype != torch.bfloat16:
+        return delta, None, None
+    return (delta, torch.empty_like(delta),
+            torch.empty((B, Hq, pad, D), dtype=torch.float32,
+                        device=q.device))
+
+
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
                         causal: bool = True):
@@ -168,33 +223,27 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     and log-sum-exp lse, and the output's gradient do -> (dq, dk, dv),
     contiguous in q's dtype (dk and dv summed over each KV head's group).
     o and do must be contiguous [B, Hq, Sq, D] in q's dtype and lse f32
-    [B, Hq, Sq]: the wrapper copies nothing.  Launches two kernels (dq with
-    the rows' D = sum(do * o), then dk and dv), counted as one launch."""
-    check_inputs(q, k, v, causal)
+    [B, Hq, Sq]: the wrapper copies nothing.  bf16 launches three kernels
+    (delta and the zeroed ``dq_acc``; the walk over key tiles; dq from
+    ``dq_acc``), f32 two (dq with delta, then dk and dv), counted as one
+    launch; the scratch is :func:`bwd_workspace`'s."""
+    check_bwd_inputs(q, k, v, o, lse, do, causal)
     B, Hq, Sq, D = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
-    for name, t in (("o", o), ("do", do)):
-        if (tuple(t.shape) != (B, Hq, Sq, D) or t.dtype != q.dtype
-                or not t.is_contiguous() or t.device != q.device):
-            raise ValueError(f"{name} must be contiguous {(B, Hq, Sq, D)} "
-                             f"{q.dtype} on {q.device}, got "
-                             f"{tuple(t.shape)} {t.dtype} {t.device}")
-    if (tuple(lse.shape) != (B, Hq, Sq) or lse.dtype != torch.float32
-            or not lse.is_contiguous() or lse.device != q.device):
-        raise ValueError(f"lse must be contiguous {(B, Hq, Sq)} float32, got "
-                         f"{tuple(lse.shape)} {lse.dtype}")
     dq = torch.empty((B, Hq, Sq, D), dtype=q.dtype, device=q.device)
     dk = torch.empty((B, Hkv, Sk, D), dtype=q.dtype, device=q.device)
     dv = torch.empty_like(dk)
     if dq.numel() == 0 or Sk == 0:
         return dq.zero_(), dk, dv
-    delta = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
+    delta, lse2, dq_acc = bwd_workspace(q)
     fn, err_string = _bind("flash_attention_bwd")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                  do.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
                  dv.data_ptr(), delta.data_ptr(),
+                 0 if dq_acc is None else dq_acc.data_ptr(),
+                 0 if lse2 is None else lse2.data_ptr(),
                  B, Hq, Hkv, Sq, Sk, D,
                  *_strides(q), *_strides(k), *_strides(v),
                  _DTYPE_CODES[q.dtype], int(causal), D ** -0.5, stream)

@@ -543,12 +543,21 @@ BWD_TOL = {torch.float32: 3e-5, torch.bfloat16: 2e-2}
 BWD_REL_L2 = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 
 # the forward's cases plus the backward's own: D = 16 and 32, Sq < Sk
-# causal and full, one query row
+# causal and full, one query row; D = 256 with GQA at a ragged length (the
+# warpgroups split D); causal Sq < Sk crossing the 128-key tile edge
 BWD_CASES = ATTN_CASES + [
     (2, 4, 2, 333, 333, 16, True),
     (1, 4, 4, 100, 300, 32, False),
     (1, 6, 2, 70, 130, 64, True),
+    (1, 8, 2, 333, 333, 256, True),
+    (1, 8, 2, 190, 260, 128, True),
 ]
+#: two runs of the bf16 backward: dk and dv bit-identical (each block sums
+#: its keys' gradients in a fixed order); dq within this many times
+#: max(1, max |dq|) of the other run (its steps' f32 adds into dq_acc land
+#: in the order the blocks reach them, then dq is rounded to bf16 once: two
+#: runs may round a value to neighbouring bf16 numbers, 2^-8 apart)
+BWD_DQ_RUN_SPREAD = 2 ** -7
 
 
 def _rel_l2(got, want):
@@ -579,6 +588,27 @@ def test_flash_attention_bwd_kernel_matches_plain_version(card, case, dtype):
     assert kflash.bwd_launches.count == before + 1
     _hold_bwd(got, ref.attention_bwd(q, k, v, do, causal=causal), dtype,
               case)
+
+
+@pytest.mark.parametrize("case", [(2, 32, 8, 512, 512, 128, True),
+                                  (1, 8, 2, 333, 333, 256, True),
+                                  (2, 8, 2, 300, 300, 64, False)])
+def test_flash_attention_bwd_kernel_runs_agree(card, case):
+    """dk and dv are bit-identical from run to run; dq agrees within
+    BWD_DQ_RUN_SPREAD (the order of its f32 adds varies)."""
+    causal = case[-1]
+    q, k, v = _attn_inputs(card, case, torch.bfloat16)
+    g = torch.Generator(device=card).manual_seed(9)
+    do = torch.randn(q.shape, generator=g, device=card, dtype=torch.bfloat16)
+    out, lse = kflash.flash_attention_with_lse(q, k, v, causal=causal)
+    first = kflash.flash_attention_bwd(q, k, v, out, lse, do, causal=causal)
+    second = kflash.flash_attention_bwd(q, k, v, out, lse, do, causal=causal)
+    torch.cuda.synchronize()
+    assert torch.equal(first[1], second[1]) and torch.equal(first[2],
+                                                            second[2])
+    spread = float((first[0].float() - second[0].float()).abs().max())
+    scale = max(1.0, float(first[0].float().abs().max()))
+    assert spread <= BWD_DQ_RUN_SPREAD * scale, (spread, scale)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -10,11 +10,16 @@ only in the order of their sums.  bf16 inputs within 2e-2: the two
 frameworks round the bf16 gradients at other places (JAX rounds the
 cotangent of the output's cast, the port once at the end).
 
-The wrappers' refusals (the backward kernel on CPU tensors; the kernels
-without a backward under autograd) are seen through their input checks,
-whose device check comes last.  The backward kernel itself is held
-against ``ref.attention_bwd`` on the card (tests/test_torch_cuda.py,
-chip_smoke.py's ``flash_bwd`` phase).
+The wrappers' refusals (the backward kernel on CPU tensors and on o, do
+or lse it does not take; the kernels without a backward under autograd)
+are seen through their input checks, whose device check comes last.  The
+bf16 backward kernel's design is modelled here: its walk over (key tile,
+query tile) pairs covers every visible pair once, heavy tiles first, and
+its tiled arithmetic (padded query rows with lse2 = +inf, the mask applied
+only where a tile crosses the causal diagonal or the Sk edge, dQ added
+step by step into an f32 accumulator) gives ``ref.attention_bwd``'s
+gradients.  The kernel itself is held against ``ref.attention_bwd`` on the
+card (tests/test_torch_cuda.py, chip_smoke.py's ``flash_bwd`` phase).
 """
 
 import jax
@@ -132,6 +137,189 @@ def test_backward_kernel_and_its_function_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA device"):
         ops.flash_attention(q, k, v, impl="pallas")
     assert kflash.bwd_launches.count == before
+
+
+@pytest.mark.parametrize("what", ["o_shape", "do_strided", "do_dtype",
+                                  "lse_dtype", "lse_shape"])
+def test_backward_kernel_refuses_o_do_lse_it_does_not_take(what):
+    case = (1, 2, 1, 16, 16, 32, True)
+    q, k, v, do = (torch.from_numpy(a) for a in _inputs(case))
+    o, lse = q.clone(), torch.zeros((1, 2, 16))
+    if what == "o_shape":
+        o = o[:, :, :8]
+    elif what == "do_strided":
+        do = do.transpose(1, 2).contiguous().transpose(1, 2)
+    elif what == "do_dtype":
+        do = do.double()
+    elif what == "lse_dtype":
+        lse = lse.double()
+    else:
+        lse = lse[:, :, :8]
+    before = kflash.bwd_launches.count
+    with pytest.raises(ValueError, match="must be contiguous"):
+        kflash.flash_attention_bwd(q, k, v, o, lse, do, causal=True)
+    assert kflash.bwd_launches.count == before
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Sq", [1, 64, 100, 4096])
+def test_backward_workspace_shapes_and_dtypes(dtype, Sq):
+    """delta (and, for bf16, lse2 and dq_acc's rows) padded to whole
+    64-row steps; f32 needs neither lse2 nor dq_acc."""
+    q = torch.empty((2, 3, Sq, 32), dtype=dtype)
+    delta, lse2, dq_acc = kflash.bwd_workspace(q)
+    pad = -(-Sq // kflash.BWD_BLOCK_M) * kflash.BWD_BLOCK_M
+    assert kflash.BWD_BLOCK_M == 64
+    assert delta.shape == (2, 3, pad) and delta.dtype == torch.float32
+    if dtype == torch.float32:
+        assert lse2 is None and dq_acc is None
+    else:
+        assert lse2.shape == (2, 3, pad) and lse2.dtype == torch.float32
+        assert dq_acc.shape == (2, 3, pad, 32)
+        assert dq_acc.dtype == torch.float32 and dq_acc.is_contiguous()
+
+
+# ---------------------------------------------------------------------------
+# the bf16 backward kernel's design, modelled on the CPU
+# (csrc/flash_attention_bwd.cu: BwdTile, flash_bwd_kernel_bf16)
+# ---------------------------------------------------------------------------
+BLOCK_M = kflash.BWD_BLOCK_M
+
+
+def _block_n(D):
+    """Keys of a block: 128, split 64 / 64 between the two consumer
+    warpgroups; 64 at D = 256, where the warpgroups split D."""
+    return 64 if D == 256 else 128
+
+
+def _walk(Sq, Sk, causal, D):
+    """The kernel's walk in launch order (grid.y is the key tile): each key
+    tile's first key and the query tiles its producer streams (for each
+    query head of the group)."""
+    bn, offset = _block_n(D), Sk - Sq
+    m_tiles = -(-Sq // BLOCK_M)
+    for n0 in range(0, Sk, bn):
+        m_first = max(0, n0 - offset) // BLOCK_M if causal else 0
+        yield n0, range(m_first, m_tiles)
+
+
+def _warpgroup_keys(n0, D):
+    return [n0] if D == 256 else [n0, n0 + 64]
+
+
+WALK_CASES = [
+    (4096, 4096, True, 128), (2048, 2048, True, 256), (2048, 512, False, 64),
+    (200, 328, True, 128), (190, 260, True, 128), (333, 333, True, 256),
+    (333, 333, True, 16), (100, 300, False, 32), (1, 777, True, 64),
+    (70, 130, True, 64), (129, 129, False, 256),
+]
+
+
+@pytest.mark.parametrize("case", WALK_CASES,
+                         ids=lambda c: "x".join(map(str, c[:2]))
+                         + ("_causal" if c[2] else "_full") + f"_d{c[3]}")
+def test_backward_walk_covers_every_visible_pair_once_heavy_first(case):
+    Sq, Sk, causal, D = case
+    bn = _block_n(D)
+    seen = np.zeros((Sq, Sk), np.uint8)
+    lengths = []
+    for n0, tiles in _walk(Sq, Sk, causal, D):
+        lengths.append(len(tiles))
+        for m in tiles:
+            block = seen[m * BLOCK_M:(m + 1) * BLOCK_M, n0:n0 + bn]
+            assert block.size
+            block += 1
+    rows = np.arange(Sq)[:, None]
+    keys = np.arange(Sk)[None, :]
+    visible = (keys <= rows + Sk - Sq) if causal else np.ones((Sq, Sk), bool)
+    assert (seen[visible] == 1).all()
+    # every visited (query tile, key tile) has a visible pair: the walk
+    # skips what the mask hides
+    for n0, tiles in _walk(Sq, Sk, causal, D):
+        for m in tiles:
+            assert visible[m * BLOCK_M:(m + 1) * BLOCK_M, n0:n0 + bn].any()
+    assert lengths == sorted(lengths, reverse=True)
+
+
+def _tiled_bwd(q, k, v, do, causal):
+    """The bf16 kernel's arithmetic in f64: P from lse2 (the log-sum-exp
+    times log2 e, +inf on the padded query rows, whose Q and dO rows TMA
+    fills with zeros), the mask applied only on tiles that cross the causal
+    diagonal or the Sk edge, dV and dK summed in the block over the group,
+    dQ added into an f32 accumulator step by step."""
+    B, Hq, Sq, D = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    group, scale, offset = Hq // Hkv, D ** -0.5, Sk - Sq
+    bn = _block_n(D)
+    log2e = 1.0 / np.log(2.0)
+    q, k, v, do = (t.double() for t in (q, k, v, do))
+    s = torch.einsum("bhqd,bhkd->bhqk", q,
+                     k.repeat_interleave(group, dim=1)) * scale
+    if causal:
+        hidden = torch.arange(Sk)[None, :] > torch.arange(Sq)[:, None] + offset
+        s = s.masked_fill(hidden, float("-inf"))
+    lse = torch.logsumexp(s, dim=-1)
+    o = torch.einsum("bhqk,bhkd->bhqd", torch.softmax(s, dim=-1),
+                     v.repeat_interleave(group, dim=1))
+    pad = -(-Sq // BLOCK_M) * BLOCK_M
+    kpad = -(-Sk // bn) * bn
+    lse2 = torch.full((B, Hq, pad), float("inf"), dtype=torch.float64)
+    lse2[..., :Sq] = lse * log2e
+    delta = torch.zeros((B, Hq, pad), dtype=torch.float64)
+    delta[..., :Sq] = (do * o).sum(-1)
+    qp, dop = (torch.zeros((B, Hq, pad, D), dtype=torch.float64)
+               for _ in range(2))
+    qp[:, :, :Sq], dop[:, :, :Sq] = q, do
+    kp, vp = (torch.zeros((B, Hkv, kpad, D), dtype=torch.float64)
+              for _ in range(2))
+    kp[:, :, :Sk], vp[:, :, :Sk] = k, v
+    dq_acc = torch.zeros((B, Hq, Sq, D), dtype=torch.float64)
+    dk, dv = torch.zeros_like(kp), torch.zeros_like(vp)
+    for n0, tiles in _walk(Sq, Sk, causal, D):
+        for nw in _warpgroup_keys(n0, D):
+            keys = slice(nw, nw + 64)
+            for hh in range(group):
+                for m in tiles:
+                    m0 = m * BLOCK_M
+                    rows = slice(m0, m0 + BLOCK_M)
+                    for b in range(B):
+                        for hk in range(Hkv):
+                            h = hk * group + hh
+                            st = kp[b, hk, keys] @ qp[b, h, rows].T
+                            dpt = vp[b, hk, keys] @ dop[b, h, rows].T
+                            pt = torch.exp2(st * scale * log2e
+                                            - lse2[b, h, rows][None, :])
+                            if nw + 64 > Sk or (causal
+                                                and nw + 63 > m0 + offset):
+                                key = nw + torch.arange(64)[:, None]
+                                qq = m0 + torch.arange(BLOCK_M)[None, :]
+                                hid = (key >= Sk) | (causal
+                                                     & (key > qq + offset))
+                                pt = pt.masked_fill(hid, 0.0)
+                            dst = pt * (dpt - delta[b, h, rows][None, :])
+                            dv[b, hk, keys] += pt @ dop[b, h, rows]
+                            dk[b, hk, keys] += dst @ qp[b, h, rows]
+                            n = min(BLOCK_M, Sq - m0)
+                            dq_acc[b, h, m0:m0 + n] += (
+                                dst.T @ kp[b, hk, keys])[:n]
+    return (dq_acc * scale, dk[:, :, :Sk] * scale, dv[:, :, :Sk])
+
+
+@pytest.mark.parametrize("case", [
+    (1, 4, 2, 190, 260, 128, True),
+    (1, 2, 1, 150, 150, 256, True),
+    (2, 2, 2, 100, 300, 32, False),
+    (1, 4, 1, 1, 130, 64, True),
+    (1, 2, 2, 70, 130, 16, True),
+    (1, 2, 1, 129, 129, 64, False),
+], ids=_ids)
+def test_backward_kernel_arithmetic_model_matches_the_plain_version(case):
+    causal = case[-1]
+    q, k, v, do = (torch.from_numpy(a) for a in _inputs(case))
+    got = _tiled_bwd(q, k, v, do, causal)
+    want = ref.attention_bwd(q, k, v, do, causal=causal)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), _f32(w), **TOL["float32"])
 
 
 def _ssd_inputs(requires_grad):
