@@ -13,7 +13,8 @@ Phases, each printing one JSON line with its seconds:
    of each bf16 LM kernel in its SASS, which must not be 0), and the rate
    of a 4 GiB device-to-device copy;
 1. every kernel (``composite``, ``grad_mag``, ``flash_attention``,
-   ``ssd_scan``) against its plain PyTorch version on the card, at the main
+   ``ssd_scan``; the backwards ``flash_attention_bwd`` and
+   ``ssd_scan_bwd``) against its plain PyTorch version on the card, at the main
    path's shapes and at ragged ones, with the tolerance stated (and, for
    attention and the SSD, a relative L2 limit as well); the main path's
    cases, and every attention and SSD case (among them one dbrx-132b
@@ -34,7 +35,14 @@ Phases, each printing one JSON line with its seconds:
    version and the backward of SDPA where its mask is the kernel's (f32:
    its memory-efficient backend); the main case run twice more, dk and dv
    bit-identical and dq's spread between the runs within
-   BWD_DQ_RUN_SPREAD;
+   BWD_DQ_RUN_SPREAD; then ``ssd_bwd``: the SSD backward kernel against
+   ``ref.ssd_scan_bwd`` (dx, ddt, da, db, dc and dd each within
+   SSD_BWD_TOL and SSD_BWD_REL_L2), at the mamba_train layer ([2,4096,80,
+   64], N 128, one group of b and c, bf16 and f32), the jamba_train layer
+   (N 16, 128 heads), mamba's serving layer, the small shapes in f32 and
+   bf16, ragged lengths, b and c per head and a strongly decaying head;
+   the timed cases beside their bound and the plain version; the main
+   case twice more, all six gradients bit-identical;
 2. one full-size composite tile (``DEFAULT``: 4096 px, 4 bands, T = 16)
    through ``apps.composite.composite_tile``, held against ``impl="ref"``;
 3. the §V.C campaign: 4 tiles of 1024 px, T = 16, written by
@@ -143,14 +151,34 @@ Phases, each printing one JSON line with its seconds:
     checkpoint restored bit-identical, then ``--resume`` one step from it;
     (e) step time, tokens/s, peak memory, a profiler breakdown of one step
     and the optimizer's device time;
-26. summary: the ``kernels`` line, the peak device memory, the
+26. ``mamba_train``: mamba2-2.7b at full width and depth (64 layers,
+    2.70e9 parameters, 43.2 GB of f32 masters, gradients and moments;
+    bf16 activations; remat "full"), trained through ``launch.train.run``
+    on 2 x 4096 tokens a step, 10 steps at lr 3e-4, no checkpoint: (a) the
+    first step's loss and every gradient in bf16 against the same step with
+    the plain SSD under autograd chunked at 64 as the kernels chunk, within
+    TRAIN_LOSS_RTOL and TRAIN_GRAD_REL_L2 where the plain SSD chunked at
+    128 agrees with it within those gates at this depth, else within
+    SPREAD_MULTIPLE times that spread and, in f32, where the plain versions
+    agree, within the gates (the line gives each reading, spread and
+    limit); (b) per step 128 ``ssd_scan`` launches (64
+    forward + 64 remat recomputes) and 64 ``ssd_scan_bwd``, no flash; (c)
+    a falling nll; (d) step time, tokens/s, peak memory and a profiler
+    breakdown of one step, with the SSD backward's share;
+27. ``jamba_train``: jamba-v0.1-52b at full width, its first 2 layers
+    ((mamba, FFN) and (mamba, MoE of 16 experts top-2), 3.73e9 parameters,
+    59.7 GB), as phase 26, the MoE's routes held to the plain run's in
+    (a): the SSD backward at N 16 and 128 heads, the first MoE training on
+    the card;
+28. summary: the ``kernels`` line, the peak device memory, the
     ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.
 
 Each LM is freed before the next is drawn.  The launch counts are set to
-0 just before each main-path run (phases 2-7, 10-24, and llama_train's
-run and resumed step) and read just after it; the ``kernels`` line adds
-those counts.  llama_train's first-step comparison and profiled step
-verify: their launches stay in its line.  The decode checks'
+0 just before each main-path run (phases 2-7, 10-24, llama_train's run
+and resumed step, and the runs of phases 26-27) and read just after it;
+the ``kernels`` line adds those counts.  The training phases' first-step
+comparisons and profiled steps verify: their launches stay in their
+lines.  The decode checks'
 prefills (phases 11, 13, 15, 18, 20, 22 and 24) verify: their launches
 stay in their phase's line (``prefill_check_launches``).  Each example
 process counts its own from 0, and phase 8 runs no device work.
@@ -202,7 +230,9 @@ REPLACES = {"composite": "src/repro/kernels/composite.py:53",
             "ssd_scan": "src/repro/kernels/ssd_scan.py:75",
             # no TPU kernel: off the TPU the JAX package differentiates its
             # plain attention (src/repro/kernels/ops.py:47-50) there
-            "flash_attention_bwd": "src/repro/train/train_step.py:66"}
+            "flash_attention_bwd": "src/repro/train/train_step.py:66",
+            # the same for its plain SSD (src/repro/kernels/ops.py:86-102)
+            "ssd_scan_bwd": "src/repro/train/train_step.py:66"}
 TIMED_RUNS = 10
 LLAMA = "llama3-8b"
 MAMBA = "mamba2-2.7b"
@@ -373,10 +403,14 @@ def phase_device(torch, build) -> dict:
     # cores (the SSD's c.b kernel is bf16 only)
     tensor_ops = {s: tensor_core_instructions(build, s)
                   for s in ("flash_attention", "flash_attention_bwd",
-                            "ssd_scan")}
+                            "ssd_scan", "ssd_scan_bwd")}
     for source, counts in tensor_ops.items():
+        # the SSD backward's kernels are templated on the element type; its
+        # fixed-order sums of the partials (reduce) have no products
         bf16 = {n: k for n, k in (counts or {}).items()
-                if "bf16" in n or "_cb" in n}
+                if ("bf16" in n or "_cb" in n) or (
+                    source == "ssd_scan_bwd" and "bfloat16" in n
+                    and "reduce" not in n)}
         check(counts is None or (bool(bf16) and all(bf16.values())),
               f"{source}.cu: a bf16 kernel has no HMMA/HGMMA: {counts}")
     src = torch.empty(COPY_BYTES, dtype=torch.uint8, device="cuda")
@@ -1097,12 +1131,182 @@ def phase_ssd(torch, seed: int, copy_rate: float) -> dict:
             "seconds": time.perf_counter() - t0, "results": cases}
 
 
+# name, (B, L, H, P, N), dtype, b and c one group (G = 1, else one per
+# head), D-skip, inputs (as SSD_CASES), timed runs.  The main path is one
+# mamba2-2.7b layer of the mamba_train phase (2 x 4096 tokens), in bf16 and
+# f32; then one jamba-v0.1-52b mamba sublayer of jamba_train (128 heads, N
+# 16), the serving path's mamba layer (SSD_CASES' main path), the small
+# shapes of tests/test_kernels.py:137-141 in f32 and bf16, ragged lengths,
+# b and c per head, and a strongly decaying head
+SSD_BWD_CASES = [
+    ("main_path", (2, 4096, 80, 64, 128), "bfloat16", True, True, "model",
+     TIMED_RUNS),
+    ("train_layer_f32", (2, 4096, 80, 64, 128), "float32", True, True,
+     "model", TIMED_RUNS),
+    ("jamba_train_layer", (2, 4096, 128, 64, 16), "bfloat16", True, True,
+     "model", TIMED_RUNS),
+    ("serving_layer", (4, 2048, 80, 64, 128), "bfloat16", True, True,
+     "model", TIMED_RUNS),
+    *[(f"{name}_{dt}", shape, dt, grouped, skip, "normal", 0)
+      for dt in ("float32", "bfloat16")
+      for name, shape, grouped, skip in [
+          ("p16_n8", (2, 128, 4, 16, 8), False, False),
+          ("p32_n16", (1, 256, 8, 32, 16), True, True),
+          ("p64_n128", (2, 64, 2, 64, 128), True, True),
+          ("p128_n128", (1, 192, 2, 128, 128), True, True)]],
+    ("ragged_1", (1, 1, 3, 64, 128), "float32", True, True, "normal", 0),
+    ("ragged_63", (2, 63, 4, 32, 16), "bfloat16", True, True, "normal", 0),
+    ("ragged_1000", (1, 1000, 2, 64, 128), "float32", True, True, "normal",
+     0),
+    ("per_head_bc", (4, 512, 80, 64, 128), "bfloat16", False, True, "model",
+     0),
+    ("strong_decay", (1, 2048, 4, 64, 128), "float32", True, True, "strong",
+     0),
+    ("strong_decay_bf16", (1, 2048, 4, 64, 128), "bfloat16", True, True,
+     "strong", 0),
+]
+#: the backward's six gradients (dx, ddt, da, db, dc, dd) against
+#: ref.ssd_scan_bwd: max-abs error within SSD_BWD_TOL x max(1, the largest
+#: |value|) (the forward's SSD_TOL, scaled as BWD_TOL is for attention) and
+#: relative L2 over max(1, |ref|) within SSD_BWD_REL_L2.  f32: the orders of
+#: the sums, and of the cumulative sum whose f32 rounding enters exp() (it
+#: reaches several hundred at a = -80): SSD_REL_L2's f32 limit.  bf16: each
+#: gradient rounded to bf16 once on both sides and the kernel's operands
+#: that are not inputs split hi + lo; the CPU model of that arithmetic
+#: stays under a fifth of the limit, one rounding of those operands passes
+#: it (tests/test_torch_ssd_bwd.py:
+#: test_one_bf16_rounding_would_miss_the_relative_l2_gate)
+SSD_BWD_TOL = {"float32": 5e-4, "bfloat16": 2e-2}
+SSD_BWD_REL_L2 = {"float32": 1e-4, "bfloat16": 2e-3}
+SSD_GRADS = ("dx", "ddt", "da", "db", "dc", "dd")
+
+
+def ssd_bwd_bound(shape, x_bytes: int, grouped: bool, skip: bool,
+                  chunk: int):
+    """Bytes and operations the backward needs, and the least time: x, dy,
+    dt, a, d and the distinct b and c read once, dx, ddt, da, dd, db and dc
+    written once; the operations at the kernel's chunk (``chunk``,
+    kernels/ssd_scan.py:CHUNK), on the causal pairs only, per chunk of q
+    tokens and head 2q(q+1)(P + N) (dW = dy xᵀ, Wᵀ dy, dCB b, dCBᵀ c) and
+    10qNP (the state recompute, dSᵀ b, S_in dy, dS x and dS_in), and c·b
+    once per group, q(q+1)N; at the inputs' type's peak.  A smaller chunk
+    needs fewer pair products (down to the 10NP state terms a token), so
+    in f32, where the operations bound it, the function's own least time
+    is lower still."""
+    B, L, H, P, N = shape
+    groups = 1 if grouped else H
+    bc = 2 * B * L * N * groups * x_bytes
+    nbytes = (3 * B * L * H * P * x_bytes + 2 * B * L * H * 4 + 2 * bc
+              + (3 if skip else 2) * H * 4 + (H * 4 if skip else 0))
+    ops = 0
+    for q0 in range(0, L, chunk):
+        q = min(chunk, L - q0)
+        ops += (H * (2 * q * (q + 1) * (P + N) + 10 * q * N * P)
+                + groups * q * (q + 1) * N)
+    ops *= B
+    peak = PEAK_BF16_OPS_PER_S if x_bytes == 2 else PEAK_F32_OPS_PER_S
+    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    ops_ms = ops / peak * 1e3
+    return nbytes, ops, max(bytes_ms, ops_ms), (
+        "bytes" if bytes_ms >= ops_ms else "operations")
+
+
+def hold_ssd_bwd(torch, got, want, xd: str, what: str):
+    """Each gradient within SSD_BWD_TOL and SSD_BWD_REL_L2 -> (errors,
+    limits, relative L2s), by gradient."""
+    errs, limits, l2s = {}, {}, {}
+    for name, a, w in zip(SSD_GRADS, got, want):
+        if w is None:
+            check(a is None, f"ssd_bwd {what} {name}: expected None")
+            continue
+        check(a.shape == w.shape and a.dtype == w.dtype
+              and a.is_contiguous(), f"ssd_bwd {what} {name}: shape/dtype")
+        check(bool(torch.isfinite(a).all()),
+              f"ssd_bwd {what} {name}: non-finite")
+        limits[name] = SSD_BWD_TOL[xd] * max(1.0,
+                                             float(w.float().abs().max()))
+        errs[name] = float((a.float() - w.float()).abs().max())
+        l2s[name] = float((a.double() - w.double()).norm()) / max(
+            1.0, float(w.double().norm()))
+        check(errs[name] <= limits[name],
+              f"ssd_bwd {what} {xd} {name}: max abs error {errs[name]} > "
+              f"{limits[name]}")
+        check(l2s[name] <= SSD_BWD_REL_L2[xd],
+              f"ssd_bwd {what} {xd} {name}: relative L2 {l2s[name]} > "
+              f"{SSD_BWD_REL_L2[xd]}")
+    return errs, limits, l2s
+
+
+def phase_ssd_bwd(torch, seed: int, copy_rate: float) -> dict:
+    """The SSD backward kernel against ``ref.ssd_scan_bwd`` on the card,
+    each of its six gradients held to SSD_BWD_TOL and SSD_BWD_REL_L2; the
+    timed cases beside their bound and the plain version (no single
+    PyTorch call computes it); the main case twice more, all six
+    gradients bit-identical."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ssd_scan as kssd
+
+    t0 = time.perf_counter()
+    cases = []
+    for i, (name, shape, xd, grouped, skip, kind, runs) in enumerate(
+            SSD_BWD_CASES):
+        dtype = getattr(torch, xd)
+        g = torch.Generator(device="cuda").manual_seed(seed * 1000 + 700 + i)
+        x, dt, a, b, c, d = ssd_inputs(torch, shape, dtype, grouped, skip,
+                                       kind, g)
+        if grouped:  # unexpanded, as SsdScanFn takes them
+            b, c = b[:, :, :1], c[:, :, :1]
+        dy = torch.randn(x.shape, generator=g, device="cuda", dtype=dtype)
+        got = kssd.ssd_scan_bwd(x, dt, a, b, c, dy, d)
+        want = ref.ssd_scan_bwd(x, dt, a, b, c, dy, d)
+        torch.cuda.synchronize()
+        errs, limits, l2s = hold_ssd_bwd(torch, got, want, xd, name)
+        del got, want
+        B, L, H, P, N = shape
+        nbytes, ops, bound_ms, bound_by = ssd_bwd_bound(
+            shape, x.element_size(), grouped, skip, kssd.CHUNK)
+        worst = max(errs, key=lambda k: errs[k] / limits[k])
+        case = {"name": name, "shape": [B, L, H, P, N], "dtype": xd,
+                "groups": b.shape[2], "d_skip": skip, "inputs": kind,
+                "max_abs_err": errs[worst], "max_abs_limit": limits[worst],
+                "max_abs_errs": errs, "max_abs_limits": limits,
+                "tol": SSD_BWD_TOL[xd], "rel_l2": l2s,
+                "rel_l2_limit": SSD_BWD_REL_L2[xd], "runs": runs,
+                "bytes": nbytes, "operations": ops, "bound_ms": bound_ms,
+                "bound_by": bound_by,
+                "finite": True}
+        if name == "main_path":
+            first = kssd.ssd_scan_bwd(x, dt, a, b, c, dy, d)
+            second = kssd.ssd_scan_bwd(x, dt, a, b, c, dy, d)
+            torch.cuda.synchronize()
+            identical = all(torch.equal(u, v) for u, v in zip(first, second))
+            check(identical, f"ssd_bwd {name}: two runs differ")
+            case["identical_across_runs"] = identical
+            del first, second
+        if runs:
+            ms = median_ms(torch, lambda: kssd.ssd_scan_bwd(
+                x, dt, a, b, c, dy, d), runs=runs, warmup=1)
+            plain_ms = median_ms(torch, lambda: ref.ssd_scan_bwd(
+                x, dt, a, b, c, dy, d), runs=runs, warmup=1)
+            case.update({"ms": ms, "plain_ms": plain_ms, "library_ms": None,
+                         "library": "none: no single PyTorch call",
+                         "copy_bound_ms": nbytes / copy_rate * 1e3,
+                         "flop_per_s": ops / (ms * 1e-3)})
+        cases.append(case)
+        emit({"phase": "kernels.case", "kernel": "ssd_scan_bwd", **case})
+        del x, dt, a, b, c, d, dy
+        torch.cuda.empty_cache()
+    return {"phase": "kernels.ssd_scan_bwd", "cases": len(cases),
+            "seconds": time.perf_counter() - t0, "results": cases}
+
+
 #: kernel group (and source, csrc/<group>.cu) -> a substring of the name of
 #: every CUDA kernel in that source (checked in phase 0): the SSD's c.b
 #: kernel and scan both fall in the ssd_scan group
 KERNEL_SYMBOLS = {"flash_attention": "flash_attention_kernel",
                   "flash_attention_bwd": "flash_bwd_",
-                  "ssd_scan": "ssd_scan_kernel"}
+                  "ssd_scan": "ssd_scan_kernel",
+                  "ssd_scan_bwd": "ssd_bwd_"}
 
 
 #: the MoE's steps (``repro_torch.models.moe``), timed one by one in a
@@ -2050,9 +2254,14 @@ def held_layers(torch, model, params, inputs, expected: dict) -> dict:
 
 
 def plain_ssd(x, dt, a, b, c, *, d_skip=None):
+    """The chunked plain version; b and c, one group [B, L, 1, N] as the
+    model hands them to ops.ssd, expanded to every head."""
     from repro_torch.kernels import ref
+    from repro_torch.kernels.ssd_scan import expand_heads
 
-    return ref.ssd_scan_chunked(x, dt, a, b, c, chunk=SSD_CHUNK,
+    H = x.shape[2]
+    return ref.ssd_scan_chunked(x, dt, a, expand_heads(b, H),
+                                expand_heads(c, H), chunk=SSD_CHUNK,
                                 d_skip=d_skip)
 
 
@@ -2318,14 +2527,14 @@ def phase_generate(torch, seed: int, backend, model, params,
             "seconds": time.perf_counter() - t0}
 
 
-def train_args(seed: int, **change) -> argparse.Namespace:
-    """launch.train's command line for the llama_train phase: the corpus
-    in memory, a checkpoint (raw chunks) at the last step, every step
+def train_args(seed: int, arch: str = LLAMA, **change) -> argparse.Namespace:
+    """launch.train's command line for a training phase: the corpus in
+    memory, a checkpoint (raw chunks) at the last step, every step
     logged."""
     from repro_torch.launch import train as ptrain
 
     args = ptrain.parser().parse_args([
-        "--arch", LLAMA, "--variant", "full", "--steps", str(TRAIN_STEPS),
+        "--arch", arch, "--variant", "full", "--steps", str(TRAIN_STEPS),
         "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
         "--lr", str(TRAIN_LR), "--warmup", str(TRAIN_WARMUP),
         "--seed", str(seed), "--ckpt-every", str(TRAIN_STEPS),
@@ -2564,6 +2773,261 @@ def phase_llama_train(torch, seed: int, backend) -> dict:
             "seconds": time.perf_counter() - t0}
 
 
+#: the SSM training phases: arch, and the config's changes that cut its
+#: depth.  mamba2-2.7b at full width and depth: 2.70e9 parameters, f32
+#: masters, gradients and two f32 moments, 43.2 GB.  jamba-v0.1-52b at full
+#: width cut to the first 2 layers of its layer_plan, (mamba, FFN) and
+#: (mamba, MoE of 16 experts top-2): 3.73e9 parameters, 59.7 GB.  A hybrid's
+#: depth is a whole number of super-blocks (transformer.num_blocks), so the
+#: cut is one super-block of period 2, whose attention offset (4) never
+#: comes; the attention sublayer would need 5 layers, which do not fit
+SSM_TRAIN = {"mamba": (MAMBA, {}),
+             "jamba": (JAMBA, {"num_layers": 2, "attn_layer_period": 2})}
+#: where the bf16 plain SSD chunked at the kernels' chunk and at SSD_CHUNK
+#: disagree past TRAIN_LOSS_RTOL or TRAIN_GRAD_REL_L2 at depth (mamba2's 64
+#: layers: 0.159 on its worst leaf, PERF.md §6), the bf16 kernel step is
+#: held to this multiple of their spread instead (loss, and each leaf's
+#: worst and median relative L2), and the kernel to the gates in f32.  Two
+#: plain versions that differ only in their chunking measure how far one
+#: rounding's difference grows through the layers; a kernel step within
+#: twice that of the plain one is as close as another plain version, where
+#: a wrong term of the gradient moves its leaves by their own size
+SPREAD_MULTIPLE = 2.0
+
+
+@contextlib.contextmanager
+def plain_ssd_at(chunk: int):
+    """Inside, every ops.ssd call runs the plain chunked version at
+    ``chunk`` (under autograd, autograd differentiates it)."""
+    from repro_torch.kernels import ops
+
+    def wrap(ssd):
+        def plain(*args, impl="auto", **kw):
+            return ssd(*args, **{**kw, "impl": "chunked", "chunk": chunk})
+        return plain
+
+    with patched(ops, "ssd", wrap):
+        yield
+
+
+class NoCheckpoints:
+    """launch.train's checkpoint manager, saving nothing: the SSM training
+    phases hold no checkpoint (llama_train holds save and restore; a 43 GB
+    save would cost ~120 s of the run)."""
+
+    def save_async(self, step, state):
+        pass
+
+    def wait(self):
+        pass
+
+    def latest_step(self):
+        return None
+
+    def steps(self):
+        return []
+
+
+def spread_limit(gate: float, spread: float) -> float:
+    """The limit of a first-step reading whose two plain versions are
+    ``spread`` apart: the gate where they agree within it, else
+    SPREAD_MULTIPLE times their spread."""
+    return gate if spread < gate else SPREAD_MULTIPLE * spread
+
+
+def phase_ssm_train(torch, seed: int, backend, which: str) -> dict:
+    """An SSM or hybrid LM (SSM_TRAIN) trained through launch.train's code
+    path on the card: (a) the first step's loss and every gradient in bf16
+    against the same step with the plain SSD under autograd, chunked as
+    the kernels chunk, within TRAIN_LOSS_RTOL and TRAIN_GRAD_REL_L2 where
+    the plain SSD chunked at SSD_CHUNK agrees with it within them at this
+    depth, else within SPREAD_MULTIPLE times that spread and, in f32, where
+    the plain versions agree, within the gates (an MoE's routes held to the
+    first plain run's, as held_routes does for the prefill); (b) the SSD's
+    launches per step: forward, remat recompute, backward in each mamba
+    layer; (c) a falling nll over TRAIN_STEPS steps; (d) step time,
+    tokens/s, peak memory and a profiler breakdown of one step."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenDataset, write_corpus
+    from repro_torch.kernels import ssd_scan as kssd
+    from repro_torch.launch import train as ptrain
+    from repro_torch.models import build
+    from repro_torch.models.transformer import layer_plan
+    from repro_torch.train import make_train_step
+    from repro_torch.train import optimizer as opt_mod
+
+    t0 = time.perf_counter()
+    arch, cut = SSM_TRAIN[which]
+    cfg = dataclasses.replace(get_config(arch), **cut)
+    check(cfg.dtype == "bfloat16" and cfg.remat
+          and cfg.remat_policy == "full", f"{which}_train config {cfg}")
+    plan = layer_plan(cfg)
+    mamba = sum(m == "mamba" for m, _ in plan)
+    attn = sum(m == "attn" for m, _ in plan)
+    moe = any(f == "moe" for _, f in plan)
+    per_step = {"ssd_scan": 2 * mamba, "ssd_scan_bwd": mamba,
+                "flash_attention": 2 * attn, "flash_attention_bwd": attn}
+    args = train_args(seed, arch=arch)
+    cs = ptrain.make_store(None)
+    spec = ptrain.corpus_spec(args, cfg)
+    write_corpus(cs, spec)
+    first = next(TokenDataset(cs, spec).batches(args.batch, args.seq))
+    batch = {k: torch.as_tensor(first[k]).cuda() for k in ("tokens",
+                                                          "labels")}
+    torch.cuda.reset_peak_memory_stats()
+
+    # (a) the first step: kernel against the plain chunked SSD
+    params = build(cfg).init(seed, param_dtype=torch.float32)
+    names = leaf_names(params)
+    n_params = sum(t.numel() for t in opt_mod.tree_leaves(params))
+
+    def grads(dtype: str, chunk: Optional[int], routes=None):
+        """(loss, gradients, launches, routes recorded) of one step in
+        ``dtype`` activations; ``chunk``: the plain SSD at that chunk
+        (None: the kernel); ``routes``: the MoE held to them."""
+        model = build(dataclasses.replace(cfg, dtype=dtype))
+        with contextlib.ExitStack() as stack:
+            if chunk:
+                stack.enter_context(plain_ssd_at(chunk))
+            seen = stack.enter_context(recorded_routes())
+            if routes is not None:
+                stack.enter_context(held_routes(routes))
+            backend.reset_launch_counts()
+            (loss, g), seconds = synced(torch, lambda: first_step_grads(
+                torch, model, params, batch))
+            launches = backend.launch_counts()
+        return loss, g, launches, (seen if routes is None else routes), \
+            seconds
+
+    chunks = (kssd.CHUNK, SSD_CHUNK)
+
+    def compare(dtype: str):
+        """The plain step at the kernels' chunk, the kernel step and the
+        plain step at SSD_CHUNK against it (routes held to the first), and
+        each reading's limit (spread_limit)."""
+        loss_p, g_p, _, routes, plain_s = grads(dtype, chunks[0])
+        loss_k, g_k, launches, _, kernel_s = grads(dtype, None, routes)
+        kernel = grads_diff(torch, g_k, g_p, names)
+        del g_k
+        loss_q, g_q, _, _, _ = grads(dtype, chunks[1], routes)
+        spread = grads_diff(torch, g_q, g_p, names)
+        del g_q, g_p
+        torch.cuda.empty_cache()
+        loss_spread = abs(loss_q - loss_p) / abs(loss_p)
+        return {"dtype": dtype, "loss": loss_k, "plain_loss": loss_p,
+                "loss_rel": abs(loss_k - loss_p) / abs(loss_p),
+                "grads_vs_plain": kernel,
+                "plain_spread": {"chunks": list(chunks),
+                                 "loss_rel": loss_spread, "grads": spread},
+                "limits": {
+                    "loss_rel": spread_limit(TRAIN_LOSS_RTOL, loss_spread),
+                    **{k: spread_limit(TRAIN_GRAD_REL_L2, spread[k])
+                       for k in ("max_rel_l2", "median_rel_l2")}},
+                "check_launches": launches, "kernel_step_s": kernel_s,
+                "plain_step_s": plain_s,
+                "routes_held": moe}
+
+    def agree(c) -> bool:
+        return (c["plain_spread"]["loss_rel"] < TRAIN_LOSS_RTOL
+                and c["plain_spread"]["grads"]["max_rel_l2"]
+                < TRAIN_GRAD_REL_L2)
+
+    checked = [compare("bfloat16")]
+    if not agree(checked[0]):
+        # the bf16 plain versions disagree past the gates at this depth:
+        # the kernel is held to the gates in f32, where they agree
+        checked.append(compare("float32"))
+    held = checked[-1]
+    check(agree(held), f"{which}_train: the plain versions disagree in "
+          f"{held['dtype']}: {held['plain_spread']}")
+    for c in checked:
+        what = f"{which}_train first step, {c['dtype']}"
+        check(all(c["check_launches"][k] == n for k, n in per_step.items()),
+              f"{what}: launches {c['check_launches']}, expected {per_step}")
+        check(c["loss_rel"] < c["limits"]["loss_rel"],
+              f"{what}: loss {c['loss']} against plain {c['plain_loss']}, "
+              f"limit {c['limits']['loss_rel']}")
+        check(all(c["grads_vs_plain"][k] < c["limits"][k]
+                  for k in ("max_rel_l2", "median_rel_l2")),
+              f"{what}: gradients against plain {c['grads_vs_plain']}, "
+              f"limits {c['limits']}")
+    del params
+    torch.cuda.empty_cache()
+    peak_check = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+
+    # (b), (c): the run, each step timed from a synchronise to a synchronise
+    step_s = []
+
+    def timed(make):
+        def make_timed(*a, **kw):
+            step = make(*a, **kw)
+
+            def call(*step_args):
+                out, seconds = synced(torch, lambda: step(*step_args))
+                step_s.append(seconds)
+                return out
+            return call
+        return make_timed
+
+    backend.reset_launch_counts()
+    with patched(ptrain, "make_train_step", timed), \
+            patched(ptrain, "checkpoints", lambda _: lambda *a: NoCheckpoints()), \
+            patched(ptrain, "state_to_numpy", lambda _: lambda *a: None):
+        out, run_s = synced(torch, lambda: ptrain.run(args, cfg, cs))
+    launches = backend.launch_counts()
+    check(all(launches[k] == n * TRAIN_STEPS for k, n in per_step.items()),
+          f"{which}_train run: launches {launches}")
+    hist = out["history"]
+    nll = [h["nll"] for h in hist]
+    check(len(nll) == TRAIN_STEPS and all(np.isfinite(nll)),
+          f"{which}_train: nll {nll}")
+    check(nll[-1] < nll[0], f"{which}_train: nll did not fall: {nll}")
+    peak_train = torch.cuda.max_memory_allocated()
+
+    # (d) one more step under the profiler
+    params, state = out["params"], out["opt_state"]
+    del out
+    step = make_train_step(build(cfg), ptrain.optimizer_config(args))
+
+    def one_step():
+        nonlocal params, state
+        params, state, _ = step(params, state, batch)
+
+    breakdown = profile_breakdown(torch, one_step, runs=1)
+    del params, state, step
+    torch.cuda.empty_cache()
+    device_ms = breakdown.get("device_ms_per_run", {})
+    busy = breakdown.get("busy_ms_per_run")
+    steady = sorted(step_s[1:])
+    step_ms = statistics.median(steady) * 1e3
+    return {"phase": f"{which}_train", "arch": cfg.arch_id,
+            "layers": cfg.num_layers,
+            "full_layers": get_config(arch).num_layers,
+            "layer_plan": [list(p) for p in plan],
+            "mamba_layers": mamba, "attention_layers": attn, "moe": moe,
+            "parameters": n_params, "batch": [TRAIN_BATCH, TRAIN_SEQ],
+            "steps": TRAIN_STEPS, "lr": TRAIN_LR, "warmup": TRAIN_WARMUP,
+            "dtype": cfg.dtype, "masters": "float32", "moments": args.moments,
+            "remat": cfg.remat_policy, "corpus_vocab": spec.vocab_size,
+            "launches": launches, "launches_per_step": per_step,
+            "first_step": {"held_in": held["dtype"], "checked": checked,
+                           "loss_rtol": TRAIN_LOSS_RTOL,
+                           "grad_rel_l2_limit": TRAIN_GRAD_REL_L2,
+                           "spread_multiple": SPREAD_MULTIPLE},
+            "nll": nll, "history": hist, "run_s": run_s,
+            "step_s": step_s, "step_ms": step_ms,
+            "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / (step_ms * 1e-3),
+            "step_breakdown": breakdown,
+            "ssd_bwd_share_of_busy": (device_ms.get("ssd_scan_bwd", 0.0)
+                                      / busy if busy else None),
+            "peak_check_bytes": peak_check,
+            "peak_train_bytes": peak_train,
+            "peak_device_bytes": max(peak_check, peak_train,
+                                     torch.cuda.max_memory_allocated()),
+            "seconds": time.perf_counter() - t0}
+
+
 def kernel_line(name: str, results, tol, launches: int) -> dict:
     """One kernel's entry in the ``kernels`` line: its main-path case's
     times and bound, its f32 cases' largest error and the limit that case
@@ -2617,6 +3081,8 @@ def main() -> int:
     emit({k: v for k, v in flash_bwd.items() if k != "results"})
     ssd = phase_ssd(torch, args.seed, device["copy_bytes_per_s"])
     emit({k: v for k, v in ssd.items() if k != "results"})
+    ssd_bwd = phase_ssd_bwd(torch, args.seed, device["copy_bytes_per_s"])
+    emit({k: v for k, v in ssd_bwd.items() if k != "results"})
     tile = phase_tile(torch, args.seed, backend)
     emit(tile)
     campaign, cs, names = phase_campaign(torch, args.seed, backend)
@@ -2657,11 +3123,17 @@ def main() -> int:
     emit(train)
     lm_lines.append(train)
     peak = max(peak, train["peak_device_bytes"])
+    for which in SSM_TRAIN:
+        train = phase_ssm_train(torch, args.seed, backend, which)
+        emit(train)
+        lm_lines.append(train)
+        peak = max(peak, train["peak_device_bytes"])
 
     def lm_launches(kernel: str) -> int:
-        """The main paths' launches: each served prefill and generate run;
-        not the decode checks' prefills, which verify."""
-        return sum(ln["launches"][kernel] for ln in lm_lines)
+        """The main paths' launches: each served prefill and generate run
+        and each training run; not the decode checks' prefills nor the
+        first-step comparisons, which verify."""
+        return sum(ln["launches"].get(kernel, 0) for ln in lm_lines)
 
     emit({"kernels": [
         kernel_line("composite", kernels["results"], TOL,
@@ -2675,7 +3147,9 @@ def main() -> int:
         kernel_line("flash_attention_bwd", flash_bwd["results"], BWD_TOL,
                     lm_launches("flash_attention_bwd")),
         kernel_line("ssd_scan", ssd["results"], SSD_TOL,
-                    lm_launches("ssd_scan"))]})
+                    lm_launches("ssd_scan")),
+        kernel_line("ssd_scan_bwd", ssd_bwd["results"], SSD_BWD_TOL,
+                    lm_launches("ssd_scan_bwd"))]})
     emit({"max_memory_allocated": max(peak,
                                       torch.cuda.max_memory_allocated())})
     print(device["nvidia_smi"], flush=True)

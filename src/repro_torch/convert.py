@@ -122,7 +122,8 @@ def _block_leaves(cfg: ModelConfig
     each port layer that takes a slice of the leaf: (layer, the slice's
     index)).  A dense, moe or ssm leaf stacks the layers on axis 0.  A
     hybrid super-block of P sublayers (``nb`` of them) stacks ``attn/*``
-    as [nb, ...] (the sublayer at ``attn_layer_offset``), ``mamba/*``,
+    as [nb, ...] (the sublayer at ``attn_layer_offset``, none where the
+    offset is P or more), ``mamba/*``,
     ``ffn/*`` and ``moe/*`` as [nb, n, ...] over the n sublayers of that
     kind in order, and ``norm_mix/*``, ``norm_ffn/*`` as [nb, P, ...]."""
     from repro_torch.models.transformer import layer_plan, num_blocks
@@ -146,7 +147,10 @@ def _block_leaves(cfg: ModelConfig
                  for j, sub in enumerate(subs[kind])]
         for k, s in shapes.items():
             out[f"{kind}/{k}"] = ((nb, len(subs[kind])) + s, where)
-    for k, s in _mixer_shapes(cfg, "attn").items():
+    # a super-block cut shorter than its attention offset (a depth cut of
+    # the hybrid to its first mamba sublayers) has no attention leaves
+    for k, s in (_mixer_shapes(cfg, "attn").items()
+                 if cfg.attn_layer_offset < period else ()):
         out[f"attn/{k}"] = ((nb,) + s, [(b * period + cfg.attn_layer_offset,
                                          (b,)) for b in range(nb)])
     for name in ("norm_mix", "norm_ffn"):

@@ -17,6 +17,10 @@ SSD kernel, ``"chunked"`` and ``"ref"`` its plain versions, and ``"auto"``
 launches the kernel for CUDA tensors and, for CPU tensors, takes
 ``"chunked"`` where ``chunk`` divides L and ``"ref"`` otherwise, as
 ``repro/kernels/ops.py`` does off the TPU.
+
+Where autograd records (grad mode on and an input requires grad), the
+kernels run through their ``autograd.Function``: ``FlashAttentionFn`` and
+``SsdScanFn``, whose backwards are the hand-written backward kernels.
 """
 
 from __future__ import annotations
@@ -80,16 +84,28 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
         c: torch.Tensor, *, d_skip: torch.Tensor | None = None,
         impl: str = "auto", chunk: int = 128) -> torch.Tensor:
     """Mamba-2 SSD scan: x [B,L,H,P], dt [B,L,H], a [H], b/c [B,L,H,N] ->
-    [B,L,H,P] (see ``ref.ssd_scan``).  ``chunk`` is the plain chunked
-    version's; the kernel takes any L."""
+    [B,L,H,P] (see ``ref.ssd_scan``).  b and c may also be [B,L,1,N], one
+    group shared by every head: the plain versions take it expanded (stride
+    0), and under autograd the kernel's backward sums its gradient over the
+    heads.  ``chunk`` is the plain chunked version's; the kernel takes any
+    L."""
     if impl not in JAX_IMPLS:
         raise ValueError(f"impl={impl!r} not in {JAX_IMPLS}")
+    H = x.shape[2]
+    if b.dim() != 4 or b.shape[2] not in (1, H) or c.shape != b.shape:
+        raise ValueError(f"b {tuple(b.shape)} and c {tuple(c.shape)} must "
+                         f"be [B, L, H={H} or 1, N]")
     if impl == "auto":
         impl = "pallas" if x.is_cuda else (
             "chunked" if x.shape[1] % chunk == 0 else "ref")
+    bh, ch = ssd_kernel.expand_heads(b, H), ssd_kernel.expand_heads(c, H)
     if impl == "chunked":
-        return ref.ssd_scan_chunked(x, dt, a, b, c, chunk=chunk,
+        return ref.ssd_scan_chunked(x, dt, a, bh, ch, chunk=chunk,
                                     d_skip=d_skip)
     if impl == "ref":
-        return ref.ssd_scan(x, dt, a, b, c, d_skip=d_skip)
-    return ssd_kernel.ssd_scan(x, dt, a, b, c, d_skip=d_skip)
+        return ref.ssd_scan(x, dt, a, bh, ch, d_skip=d_skip)
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad
+            for t in (x, dt, a, b, c, d_skip)):
+        return ssd_kernel.SsdScanFn.apply(x, dt, a, b, c, d_skip)
+    return ssd_kernel.ssd_scan(x, dt, a, bh, ch, d_skip=d_skip)

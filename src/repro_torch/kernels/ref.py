@@ -291,11 +291,15 @@ def ssd_scan_chunked(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     total = cum[:, :, -1, :]                             # [B, nc, H]
 
     # intra-chunk: L_ij = exp(cum_i - cum_j) for i >= j, selected (the
-    # exponent is positive above the diagonal and may overflow)
+    # exponent is positive above the diagonal and may overflow).  The
+    # exponent is selected to 0 there first as well: autograd through
+    # where(mask, exp(diff), 0) multiplies an inf by 0 (NaN in ddt and da),
+    # as jax.vjp of the JAX package's version does
     diff = cum[:, :, :, None, :] - cum[:, :, None, :, :]  # [B,nc,Q,Q,H]
     mask = torch.ones((chunk, chunk), dtype=torch.bool,
                       device=x.device).tril()[None, None, :, :, None]
-    l_mat = torch.where(mask, torch.exp(diff), torch.zeros((), device=x.device))
+    zero = torch.zeros((), device=x.device)
+    l_mat = torch.where(mask, torch.exp(torch.where(mask, diff, zero)), zero)
     del diff
     cb = torch.einsum("bzihn,bzjhn->bzijh", cf, bf)     # [B,nc,Q,Q,H]
     w = cb * l_mat * dtf[:, :, None, :, :]
@@ -323,3 +327,121 @@ def ssd_scan_chunked(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     if d_skip is not None:
         y = y + d_skip.float()[None, None, :, None] * x.float()
     return y.to(x.dtype)
+
+
+def ssd_scan_bwd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+                 b: torch.Tensor, c: torch.Tensor, dy: torch.Tensor,
+                 d_skip: torch.Tensor | None = None, chunk: int = 64):
+    """The gradients of :func:`ssd_scan` for the output's gradient ``dy``
+    [B, L, H, P], written out chunk by chunk in f32 (the backward kernel's
+    plain version; Mamba-2's own decomposition, arXiv:2405.21060 §7).
+
+    b and c are [B, L, G, N] with G = H (one per head; expanded views are
+    taken per head, as autograd takes them) or G = 1 (one group shared by
+    every head, whose gradient is the sum over the heads).  Returns (dx,
+    ddt, da, db, dc, dd): dx, db and dc in the inputs' dtype, ddt, da and
+    dd in f32 (dd None without ``d_skip``).  Any L: the last chunk is
+    padded with dt = 0 and x, b, c, dy = 0, which add nothing.
+
+    Per chunk of Q tokens, with cum the inclusive cumulative sum of a·dt,
+    T = cum_Q, L_ij = exp(cum_i − cum_j) (selected to 0 for j > i, where
+    it may overflow), W_ij = (c_i·b_j) L_ij dt_j, e_i = exp(cum_i) and
+    f_j = exp(T − cum_j) dt_j, the forward is
+    y_i = Σ_j W_ij x_j + e_i c_iᵀ S_in + d x_i and
+    S_out = exp(T) S_in + Σ_j f_j b_j x_jᵀ.  The walk from the last chunk
+    to the first carries dS = ∂/∂S_out:
+
+        dS_in  = exp(T) dS + Σ_i e_i c_i dy_iᵀ
+        dW_ij  = dy_i·x_j (j <= i),  dCB = dW ∘ L ∘ dt_j
+        dx_j   = Σ_i W_ij dy_i + f_j dSᵀ b_j + d dy_j
+        dc_i   = Σ_j dCB_ij b_j + e_i S_in dy_i
+        db_j   = Σ_i dCB_ij c_i + f_j dS x_j
+        df_j   = b_jᵀ dS x_j
+
+    and every exponent adds to d(cum): Σ_j dW_ij W_ij to row i and minus
+    that column sum to j, e_i c_iᵀ S_in dy_i, −f_j df_j, and to cum_Q
+    exp(T)⟨S_in, dS⟩ + Σ_j f_j df_j.  A reverse cumulative sum over the
+    chunk turns d(cum) into d(a·dt_t) = ds_t, so ddt_t = a ds_t +
+    exp(T − cum_t) df_t + Σ_i dW_it (c_i·b_t) L_it, and da = Σ dt ds."""
+    B, L, H, P = x.shape
+    G, N = b.shape[2], b.shape[3]
+    if G not in (1, H) or c.shape[2] != G:
+        raise ValueError(f"b and c have {G} and {c.shape[2]} heads; need 1 "
+                         f"or H={H}")
+    Q = chunk
+    nc = -(-L // Q)
+    pad = nc * Q - L
+
+    def chunks(t):
+        """[B, L, ...] -> [B, nc, Q, ...] f32, zero past L."""
+        t = torch.nn.functional.pad(t.float(),
+                                    (0, 0) * (t.dim() - 2) + (0, pad))
+        return t.reshape(B, nc, Q, *t.shape[2:])
+
+    xf, dyf = chunks(x), chunks(dy)                 # [B,nc,Q,H,P]
+    bf = chunks(b).expand(B, nc, Q, H, N)           # [B,nc,Q,H,N]
+    cf = chunks(c).expand(B, nc, Q, H, N)
+    dtf = chunks(dt)                                # [B,nc,Q,H]
+    af = a.float()
+    cum = torch.cumsum(af[None, None, None, :] * dtf, dim=2)
+    total = cum[:, :, -1, :]                        # [B,nc,H]
+    mask = torch.ones((Q, Q), dtype=torch.bool,
+                      device=x.device).tril()[None, None, :, :, None]
+    zero = torch.zeros((), device=x.device)
+    l_mat = torch.where(mask, torch.exp(cum[:, :, :, None, :]
+                                        - cum[:, :, None, :, :]), zero)
+    cb_l = torch.einsum("bzihn,bzjhn->bzijh", cf, bf) * l_mat  # c·b L
+    w = cb_l * dtf[:, :, None, :, :]
+    e = torch.exp(cum)                              # [B,nc,Q,H]
+    g = torch.exp(total[:, :, None, :] - cum)
+    f = g * dtf
+
+    # the states entering each chunk, then the adjoints leaving each
+    s_local = torch.einsum("bzjhn,bzjhp->bzhnp", bf * f[..., None], xf)
+    c_dy = torch.einsum("bzihn,bzihp->bzhnp", cf * e[..., None], dyf)
+    decay = torch.exp(total)[..., None, None]       # [B,nc,H,1,1]
+    s_in = torch.empty_like(s_local)
+    d_s = torch.empty_like(s_local)
+    S = torch.zeros((B, H, N, P), dtype=torch.float32, device=x.device)
+    for z in range(nc):
+        s_in[:, z] = S
+        S = S * decay[:, z] + s_local[:, z]
+    S.zero_()
+    for z in reversed(range(nc)):
+        d_s[:, z] = S
+        S = S * decay[:, z] + c_dy[:, z]
+    del s_local, c_dy, S
+
+    dw = torch.where(mask, torch.einsum("bzihp,bzjhp->bzijh", dyf, xf), zero)
+    m = dw * w                                      # dW ∘ W
+    dcb = dw * l_mat * dtf[:, :, None, :, :]
+    del l_mat
+    u = torch.einsum("bzjhp,bzhnp->bzjhn", xf, d_s)  # dS x_j
+    v = torch.einsum("bzihp,bzhnp->bzihn", dyf, s_in)  # S_in dy_i
+    bs = torch.einsum("bzjhn,bzhnp->bzjhp", bf, d_s)   # dSᵀ b_j
+    dx = (torch.einsum("bzijh,bzihp->bzjhp", w, dyf) + f[..., None] * bs)
+    df = (bf * u).sum(-1)                           # [B,nc,Q,H]
+    dc = torch.einsum("bzijh,bzjhn->bzihn", dcb, bf) + e[..., None] * v
+    db = torch.einsum("bzijh,bzihn->bzjhn", dcb, cf) + f[..., None] * u
+    d_total = (decay[..., 0, 0] * (s_in * d_s).sum((-2, -1))
+               + (f * df).sum(2))                   # [B,nc,H]
+    dcum = (m.sum(3) - m.sum(2) + e * (cf * v).sum(-1) - f * df)
+    dcum[:, :, -1] += d_total
+    ds = dcum.flip(2).cumsum(2).flip(2)            # d(a dt_t)
+    ddt = af * ds + g * df + (dw * cb_l).sum(2)
+    da = (dtf * ds).sum((0, 1, 2))
+    del dw, m, dcb, w, cb_l
+
+    def unchunk(t):
+        return t.reshape(B, nc * Q, *t.shape[3:])[:, :L]
+
+    if d_skip is not None:
+        dx = dx + d_skip.float()[None, None, None, :, None] * dyf
+        dd = (dyf * xf).sum((0, 1, 2, 4))
+    else:
+        dd = None
+    db, dc = unchunk(db), unchunk(dc)
+    if G == 1:
+        db, dc = db.sum(2, keepdim=True), dc.sum(2, keepdim=True)
+    return (unchunk(dx).to(x.dtype), unchunk(ddt), da, db.to(b.dtype),
+            dc.to(c.dtype), dd)

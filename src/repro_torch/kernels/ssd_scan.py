@@ -1,5 +1,6 @@
-"""Mamba-2 SSD chunked scan on the card: the ctypes wrapper of
-``csrc/ssd_scan.cu``.
+"""Mamba-2 SSD chunked scan on the card: the ctypes wrappers of
+``csrc/ssd_scan.cu`` (the forward) and ``csrc/ssd_scan_bwd.cu`` (its
+backward).
 
 Replaces the Pallas TPU kernel ``repro/kernels/ssd_scan.py``:
 ``ssd_scan_fwd`` / ``_ssd_kernel``.  Its plain versions are
@@ -17,12 +18,24 @@ four to head-major instead.  Any L >= 1 is taken (the last chunk is
 masked).  The D-skip is applied in f32 inside the kernel, before y is
 rounded to x's dtype.
 
-The wrapper checks shapes, dtypes, strides, alignment and the device, and
-raises on anything the kernel does not take (and, as the kernel has no
-backward yet, under autograd), allocates y (and in bf16 the
-c·b scratch) with ``torch.empty``, launches on the current stream without
-synchronising, raises if the launch is refused, and counts one launch a
-call.
+The backward (no TPU counterpart: the JAX package differentiates its plain
+SSD) has the plain version :func:`repro_torch.kernels.ref.ssd_scan_bwd`.
+It recomputes the state entering every chunk into an f32 workspace, walks
+the chunks from the last to the first with the state's gradient on chip,
+and adds its per-head partial sums in a fixed order (no atomics: all six
+gradients are bit-identical from run to run).  :class:`SsdScanFn` ties the
+two together for autograd.  It takes b and c unexpanded, [B, L, G, N] with
+G = 1 (one group shared by every head, what the model hands over) or G = H,
+expands them to every head (stride 0) for the forward kernel, and returns
+their gradients in that shape, summed over each group's heads inside the
+backward, so no [B, L, H, N] gradient is made.  (Handed the expanded view,
+autograd would sum a per-head gradient over the heads through ``expand``'s
+backward.)
+
+The wrappers check shapes, dtypes, strides, alignment and the device, and
+raise on anything the kernels do not take, allocate outputs and scratch
+with ``torch.empty``, launch on the current stream without synchronising,
+raise if a launch is refused, and count one launch a call.
 """
 
 from __future__ import annotations
@@ -34,7 +47,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.backend import LaunchCounter, refuse_autograd
+from repro_torch.kernels.backend import LaunchCounter
 
 #: P and N the kernel takes: those of tests/test_kernels.py:137-141 and of
 #: the mamba2 and jamba configs
@@ -50,31 +63,34 @@ CP_ASYNC_ALIGN = 16
 CHUNK = 64
 CB_TILE_FLOATS = 10 * 256
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-#: where the SSD's backward kernel stands
-SSD_BACKWARD = ("its backward kernel is the next slice, ROADMAP.md queue 2 "
-                "item 1; until then mamba and jamba train on the CPU only")
+#: the backward walks slices of at most this many columns of P, one thread
+#: block each (csrc/ssd_scan_bwd.cu)
+BWD_SLICE = 64
 
 launches = LaunchCounter("ssd_scan")
+bwd_launches = LaunchCounter("ssd_scan_bwd")
 
 _bind_lock = threading.Lock()
-_bound = None
+_bound = {}
+#: each source's C entry: its pointer and 64-bit integer arguments
+_ARGTYPES = {
+    "ssd_scan": [ctypes.c_void_p] * 8 + [ctypes.c_int64] * 20,
+    "ssd_scan_bwd": [ctypes.c_void_p] * 19 + [ctypes.c_int64] * 23,
+}
 
 
-def _bind():
-    global _bound
+def _bind(name: str = "ssd_scan"):
     with _bind_lock:
-        if _bound is None:
-            lib = build.load("ssd_scan")
-            fn = lib.repro_ssd_scan
-            fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int64] * 6
-                           + [ctypes.c_int64] * 14
-                           + [ctypes.c_int, ctypes.c_void_p])
+        if name not in _bound:
+            lib = build.load(name)
+            fn = getattr(lib, f"repro_{name}")
+            fn.argtypes = _ARGTYPES[name] + [ctypes.c_int, ctypes.c_void_p]
             fn.restype = ctypes.c_int
-            err = lib.repro_ssd_scan_error_string
+            err = getattr(lib, f"repro_{name}_error_string")
             err.argtypes = [ctypes.c_int]
             err.restype = ctypes.c_char_p
-            _bound = (fn, err)
-    return _bound
+            _bound[name] = (fn, err)
+    return _bound[name]
 
 
 def check_inputs(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
@@ -123,7 +139,6 @@ def check_inputs(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     if B > MAX_GRID_YZ or H > MAX_GRID_YZ:
         raise ValueError(f"B={B} and H={H} must be <= {MAX_GRID_YZ}")
     tensors = [x, dt, a, b, c] + ([d_skip] if d_skip is not None else [])
-    refuse_autograd("ssd_scan", tensors, SSD_BACKWARD)
     if x.device.type != "cuda" or any(t.device != x.device for t in tensors):
         raise ValueError(f"the kernel needs every input on one CUDA device, "
                          f"got {sorted({str(t.device) for t in tensors})}")
@@ -171,3 +186,133 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
                            f"{err_string(err).decode()} (cudaError {err})")
     launches.add()
     return y
+
+
+def bwd_slices(P: int) -> int:
+    """Column slices of P the backward walks, one thread block each."""
+    return max(1, P // BWD_SLICE)
+
+
+def check_bwd_inputs(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+                     b: torch.Tensor, c: torch.Tensor, dy: torch.Tensor,
+                     d_skip: Optional[torch.Tensor] = None) -> None:
+    """Raise on anything the backward kernel does not take: the forward's
+    checks on b and c expanded to every head, b and c [B, L, G, N] with
+    G = 1 or H, and dy [B, L, H, P] in x's dtype with stride 1 along P.
+    The device is checked last."""
+    if b.dim() != 4 or c.dim() != 4 or x.dim() != 4:
+        raise ValueError("x must be [B, L, H, P] and b, c [B, L, G, N]")
+    B, L, H, P = x.shape
+    G = b.shape[2]
+    if G not in (1, H) or c.shape != b.shape:
+        raise ValueError(f"b {tuple(b.shape)} and c {tuple(c.shape)} must "
+                         f"be [B, L, G, N] with G = 1 or H={H}")
+    if tuple(dy.shape) != tuple(x.shape) or dy.dtype != x.dtype:
+        raise ValueError(f"dy {tuple(dy.shape)} {dy.dtype} must match x "
+                         f"{tuple(x.shape)} {x.dtype}")
+    if dy.stride(3) != 1:
+        raise ValueError("dy needs stride 1 along P (the wrapper does not "
+                         "copy)")
+    N = b.shape[3]
+    check_inputs(x, dt, a, b.expand(B, L, H, N), c.expand(B, L, H, N),
+                 d_skip)
+    if dy.device != x.device:
+        raise ValueError(f"dy on {dy.device}, x on {x.device}")
+
+
+def bwd_workspace(x: torch.Tensor, N: int):
+    """The backward's f32 scratch for x [B, L, H, P] and state dim N,
+    allocated with ``torch.empty`` (the kernels write every element they
+    read): the states entering each chunk [B, H, ceil(L / CHUNK), N, P],
+    the per-(head, slice) partials of db and dc [B, L, H, S, N] and of ddt
+    [B, L, H, S], and of da and dd [B, H, S], S = ``bwd_slices(P)``."""
+    B, L, H, P = x.shape
+    S = bwd_slices(P)
+    f32 = dict(dtype=torch.float32, device=x.device)
+    return (torch.empty((B, H, -(-L // CHUNK), N, P), **f32),
+            torch.empty((B, L, H, S, N), **f32),
+            torch.empty((B, L, H, S, N), **f32),
+            torch.empty((B, L, H, S), **f32),
+            torch.empty((B, H, S), **f32), torch.empty((B, H, S), **f32))
+
+
+def bwd_call_args(x, dt, a, b, c, dy, d_skip, outs, work) -> tuple:
+    """The C entry's arguments: inputs, the outputs (dx, ddt, da, db, dc,
+    dd), the workspace, sizes, strides, dtype and the current stream."""
+    B, L, H, P = x.shape
+    G, N = b.shape[2], b.shape[3]
+    ptr = (lambda t: 0 if t is None else t.data_ptr())
+    return (x.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(),
+            c.data_ptr(), ptr(d_skip), dy.data_ptr(), *map(ptr, outs),
+            *(t.data_ptr() for t in work), B, L, H, G, P, N,
+            x.stride(0), x.stride(1), x.stride(2),
+            dt.stride(0), dt.stride(1), dt.stride(2), a.stride(0),
+            b.stride(0), b.stride(1), b.stride(2),
+            c.stride(0), c.stride(1), c.stride(2),
+            d_skip.stride(0) if d_skip is not None else 0,
+            dy.stride(0), dy.stride(1), dy.stride(2),
+            _DTYPE_CODES[x.dtype],
+            torch.cuda.current_stream(x.device).cuda_stream)
+
+
+def ssd_scan_bwd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+                 b: torch.Tensor, c: torch.Tensor, dy: torch.Tensor,
+                 d_skip: Optional[torch.Tensor] = None):
+    """The backward kernel: the forward's inputs, b and c [B, L, G, N]
+    (G = 1 or H), and the output's gradient dy -> (dx, ddt, da, db, dc,
+    dd), contiguous: dx, db and dc in x's dtype (db and dc summed over each
+    group's heads), ddt, da and dd in f32, dd None without ``d_skip`` (see
+    ``ref.ssd_scan_bwd``).  Five kernels (the states, the reverse walk, and
+    three fixed-order sums of the partials), counted as one launch; the
+    scratch is :func:`bwd_workspace`'s."""
+    check_bwd_inputs(x, dt, a, b, c, dy, d_skip)
+    B, L, H, P = x.shape
+    G, N = b.shape[2], b.shape[3]
+    dx = torch.empty((B, L, H, P), dtype=x.dtype, device=x.device)
+    ddt = torch.empty((B, L, H), dtype=torch.float32, device=x.device)
+    da = torch.empty((H,), dtype=torch.float32, device=x.device)
+    db = torch.empty((B, L, G, N), dtype=x.dtype, device=x.device)
+    dc = torch.empty_like(db)
+    dd = torch.empty_like(da) if d_skip is not None else None
+    if dx.numel() == 0:
+        return (dx, ddt.zero_(), da.zero_(), db.zero_(), dc.zero_(),
+                None if dd is None else dd.zero_())
+    fn, err_string = _bind("ssd_scan_bwd")
+    with torch.cuda.device(x.device):
+        err = fn(*bwd_call_args(x, dt, a, b, c, dy, d_skip,
+                                (dx, ddt, da, db, dc, dd),
+                                bwd_workspace(x, N)))
+    if err:
+        raise RuntimeError(f"ssd_scan_bwd kernel launch failed: "
+                           f"{err_string(err).decode()} (cudaError {err})")
+    bwd_launches.add()
+    return dx, ddt, da, db, dc, dd
+
+
+def expand_heads(b: torch.Tensor, heads: int) -> torch.Tensor:
+    """b [B, L, G, N] with G = 1 or ``heads`` -> [B, L, heads, N]: one group
+    expanded to every head with stride 0 (not copied)."""
+    B, L, _, N = b.shape
+    return b.expand(B, L, heads, N)
+
+
+class SsdScanFn(torch.autograd.Function):
+    """The forward kernel with the backward kernel as its gradient.  b and
+    c come unexpanded, [B, L, G, N] (G = 1 or H); the forward saves its
+    inputs (views, not copies; under ``torch.utils.checkpoint`` those of
+    the recompute) and the backward returns db and dc in that shape."""
+
+    @staticmethod
+    def forward(ctx, x, dt, a, b, c, d_skip):
+        H = x.shape[2]
+        y = ssd_scan(x, dt, a, expand_heads(b, H), expand_heads(c, H),
+                     d_skip=d_skip)
+        ctx.save_for_backward(x, dt, a, b, c, d_skip)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, dt, a, b, c, d_skip = ctx.saved_tensors
+        if dy.stride(3) != 1:
+            dy = dy.contiguous()
+        return ssd_scan_bwd(x, dt, a, b, c, dy, d_skip)

@@ -2,10 +2,10 @@
 
 The single-device counterpart of ``repro/launch/train.py``: chunk-store
 corpus -> festivus-backed reads -> ``PrefetchLoader`` onto the device ->
-the train step on autograd (the hand-written flash forward and backward
-kernels on the card) -> chunk-store checkpoints, manifest last, in the
-JAX package's layout (``{"params": ..., "opt": AdamState(...)}``, so either
-package restores them) -> resume.
+the train step on autograd (the hand-written flash attention and SSD
+forward and backward kernels on the card) -> chunk-store checkpoints,
+manifest last, in the JAX package's layout (``{"params": ...,
+"opt": AdamState(...)}``, so either package restores them) -> resume.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch llama3-8b \\
         --variant smoke --steps 20 --batch 8 --seq 128 [--device cpu]
@@ -14,9 +14,10 @@ The JAX CLI's flags, plus ``--device`` (default: the card),
 ``--warmup`` (its warmup steps, 10 there) and ``--ckpt-codec`` (``zlib``
 as there, or ``raw``).  Parameters are f32 masters.  ``--mesh-data`` and
 ``--mesh-model`` above 1 raise: meshes are ``ROADMAP.md`` queue 1 item 8.
-An ssm or hybrid arch raises on the card before its first step: the SSD
-kernel has no backward yet (``ROADMAP.md`` queue 2 item 1).  Fault
-tolerance is exercised with ``--preempt-at N``, as there.
+Every family trains on the card: an ssm or hybrid arch runs the SSD's
+forward kernel and its backward kernel (``kernels.ssd_scan.SsdScanFn``)
+in each mamba layer.  Fault tolerance is exercised with ``--preempt-at
+N``, as there.
 """
 
 from __future__ import annotations
@@ -36,7 +37,6 @@ from repro_torch.core.chunkstore import ChunkStore
 from repro_torch.data import (PrefetchLoader, TokenDataset, TokenDatasetSpec,
                               write_corpus)
 from repro_torch.kernels.backend import resolve_device
-from repro_torch.kernels.ssd_scan import SSD_BACKWARD
 from repro_torch.models import build
 from repro_torch.train import CheckpointManager, OptimizerConfig, make_train_step
 from repro_torch.train import optimizer as opt_mod
@@ -128,10 +128,6 @@ def run(args, cfg: Optional[ModelConfig] = None,
             "meshes and sharding are ROADMAP.md queue 1 item 8")
     dev = resolve_device(args.device)
     cfg = cfg or get_config(args.arch, args.variant)
-    if dev.type == "cuda" and cfg.family in ("ssm", "hybrid"):
-        raise NotImplementedError(
-            f"{cfg.arch_id} trains on the card only with the SSD kernel's "
-            f"backward: {SSD_BACKWARD}")
     model = build(cfg, device=dev)
 
     cs = cs if cs is not None else make_store(args.store)

@@ -12,10 +12,11 @@ The counterpart of ``repro/models/mamba2.py``.  Block layout (ngroups 1):
     out_proj : di -> d
 
 The full-sequence path runs the SSD through ``kernels.ops.ssd``: the
-hand-written kernel on the card, with B and C handed over as stride-0
-views expanded to every head.  The decode path keeps a [B, H, N, P] f32
-state plus (width - 1)-deep conv tails, O(1) per token whatever the
-context, and has no kernel (nor has the JAX package's).
+hand-written kernel on the card (its backward under autograd), with B and
+C handed over as one group [B, L, 1, N] that it expands to every head as
+stride-0 views.  The decode path keeps a [B, H, N, P] f32 state plus
+(width - 1)-deep conv tails, O(1) per token whatever the context, and has
+no kernel (nor has the JAX package's).
 
 Matmul weights and the conv weights and biases are stored in ``cfg.dtype``
 (the JAX package casts them to the activations' dtype at each use; the cast
@@ -108,7 +109,7 @@ def mamba_forward(params: dict, cfg: ModelConfig, xin: torch.Tensor,
     """Full-sequence path: xin [B, L, d_model] -> [B, L, d_model].
     ``ssd_impl`` picks the SSD's implementation (``kernels.ops.ssd``)."""
     B, L, _ = xin.shape
-    di, n, h, p = _dims(cfg)
+    di, _, h, p = _dims(cfg)
     xz = xin @ params["w_xz"].to(xin.dtype)
     x, z = xz.chunk(2, dim=-1)
     bc = xin @ params["w_bc"].to(xin.dtype)
@@ -123,9 +124,10 @@ def mamba_forward(params: dict, cfg: ModelConfig, xin: torch.Tensor,
     dt = _softplus(dt_raw.float() + params["dt_bias"])
     a = -torch.exp(params["a_log"])
     xh = x.reshape(B, L, h, p)
-    bh = b[:, :, None, :].expand(B, L, h, n)  # ngroups 1: stride 0 along H
-    ch = c[:, :, None, :].expand(B, L, h, n)
-    y = kops.ssd(xh, dt, a, bh, ch, d_skip=params["d_skip"], impl=ssd_impl)
+    # ngroups 1: one group of b and c for every head, [B, L, 1, N]; ops.ssd
+    # expands it (stride 0 along H), and its backward sums over the heads
+    y = kops.ssd(xh, dt, a, b[:, :, None, :], c[:, :, None, :],
+                 d_skip=params["d_skip"], impl=ssd_impl)
     y = y.reshape(B, L, di)
     y = common.apply_norm(params["norm"], y * F.silu(z))
     return y @ params["out_proj"].to(xin.dtype)

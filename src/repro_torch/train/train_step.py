@@ -4,9 +4,8 @@ The counterpart of ``repro/train/train_step.py`` on autograd: where the
 JAX package differentiates its loss with ``jax.value_and_grad`` and scans
 its microbatches, the port calls ``torch.autograd.grad`` and loops in
 Python.  On the card the attention layers run the hand-written forward and
-backward kernels (``kernels.flash_attention.FlashAttentionFn``); the SSD
-kernel has no backward yet and raises under autograd (``ROADMAP.md`` queue
-2 item 1), so a mamba or hybrid model trains on the CPU only.
+backward kernels (``kernels.flash_attention.FlashAttentionFn``), and the
+mamba layers those of the SSD (``kernels.ssd_scan.SsdScanFn``).
 """
 
 from __future__ import annotations

@@ -650,12 +650,8 @@ def test_flash_attention_autograd_matches_the_plain_versions_autograd(
 
 
 def test_kernels_without_a_backward_raise_under_autograd(card):
-    x, dt, a, b, c, d = _ssd_inputs(card, (1, 64, 2, 16, 8), torch.float32)
-    x.requires_grad_()
-    with pytest.raises(RuntimeError, match="queue 2 item 1"):
-        ops.ssd(x, dt, a, b, c, d_skip=d)
-    with torch.no_grad():
-        ops.ssd(x, dt, a, b, c, d_skip=d)
+    """composite and grad_mag have no backward: they refuse autograd (the
+    SSD has one now: test_ssd_under_autograd_launches_forward_and_backward)."""
     images = torch.rand((2, 8, 8, 3), device=card, requires_grad=True)
     with pytest.raises(RuntimeError, match="no backward"):
         ops.composite(images, torch.rand((2, 8, 8), device=card))
@@ -709,3 +705,140 @@ def test_train_step_on_the_card_launches_forward_and_backward(card):
     torch.testing.assert_close(p_k["blocks"][0]["attn"]["wq"],
                                p_p["blocks"][0]["attn"]["wq"],
                                rtol=1e-4, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# the SSD's backward
+# ---------------------------------------------------------------------------
+#: the backward kernel's six gradients against ref.ssd_scan_bwd: max-abs
+#: error within SSD_BWD_TOL x max(1, the largest |value|) (the forward's
+#: SSD_TOL, scaled as the flash backward's BWD_TOL is) and relative L2
+#: (over max(1, |ref|)) within SSD_BWD_REL_L2, chip_smoke.py's gates and
+#: their reasons: f32 the orders of the sums and of the cumulative sum
+#: inside exp(); bf16 the gradients' one rounding and the lo·lo terms the
+#: split drops (tests/test_torch_ssd_bwd.py models it)
+SSD_BWD_TOL = {torch.float32: 5e-4, torch.bfloat16: 2e-2}
+SSD_BWD_REL_L2 = {torch.float32: 1e-4, torch.bfloat16: 2e-3}
+SSD_GRADS = ("dx", "ddt", "da", "db", "dc", "dd")
+# B, L, H, P, N: tests/test_kernels.py:137-141, ragged L (1, 63, 1000), P
+# = 128 (two slices of P), a mamba2-like layer
+SSD_BWD_CASES = [(2, 128, 4, 16, 8), (1, 256, 8, 32, 16), (2, 64, 2, 64, 128),
+                 (1, 1, 3, 64, 128), (2, 63, 4, 32, 16), (1, 1000, 2, 64, 128),
+                 (1, 192, 2, 128, 128), (1, 200, 3, 128, 16),
+                 (2, 512, 16, 64, 128)]
+
+
+def _ssd_bwd_inputs(card, case, dtype, seed=0, grouped=True):
+    """x, dt, a, b, c, d and dy; b and c [B, L, 1, N] (one group) with
+    ``grouped``, else [B, L, H, N]."""
+    x, dt, a, b, c, d = _ssd_inputs(card, case, dtype, seed, grouped)
+    if grouped:
+        b, c = b[:, :, :1], c[:, :, :1]
+    g = torch.Generator(device=card).manual_seed(seed + 100)
+    dy = torch.randn(x.shape, generator=g, device=card, dtype=dtype)
+    return x, dt, a, b, c, d, dy
+
+
+def _hold_ssd_bwd(got, want, dtype, what):
+    for name, g, w in zip(SSD_GRADS, got, want):
+        if w is None:
+            assert g is None, (what, name)
+            continue
+        assert g.shape == w.shape and g.dtype == w.dtype, (what, name)
+        assert g.is_contiguous() and bool(torch.isfinite(g).all()), (what,
+                                                                     name)
+        scale = max(1.0, float(w.float().abs().max()))
+        err = float((g.float() - w.float()).abs().max())
+        assert err <= SSD_BWD_TOL[dtype] * scale, (what, name, err, scale)
+        l2 = float((g.double() - w.double()).norm()) / max(
+            1.0, float(w.double().norm()))
+        assert l2 <= SSD_BWD_REL_L2[dtype], (what, name, l2)
+
+
+@pytest.mark.parametrize("grouped", [True, False], ids=["group", "per_head"])
+@pytest.mark.parametrize("skip", [True, False], ids=["d_skip", "no_d"])
+@pytest.mark.parametrize("case", SSD_BWD_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_bwd_kernel_matches_plain_version(card, case, dtype, skip,
+                                              grouped):
+    x, dt, a, b, c, d, dy = _ssd_bwd_inputs(card, case, dtype,
+                                            grouped=grouped)
+    d = d if skip else None
+    before = kssd.bwd_launches.count
+    got = kssd.ssd_scan_bwd(x, dt, a, b, c, dy, d_skip=d)
+    torch.cuda.synchronize()
+    assert kssd.bwd_launches.count == before + 1
+    _hold_ssd_bwd(got, ref.ssd_scan_bwd(x, dt, a, b, c, dy, d_skip=d),
+                  dtype, case)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_bwd_kernel_strongly_decaying_head_gives_no_nan(card, dtype):
+    x, dt, a, b, c, d, dy = _ssd_bwd_inputs(card, (1, 300, 2, 64, 128),
+                                            dtype)
+    a = torch.full_like(a, -20.0)
+    dt = 1.0 + 4.0 * torch.rand(dt.shape, device=card)
+    got = kssd.ssd_scan_bwd(x, dt, a, b, c, dy, d_skip=d)
+    assert all(bool(torch.isfinite(t).all()) for t in got)
+    _hold_ssd_bwd(got, ref.ssd_scan_bwd(x, dt, a, b, c, dy, d_skip=d),
+                  dtype, "strong decay")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_bwd_kernel_runs_are_bit_identical(card, dtype):
+    """No atomics: two runs give the same six gradients, bit for bit."""
+    x, dt, a, b, c, d, dy = _ssd_bwd_inputs(card, (2, 700, 8, 128, 128),
+                                            dtype)
+    first = kssd.ssd_scan_bwd(x, dt, a, b, c, dy, d_skip=d)
+    second = kssd.ssd_scan_bwd(x, dt, a, b, c, dy, d_skip=d)
+    assert all(torch.equal(u, v) for u, v in zip(first, second))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_under_autograd_launches_forward_and_backward(card, dtype):
+    """ops.ssd under autograd goes through SsdScanFn: one forward and one
+    backward launch, and the gradients of a loss of the output equal
+    autograd's through the plain chunked version, b and c summed over the
+    heads of their group.  (This replaces the test that the SSD kernel
+    refused autograd, before it had a backward.)"""
+    x, dt, a, b, c, d, _ = _ssd_bwd_inputs(card, (2, 256, 4, 64, 16), dtype)
+    leaves = [t.detach().requires_grad_() for t in (x, dt, a, b, c, d)]
+    g = torch.Generator(device=card).manual_seed(5)
+    w = torch.randn(x.shape, generator=g, device=card)
+    before = (kssd.launches.count, kssd.bwd_launches.count)
+    y = ops.ssd(*leaves[:5], d_skip=leaves[5])
+    assert y.grad_fn is not None
+    got = torch.autograd.grad((y.float() * w).sum(), leaves)
+    torch.cuda.synchronize()
+    assert (kssd.launches.count, kssd.bwd_launches.count) == (
+        before[0] + 1, before[1] + 1)
+    # the reference in f32 on the same numbers, rounded once: autograd on
+    # bf16 leaves rounds each head's db and dc (and x's two cotangents) to
+    # bf16 before summing them (tests/test_torch_ssd_bwd.py)
+    ref_leaves = [t.detach().float().requires_grad_() for t in leaves]
+    want_y = ops.ssd(*ref_leaves[:5], d_skip=ref_leaves[5], impl="chunked")
+    want = torch.autograd.grad((want_y * w.to(dtype).float()).sum(),
+                               ref_leaves)
+    _hold_ssd_bwd(got, [u.to(t.dtype) for u, t in zip(want, leaves)], dtype,
+                  "autograd")  # x, dt, a, b, c, d
+
+
+def test_launch_train_runs_an_ssm_arch_on_the_card(card):
+    """launch.train trains mamba2-2.7b-smoke on the card: every step
+    launches the SSD's forward (and its remat recompute) and backward in
+    each layer; the nll stays finite."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as ptrain
+
+    cfg = get_config("mamba2-2.7b", "smoke")
+    args = ptrain.parser().parse_args([
+        "--arch", "mamba2-2.7b", "--steps", "3", "--batch", "2", "--seq",
+        "128", "--ckpt-every", "3", "--log-every", "1"])
+    backend.reset_launch_counts()
+    out = ptrain.run(args)
+    counts = backend.launch_counts()
+    L = cfg.num_layers
+    per_step = 2 * L if cfg.remat else L
+    assert counts["ssd_scan"] == 3 * per_step, counts
+    assert counts["ssd_scan_bwd"] == 3 * L, counts
+    assert all(torch.isfinite(torch.tensor(h["nll"])) for h in out["history"])

@@ -334,9 +334,12 @@ def _ssd_inputs(requires_grad):
 
 
 def test_ssd_kernel_refuses_autograd_and_names_the_roadmap_item():
-    with pytest.raises(RuntimeError, match="ROADMAP.md queue 2 item 1"):
+    """The SSD kernel has a backward now (SsdScanFn): under autograd its
+    checks no longer refuse, they go on to the device check, with grad mode
+    on or off, as for inputs that need no gradient."""
+    with pytest.raises(ValueError, match="CUDA device"):
         kssd.check_inputs(*_ssd_inputs(True))
-    with torch.no_grad():  # grad mode off: on to the device check
+    with torch.no_grad():
         with pytest.raises(ValueError, match="CUDA device"):
             kssd.check_inputs(*_ssd_inputs(True))
     with pytest.raises(ValueError, match="CUDA device"):

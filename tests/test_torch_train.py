@@ -223,10 +223,12 @@ def test_f32_masters_hold_the_same_draws_as_the_serving_storage():
 # one train step against the JAX package's
 # ---------------------------------------------------------------------------
 def _step_pair(arch, dtype="float32", cfg_change=None, seed=0, batch=4,
-               seq=32, num_micro=1, lr=1e-3):
+               seq=32, num_micro=1, lr=1e-3, frames=None):
     """The JAX step and the port's on the same weights and batch ->
     ((jax params, jax metrics), (port params as the JAX tree, port
-    metrics))."""
+    metrics)).  ``frames``: a ``frontend`` [batch, frames, frontend_dim]
+    in the batch (an enc-dec model's encoder input, a VLM's patch
+    embeddings)."""
     change = dict(dtype=dtype, **(cfg_change or {}))
     jcfg = dataclasses.replace(jget_config(arch, "smoke"), **change)
     cfg = dataclasses.replace(get_config(arch, "smoke"), **change)
@@ -239,6 +241,11 @@ def _step_pair(arch, dtype="float32", cfg_change=None, seed=0, batch=4,
     jstate = jopt.init(jparams, jopt_cfg)
     jstep = jmake_train_step(jmodel, jopt_cfg, num_microbatches=num_micro)
     jbatch = {"tokens": jnp.asarray(tokens), "labels": jnp.asarray(tokens)}
+    front = None
+    if frames:
+        front = np.random.default_rng(seed + 2).standard_normal(
+            (batch, frames, cfg.frontend_dim or cfg.d_model), dtype=np.float32)
+        jbatch["frontend"] = jnp.asarray(front)
     if dtype == "bfloat16":
         with jax.disable_jit():
             jnew, _, jm = jstep(jparams, jstate, jbatch)
@@ -252,6 +259,8 @@ def _step_pair(arch, dtype="float32", cfg_change=None, seed=0, batch=4,
     step = make_train_step(model, opt_cfg, num_microbatches=num_micro)
     batch = {"tokens": torch.from_numpy(tokens),
              "labels": torch.from_numpy(tokens)}
+    if front is not None:
+        batch["frontend"] = torch.from_numpy(front)
     new, new_state, m = step(params, state, batch)
     assert int(new_state.step) == 1
     return (jax.tree.map(np.asarray, jnew), jm), (params_to_numpy(new, cfg), m)
@@ -300,6 +309,22 @@ def test_dbrx_train_step_with_moe_aux_matches_jax():
 
 def test_mamba_train_step_through_the_chunked_ssd_matches_jax():
     _hold_step(*_step_pair("mamba2-2.7b", seq=64))
+
+
+@pytest.mark.parametrize("arch,frames", [
+    ("jamba-v0.1-52b", None),             # hybrid: mamba, attention, MoE
+    ("llama4-maverick-400b-a17b", None),  # MoE with a shared expert
+    ("gemma-7b", None),
+    ("qwen1.5-4b", None),
+    ("seamless-m4t-large-v2", 24),        # enc-dec: 24 frames encoded
+    ("internvl2-1b", "prefix"),           # VLM: the patch-embedding prefix
+])
+def test_train_step_matches_jax_for_every_other_family(arch, frames):
+    """The families no other test steps: one AdamW step against the JAX
+    package's, an enc-dec and a VLM model with a frontend in the batch."""
+    if frames == "prefix":
+        frames = get_config(arch, "smoke").frontend_tokens
+    _hold_step(*_step_pair(arch, frames=frames))
 
 
 def test_bf16_llama_train_step_matches_jax_op_by_op():
