@@ -392,6 +392,17 @@ def phase_device(torch, build) -> dict:
             check(bool(names) and all(symbol in n for n in names),
                   f"{source}.cu: a kernel name lacks {symbol!r}: "
                   f"{sorted(names)}")
+    # the SSD backward's kernels hold their products' operands and the
+    # head tile's db and dc sums in registers: none may spill
+    if "ssd_scan_bwd" in built:
+        spills = {kernel_label(n): [line for line in lines
+                                    if re.search(r"[1-9]\d* bytes spill",
+                                                 line)]
+                  for n, lines in
+                  ptxas_resources(built["ssd_scan_bwd"]["log"]).items()}
+        check(not any(spills.values()),
+              f"ssd_scan_bwd.cu: kernels spill: "
+              f"{ {n: s for n, s in spills.items() if s} }")
     # ptxas's advisories, e.g. wgmma instructions serialized for want of
     # registers (the backward's design note tells how it avoids them)
     advisories = {n: [line.split("Potential Performance Loss:", 1)[1]
@@ -1241,8 +1252,9 @@ def phase_ssd_bwd(torch, seed: int, copy_rate: float) -> dict:
     """The SSD backward kernel against ``ref.ssd_scan_bwd`` on the card,
     each of its six gradients held to SSD_BWD_TOL and SSD_BWD_REL_L2; the
     timed cases beside their bound and the plain version (no single
-    PyTorch call computes it); the main case twice more, all six
-    gradients bit-identical."""
+    PyTorch call computes it), each with its kernels' device times from a
+    profiler trace; the main case twice more, all six gradients
+    bit-identical."""
     from repro_torch.kernels import ref
     from repro_torch.kernels import ssd_scan as kssd
 
@@ -1288,10 +1300,15 @@ def phase_ssd_bwd(torch, seed: int, copy_rate: float) -> dict:
                 x, dt, a, b, c, dy, d), runs=runs, warmup=1)
             plain_ms = median_ms(torch, lambda: ref.ssd_scan_bwd(
                 x, dt, a, b, c, dy, d), runs=runs, warmup=1)
+            # the device time of each of the call's kernels (the local
+            # states, the state pass, the per-chunk products, the sums)
+            prof = profile_breakdown(torch, lambda: kssd.ssd_scan_bwd(
+                x, dt, a, b, c, dy, d), runs=3)
             case.update({"ms": ms, "plain_ms": plain_ms, "library_ms": None,
                          "library": "none: no single PyTorch call",
                          "copy_bound_ms": nbytes / copy_rate * 1e3,
-                         "flop_per_s": ops / (ms * 1e-3)})
+                         "flop_per_s": ops / (ms * 1e-3),
+                         "kernels_ms": prof.get("top_kernels_ms_per_run")})
         cases.append(case)
         emit({"phase": "kernels.case", "kernel": "ssd_scan_bwd", **case})
         del x, dt, a, b, c, d, dy

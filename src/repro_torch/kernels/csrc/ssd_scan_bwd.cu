@@ -18,13 +18,13 @@
 // chunk of Q = 64 tokens (cum the inclusive cumulative sum of a dt, T =
 // cum_Q, L_ij = exp(cum_i - cum_j) for j <= i, else 0, CB_ij = c_i . b_j,
 // W = CB o L o dt_j, e_i = exp(cum_i), g_j = exp(T - cum_j), f_j = g_j dt_j)
-// and with dS the gradient of the state leaving the chunk:
+// and with S_in the state entering the chunk and dS the gradient of the
+// state leaving it:
 //   dW_ij  = dy_i . x_j  (j <= i),   dCB = dW o L o dt_j
 //   dx_j   = sum_i W_ij dy_i + f_j (dS^T b_j) + d dy_j
 //   dc_i   = sum_j dCB_ij b_j + e_i (S_in dy_i)
 //   db_j   = sum_i dCB_ij c_i + f_j (dS x_j)
 //   df_j   = x_j . (dS^T b_j)
-//   dS_in  = exp(T) dS + sum_i (e_i c_i) dy_i^T
 //   d(cum)_i = sum_j dW_ij W_ij - sum_k dW_ki W_ki + e_i c_i . (S_in dy_i)
 //              - f_i df_i  (+ exp(T) <S_in, dS> + sum_j f_j df_j at i = Q)
 //   ds_t   = sum_{i >= t} d(cum)_i,  ddt_t = a ds_t + g_t df_t
@@ -34,54 +34,92 @@
 // L >= 1: the last chunk is masked (dt = 0 and x, b, c, dy = 0 past L,
 // which add nothing).  P in {16, 32, 64, 128}, N in {8, 16, 128}.
 //
-// What bounds it: at the mamba2-2.7b training layer (x [2,4096,80,64], N
-// 128, b and c one group) the function needs, per token and head, 2 (Q +
-// 1)(P + N) FLOP on the causal pairs of a chunk of Q = 64 and 10 N P for
-// the state terms, 7.0e10 (0.071 ms on the bf16 tensor cores, 1.05 ms on
-// the f32 cores; a smaller chunk needs fewer); it reads x, dy, dt, b, c
-// and writes dx, ddt, db, dc once, 0.27 GB (0.079 ms at 3.35 TB/s), which
-// bounds it in bf16.  This kernel does more products than that: full
-// Q x Q tiles, 2 H (3 Q^2 N + 2 Q^2 P + 4 Q N P) FLOP a chunk, 8.6e10.
-// This first version is simple and right, not fast: one thread block
-// walks the chunks of one (batch, head, slice of up to 64 columns of P),
-// so the card holds B H (P / 64) blocks, and the states and per-head
-// partial sums go through device memory.  Three steps, one launch each
-// (four kernels):
+// The chunk-parallel form.  The recurrence carries only the [N, P] state:
+// S_in(z+1) = exp(T_z) S_in(z) + S_loc(z), S_loc = sum_j (b_j f_j) x_j^T,
+// and dS(z-1) = exp(T_z) dS(z) + C(z), C = sum_i (c_i e_i) dy_i^T.  All
+// else in a chunk needs only S_in and dS.  So the steps run over every
+// chunk at once (no block walks the sequence), one launch each:
 //
-// (a) ssd_bwd_states_kernel recomputes the state entering every chunk into
-//     an f32 workspace [B,H,L/Q,N,P] (671 MB at the mamba training layer),
-//     walking the chunks forward as the forward kernel does.
-// (b) ssd_bwd_kernel walks the chunks from the last to the first with dS
-//     [N, slice] in shared memory and, per chunk, the products above as
-//     block-wide register-tiled matrix products over f32 tiles in shared
-//     memory.  It writes dx, and per (batch, head, slice) partials of ddt,
-//     db, dc, da and dd into f32 workspaces.  Columns of P are independent
-//     in the recurrence of dS, so slices of P need nothing of each other;
-//     their partial sums over P are added in (c).
-// (c) ssd_bwd_reduce_*_kernel add the partials in a fixed order: db and dc
-//     over the slices and the heads of each group, ddt over the slices, da
-//     and dd over the batch and the slices.  No float atomics anywhere:
-//     the six gradients are bit-identical from run to run.
+// (1) ssd_bwd_chunk_states_kernel, one block of 8 warps per (batch, chunk,
+//     tile of heads; the wrapper's tile is 8): for each head, the chunk's
+//     decays (T_z into `totals`), S_loc and C as products over the chunk's
+//     64 tokens, f32 into two workspaces [B, H, L/Q, N, P].
+// (2) ssd_bwd_state_pass_kernel, elementwise over (batch, head, N P / 4):
+//     walks the chunks forward, turning S_loc into S_in in place, and
+//     backward, turning C into dS in place; float4 loads, two batches of
+//     four chunks alternating in flight, f32 only, no products.
+// (3) ssd_bwd_chunk_kernel, one block per (batch, chunk, tile of heads):
+//     every per-chunk product above for each head of the tile, with S_in
+//     and dS read from the workspaces; dx and ddt out, da and dd partials
+//     per (batch, chunk, head).  With G = 1 c.b^T is the same for every
+//     head: computed once a block and kept in registers; db and dc are
+//     summed over the tile's heads in registers, in head order, and
+//     written once per tile; with G = H each head's db and dc go straight
+//     out.  The sums a head needs (rows and columns of dW o W, columns of
+//     dW o CB o L, df, c . (S_in dy)) go to shared memory as per-warp
+//     shares that warp 0 adds in a fixed order in its final scan: seven
+//     barriers a head.
+// (4) ssd_bwd_reduce_*_kernel add the partials in a fixed order: db and dc
+//     over the head tiles (G = 1), da and dd over (batch, chunk).  No float
+//     atomics anywhere: the six gradients are bit-identical run to run.
 //
-// The products.  bf16: the tensor cores (mma.sync m16n8k16, bf16 operands,
-// f32 sums).  x, dy, b and c are bf16 inputs and enter as they are; the
-// operands that are not inputs (W, dCB, S_in, dS, b f in the state
-// recompute and c e in dS_in) are split into hi = bf16(v) and lo = bf16(v -
-// hi), each its own MMA: one rounding of these misses the 2e-2 gate, as in
-// the forward (tests/test_torch_ssd_bwd.py holds a plain model of this
-// arithmetic).  Fragments are built from the f32 tiles with plain loads
-// (rows padded by one word), not ldmatrix.  f32: the f32 cores (fmaf over a
-// 16 x 16 thread grid), held to 5e-4.
+// Workspace (the wrapper's, f32): the two state buffers B H (L/Q) N P each
+// (335 MB each at the mamba2-2.7b training layer, x [2,4096,80,64], N 128,
+// one group), the db and dc sums per tile of 8 heads B L (H/8) N each (42
+// MB each; none for G = H), T_z, and the da and dd partials: 755 MB there.
+// The slice-by-slice design this replaces held 1.01 GB (its states 335 MB,
+// its per-head db and dc partials 671 MB).
 //
-// Each chunk's tiles are loaded in batches of up to 8 (bf16) or 16 (f32)
-// loads a thread, all issued before the batch's first store to shared
-// memory, bf16 read as 16-bit integers and widened after (load_tile): with
-// one block of 8 warps an SM, loads issued one at a time left the walk
-// waiting on memory for half its time.  The bf16 walk at N = 128 runs at
-// 255 registers and spills 112 bytes.
-// Shared memory is dynamic (208 KB at P = 64, N = 128: one block an SM;
-// 92 KB at N = 16: two in bf16), set with cudaFuncSetAttribute; each
-// launch's error is returned.
+// Inside the blocks.  bf16: the tensor cores, mma.sync m16n8k16 (bf16
+// operands, f32 sums), fed by ldmatrix from bf16 tiles in shared memory
+// whose 16-byte chunks are XOR-swizzled by row, so that the eight rows one
+// ldmatrix phase reads fall in distinct banks.  x, dy, b and c are bf16
+// inputs and are copied in as they arrive (cp.async); the operands that
+// are not inputs (W, dCB, S_in, dS, b f and c e) are stored as two bf16
+// planes, hi = bf16(v) and lo = bf16(v - hi), each its own MMA: one
+// rounding of these misses the 2e-3 relative-L2 gate
+// (tests/test_torch_ssd_bwd.py holds a plain model of this arithmetic).
+// Transposed operands (W^T, dCB^T, (b f)^T, (c e)^T, and B operands stored
+// row-major) are read with ldmatrix.trans, so no tile is stored twice.
+// f32: the f32 cores, a register tile of rows w + W r and column pairs
+// 2 lane + 64 s a thread over f32 tiles (rows padded by one word), held to
+// 5e-4.  One engine type per element type carries the tile layout, the
+// product, the epilogue's coordinates and the fixed-order row and column
+// sums, so both paths run the same kernels.
+//
+// Warps and blocks.  The per-chunk kernel keeps the tile's db and dc sums
+// in registers (64 KB a block at N = 128), so it runs one block of 16
+// warps an SM (128 registers a thread, none spilled), or of 8 warps with
+// 255 registers where 16 would spill (f32; bf16 at P = N = 128).  135 KB of
+// shared memory at P = 64, N = 128 in bf16: b, c, x, dy, S_in and dS hi +
+// lo, one W/dCB buffer (W until dx is done, then dCB), the sums' shares;
+// where S_in and dS do not both fit (f32 at P = N = 128) dS is loaded first
+// and S_in after db.  The local-states kernel holds one split tile (b f,
+// then c e) and, in bf16 up to N P = 128 x 64, runs two blocks of 8 warps
+// an SM.
+//
+// What bounds it.  The function needs 0.265 GB of input and output at the
+// training layer (0.0792 ms at 3.35 TB/s; its operations, 7.0e10, take
+// 0.071 ms on the bf16 tensor cores).  This design also moves the f32
+// states: written by (1), read and rewritten by (2), read by (3): 3.2 GB in
+// all, 0.95 ms.  Measured on an NVIDIA H100 80GB HBM3 at 700 W
+// (tools/kernel_ab.py; chip_smoke.py's ssd_bwd phase gives each kernel's
+// time): ~2.0 ms a call against 6.7 for the slice-by-slice design; the
+// state pass runs at ~2.8 TB/s, the per-chunk kernel (~0.9 ms) runs its
+// products (1.2e11 FLOP with the hi + lo MMAs) at ~13 % of the bf16 peak
+// and the local states at ~8 %.  Loading the next head's tiles under
+// this head's products (a second stage, cp.async) moved the call by 0.7 %
+// at the training layer and 4.7 % at jamba's, so it is not kept: neither
+// load latency nor the MMA rate limits the per-chunk kernel, but its
+// serial per-head phases, one block an SM.
+//
+// mma.sync, not wgmma: measured, the products run at 8-13 % of the bf16
+// peak, so a faster instruction would not shorten the kernels; and
+// mma.sync's 16-row warp tiles fit every product here, the [N, P] ones at
+// N = 16 among them, which wgmma's 64-row warpgroup tiles would pad 4x.
+//
+// Each launch's error is returned; shared memory above 48 KB is set with
+// cudaFuncSetAttribute.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -89,10 +127,10 @@
 
 namespace {
 
-constexpr int kQ = 64;         // tokens per chunk
-constexpr int kThreads = 256;  // 8 warps
-constexpr int kWarps = kThreads / 32;
-constexpr int kPitchQ = kQ + 1;
+constexpr int kQ = 64;                 // tokens per chunk
+constexpr int kMaxSmem = 232448;       // bytes of shared memory a block may use
+constexpr int kPassThreads = 256;      // the state pass
+constexpr int kPassDepth = 4;          // chunks of loads in flight a thread
 
 enum DType : int { kF32 = 0, kBF16 = 1 };
 
@@ -100,31 +138,8 @@ struct Strides {
   int64_t b, l, h;  // elements; the stride along the last dimension is 1
 };
 
-// An input element as the loads take it (its bits; bf16 as a 16-bit
-// integer) and its f32 value.  The conversion is integer arithmetic: the
-// intrinsic's inline assembly is volatile, and kept each load waiting for
-// the conversion of the one before it.
-template <typename T>
-struct Bits {
-  using type = float;
-};
-template <>
-struct Bits<__nv_bfloat16> {
-  using type = uint16_t;
-};
-__device__ __forceinline__ float bits_to_f32(float v) { return v; }
-__device__ __forceinline__ float bits_to_f32(uint16_t v) {
-  return __uint_as_float(static_cast<uint32_t>(v) << 16);
-}
-template <typename T>
-__device__ __forceinline__ T from_f32(float v);
-template <>
-__device__ __forceinline__ float from_f32<float>(float v) {
-  return v;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
+__host__ __device__ constexpr int round128(int bytes) {
+  return (bytes + 127) / 128 * 128;
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -134,104 +149,46 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// ===========================================================================
-// Block-wide products C[M, NN] = sum_k A(i, k) B(k, j) over K, where A and B
-// are functors of f32 values (tiles in shared memory, read through any
-// indices, so transposes and per-row scales cost nothing).  Each engine
-// fixes which outputs a thread owns; every thread calls each member.
-// ===========================================================================
-
-// f32: the f32 cores.  A thread (tx, ty) of the 16 x 16 grid owns rows
-// ty + 16 r and columns tx + 16 s.
-struct FmaEngine {
-  template <int M, int NN>
-  struct Acc {
-    static constexpr int R = (M + 15) / 16;
-    static constexpr int C = (NN + 15) / 16;
-    float v[R][C];
-  };
-
-  template <int M, int NN>
-  static __device__ __forceinline__ void zero(Acc<M, NN>& acc) {
-#pragma unroll
-    for (int r = 0; r < Acc<M, NN>::R; ++r)
-#pragma unroll
-      for (int s = 0; s < Acc<M, NN>::C; ++s) acc.v[r][s] = 0.0f;
-  }
-
-  // acc += A B over k < K (SA, SB: whether the operand is split; the f32
-  // cores take every operand whole)
-  template <int M, int NN, int K, bool SA, bool SB, typename FA, typename FB>
-  static __device__ __forceinline__ void product(Acc<M, NN>& acc, FA fa,
-                                                 FB fb) {
-    using A = Acc<M, NN>;
-    const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-#pragma unroll 4
-    for (int k = 0; k < K; ++k) {
-      float av[A::R], bv[A::C];
-#pragma unroll
-      for (int r = 0; r < A::R; ++r) {
-        const int i = ty + 16 * r;
-        av[r] = i < M ? fa(i, k) : 0.0f;
-      }
-#pragma unroll
-      for (int s = 0; s < A::C; ++s) {
-        const int j = tx + 16 * s;
-        bv[s] = j < NN ? fb(k, j) : 0.0f;
-      }
-#pragma unroll
-      for (int r = 0; r < A::R; ++r)
-#pragma unroll
-        for (int s = 0; s < A::C; ++s)
-          acc.v[r][s] = fmaf(av[r], bv[s], acc.v[r][s]);
-    }
-  }
-
-  // fn(i, j, v1, v2) for every owned output; where row_out is not null,
-  // row_out[i] = sum_j of what fn returns (a fixed order: the owner's
-  // columns in order, then a shuffle tree over the 16 owners of the row).
-  // Ends with a barrier.
-  template <int M, int NN, typename Fn>
-  static __device__ __forceinline__ void epilogue(const Acc<M, NN>& a1,
-                                                  const Acc<M, NN>& a2,
-                                                  float* row_out, float*,
-                                                  Fn fn) {
-    using A = Acc<M, NN>;
-    const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-#pragma unroll
-    for (int r = 0; r < A::R; ++r) {
-      const int i = ty + 16 * r;
-      float sum = 0.0f;
-#pragma unroll
-      for (int s = 0; s < A::C; ++s) {
-        const int j = tx + 16 * s;
-        if (i < M && j < NN) sum += fn(i, j, a1.v[r][s], a2.v[r][s]);
-      }
-      if (row_out != nullptr) {
-#pragma unroll
-        for (int off = 8; off > 0; off >>= 1)
-          sum += __shfl_xor_sync(0xffffffffu, sum, off);
-        if (tx == 0 && i < M) row_out[i] = sum;
-      }
-    }
-    __syncthreads();
-  }
-};
-
-__device__ __forceinline__ uint32_t bits(__nv_bfloat162 v) {
-  return *reinterpret_cast<uint32_t*>(&v);
+// ---------------------------------------------------------------------------
+// PTX: shared-memory copies, ldmatrix, mma.sync
+// ---------------------------------------------------------------------------
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
-// two floats -> one register of two bf16, the first in the low half
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  return bits(__floats2bfloat162_rn(lo, hi));
+
+// 16 bytes global -> shared; ok false writes zeros and reads nothing
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
 }
-// v0, v1 -> hi = bf16(v), lo = bf16(v - hi), packed as pack_bf16
-__device__ __forceinline__ void split_bf16(float v0, float v1, uint32_t& hi,
-                                           uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(v0, v1);
-  const float2 hf = __bfloat1622float2(h);
-  hi = bits(h);
-  lo = pack_bf16(v0 - hf.x, v1 - hf.y);
+
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(ok ? 4 : 0)
+               : "memory");
+}
+
+// every cp.async of this thread has landed
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
 }
 
 // d += a b: a the 16x16 A fragment, (b0, b1) the 16x8 B fragment
@@ -243,127 +200,533 @@ __device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// bf16: the tensor cores.  The output is cut into 16 x 8 tiles; warp w owns
-// row block w % RB (RB = M / 16 row blocks, 1, 2, 4 or 8) and, of its
-// column tiles, every WPR-th from w / RB.  In a tile, lane (g = lane / 4,
-// q = lane % 4) owns rows g, g + 8 and columns 2q, 2q + 1 (mma.sync's
-// accumulator layout).
+// ---------------------------------------------------------------------------
+// bf16 values
+// ---------------------------------------------------------------------------
+__device__ __forceinline__ uint32_t bits(__nv_bfloat162 v) {
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+// v0, v1 -> hi = bf16(v), lo = bf16(v - hi), two bf16 a register, v0 low
+__device__ __forceinline__ void split_bf16(float v0, float v1, uint32_t& hi,
+                                           uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(v0, v1);
+  const float2 hf = __bfloat1622float2(h);
+  hi = bits(h);
+  lo = bits(__floats2bfloat162_rn(v0 - hf.x, v1 - hf.y));
+}
+
+__device__ __forceinline__ void store_one(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store_one(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16(v);
+}
+
+template <typename T>
+__device__ __forceinline__ void store_pair(T* p, float v0, float v1);
+template <>
+__device__ __forceinline__ void store_pair<float>(float* p, float v0,
+                                                  float v1) {
+  *reinterpret_cast<float2*>(p) = make_float2(v0, v1);
+}
+template <>
+__device__ __forceinline__ void store_pair<__nv_bfloat16>(__nv_bfloat16* p,
+                                                          float v0,
+                                                          float v1) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v0, v1);
+}
+
+// The byte offset of 16-byte chunk `ch` of row `r` in a bf16 tile of C
+// columns.  Chunks are XORed with the row (mod 8, or mod the chunks a row
+// where fewer) so that the 8 rows one ldmatrix phase reads fall in
+// distinct banks.
+template <int C>
+__device__ __forceinline__ uint32_t chunk_off(int r, int ch) {
+  constexpr int kCpr = C / 8;
+  constexpr int kMask = (kCpr < 8 ? kCpr : 8) - 1;
+  return static_cast<uint32_t>(r * kCpr + (ch ^ (r & kMask))) * 16;
+}
+template <int C>
+__device__ __forceinline__ uint32_t elem_off(int r, int c) {
+  return chunk_off<C>(r, c >> 3) + 2 * (c & 7);
+}
+
+// ===========================================================================
+// The engines.  Each gives: Tile<C>, an operand of C columns in shared
+// memory (one plane, or two for an operand split hi + lo); Acc<M, NN>, the
+// outputs of an M x NN product a thread owns, as pairs of adjacent columns
+// (pair(k), coord(k, i, j): row i, columns j and j + 1; false where the
+// thread owns none); product<M, NN, K, AT, BT, AS, BS>(acc, A, B), acc +=
+// A B over k < K, A [M, K] read from its tile as stored (AT false) or
+// transposed (A(i, k) = tile[k][i]), B [K, NN] as stored or transposed
+// (B(k, j) = tile[j][k]), AS and BS: the operand is split; row and column
+// slots of the pairs and put_* / take_* to sum them in a fixed order;
+// store2 / get2 of a pair of values in a tile; load_rows (an input tile from
+// global memory).
+// ===========================================================================
+
+// bf16: the tensor cores, W warps.  The output is cut into 16 x 16 blocks
+// (two 16 x 8 MMA tiles); warp w owns row block w % RB (RB = M / 16) and
+// PPW adjacent column blocks from (w / RB) PPW.  In an MMA tile, lane (g =
+// lane / 4, q = lane % 4) owns rows g, g + 8 and columns 2q, 2q + 1.
+template <int W>
 struct MmaEngine {
+  static constexpr int kW = W, kT = 32 * W;  // warps, threads
+  using Elem = __nv_bfloat16;
+  static constexpr int kPlanes = 2;
+
+  template <int C>
+  __host__ __device__ static constexpr int plane(int rows) {
+    return round128(rows * C * 2);
+  }
+
+  template <int C>
+  struct Tile {
+    unsigned char* hi;
+    unsigned char* lo;  // the second plane of a split operand
+  };
+  template <int C>
+  static __device__ __forceinline__ Tile<C> tile(unsigned char* base,
+                                                 int rows) {
+    return {base, base + plane<C>(rows)};
+  }
+
   template <int M, int NN>
   struct Acc {
-    static constexpr int RB = (M + 15) / 16;
-    static_assert(kWarps % RB == 0, "row blocks must divide the warps");
-    static constexpr int WPR = kWarps / RB;
-    static constexpr int CT = ((NN + 7) / 8 + WPR - 1) / WPR;
-    float v[CT][4];
+    static constexpr int RB = M / 16;
+    static_assert(M % 16 == 0 && W % RB == 0, "row blocks");
+    static constexpr int WPR = W / RB;  // warps a row block
+    static constexpr int CP = NN / 16;       // column blocks
+    static constexpr int PPW = (CP + WPR - 1) / WPR;
+    static constexpr int kActive = (CP + PPW - 1) / PPW;  // warps with some
+    static constexpr int kPairs = 4 * PPW;
+    static constexpr int kRowSlots = 2;        // rows g, g + 8
+    static constexpr int kColSlots = 2 * PPW;  // 8-column tiles
+    static __device__ __forceinline__ int row_slot(int k) { return k & 1; }
+    static __device__ __forceinline__ int col_slot(int k) { return k >> 1; }
+    float v[PPW][2][4];
+    __device__ __forceinline__ float* pair(int k) {
+      return &v[k >> 2][(k >> 1) & 1][2 * (k & 1)];
+    }
+    static __device__ __forceinline__ bool coord(int k, int& i, int& j) {
+      const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+      const int cp = (warp / RB) * PPW + (k >> 2);
+      i = 16 * (warp % RB) + (lane >> 2) + 8 * (k & 1);
+      j = 16 * cp + 8 * ((k >> 1) & 1) + 2 * (lane & 3);
+      return cp < CP;
+    }
   };
 
   template <int M, int NN>
   static __device__ __forceinline__ void zero(Acc<M, NN>& acc) {
 #pragma unroll
-    for (int t = 0; t < Acc<M, NN>::CT; ++t)
+    for (int t = 0; t < Acc<M, NN>::PPW; ++t)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) acc.v[t][e] = 0.0f;
+      for (int e = 0; e < 8; ++e) acc.v[t][e >> 2][e & 3] = 0.0f;
   }
 
-  template <int M, int NN, int K, bool SA, bool SB, typename FA, typename FB>
-  static __device__ __forceinline__ void product(Acc<M, NN>& acc, FA fa,
-                                                 FB fb) {
+  template <int M, int NN, int K, bool AT, bool BT, bool AS, bool BS, int CA,
+            int CB>
+  static __device__ __forceinline__ void product(Acc<M, NN>& acc, Tile<CA> a,
+                                                 Tile<CB> b) {
     using A = Acc<M, NN>;
+    static_assert(K % 16 == 0 && !(AS && BS), "one split operand at most");
     const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    const int g = lane >> 2, q = lane & 3;
-    const int rb = warp % A::RB, cw = warp / A::RB;
-    const int r0 = 16 * rb + g, r1 = r0 + 8;
-    auto av = [&](int i, int k) { return i < M && k < K ? fa(i, k) : 0.0f; };
-    auto bv = [&](int k, int j) { return k < K ? fb(k, j) : 0.0f; };
-#pragma unroll 1
+    const int mi = lane >> 3, rr = lane & 7;  // ldmatrix: matrix, its row
+    const int rb = warp % A::RB;
+    const int cp0 = (warp / A::RB) * A::PPW;
+    if (cp0 >= A::CP) return;
+    const uint32_t ah = smem_u32(a.hi), al = smem_u32(a.lo);
+    const uint32_t bh = smem_u32(b.hi), bl = smem_u32(b.lo);
+#pragma unroll
     for (int k0 = 0; k0 < K; k0 += 16) {
-      const int k = k0 + 2 * q;
-      uint32_t ah[4], al[4];
-      if constexpr (SA) {
-        split_bf16(av(r0, k), av(r0, k + 1), ah[0], al[0]);
-        split_bf16(av(r1, k), av(r1, k + 1), ah[1], al[1]);
-        split_bf16(av(r0, k + 8), av(r0, k + 9), ah[2], al[2]);
-        split_bf16(av(r1, k + 8), av(r1, k + 9), ah[3], al[3]);
-      } else {
-        ah[0] = pack_bf16(av(r0, k), av(r0, k + 1));
-        ah[1] = pack_bf16(av(r1, k), av(r1, k + 1));
-        ah[2] = pack_bf16(av(r0, k + 8), av(r0, k + 9));
-        ah[3] = pack_bf16(av(r1, k + 8), av(r1, k + 9));
+      // A [16 rows, 16 of k]: matrices (rows 0-7 | 8-15) x (k 0-7 | 8-15)
+      const uint32_t ao =
+          AT ? chunk_off<CA>(k0 + rr + 8 * (mi >> 1), 2 * rb + (mi & 1))
+             : chunk_off<CA>(16 * rb + rr + 8 * (mi & 1), (k0 >> 3) + (mi >> 1));
+      uint32_t fa[4], fl[4];
+      if constexpr (AT) ldsm_x4_t(fa, ah + ao);
+      else ldsm_x4(fa, ah + ao);
+      if constexpr (AS) {
+        if constexpr (AT) ldsm_x4_t(fl, al + ao);
+        else ldsm_x4(fl, al + ao);
       }
 #pragma unroll
-      for (int t = 0; t < A::CT; ++t) {
-        const int ct = cw + A::WPR * t;
-        if (8 * ct >= NN) continue;
-        const int j = 8 * ct + g;
-        if constexpr (SB) {
-          uint32_t bh0, bl0, bh1, bl1;
-          split_bf16(bv(k, j), bv(k + 1, j), bh0, bl0);
-          split_bf16(bv(k + 8, j), bv(k + 9, j), bh1, bl1);
-          mma(acc.v[t], ah, bh0, bh1);
-          mma(acc.v[t], ah, bl0, bl1);
-        } else {
-          const uint32_t b0 = pack_bf16(bv(k, j), bv(k + 1, j));
-          const uint32_t b1 = pack_bf16(bv(k + 8, j), bv(k + 9, j));
-          mma(acc.v[t], ah, b0, b1);
-          if constexpr (SA) mma(acc.v[t], al, b0, b1);
+      for (int t = 0; t < A::PPW; ++t) {
+        const int n0 = 16 * (cp0 + t);
+        if (A::CP % A::PPW != 0 && n0 >= NN) break;
+        // B [16 of k, 16 columns] as two 16 x 8 fragments: fb[0..1] the
+        // first 8 columns, fb[2..3] the next
+        const uint32_t bo =
+            BT ? chunk_off<CB>(n0 + rr + 8 * (mi >> 1), (k0 >> 3) + (mi & 1))
+               : chunk_off<CB>(k0 + rr + 8 * (mi & 1), (n0 >> 3) + (mi >> 1));
+        uint32_t fb[4];
+        if constexpr (BT) ldsm_x4(fb, bh + bo);
+        else ldsm_x4_t(fb, bh + bo);
+        mma(acc.v[t][0], fa, fb[0], fb[1]);
+        mma(acc.v[t][1], fa, fb[2], fb[3]);
+        if constexpr (AS) {
+          mma(acc.v[t][0], fl, fb[0], fb[1]);
+          mma(acc.v[t][1], fl, fb[2], fb[3]);
+        }
+        if constexpr (BS) {
+          uint32_t fc[4];
+          if constexpr (BT) ldsm_x4(fc, bl + bo);
+          else ldsm_x4_t(fc, bl + bo);
+          mma(acc.v[t][0], fa, fc[0], fc[1]);
+          mma(acc.v[t][1], fa, fc[2], fc[3]);
         }
       }
     }
   }
 
-  // as FmaEngine::epilogue; the row sums go through red [kWarps][M]: a
-  // warp's columns in order, a shuffle tree over the four lanes of a row,
-  // then the WPR warps of the row block in order
-  template <int M, int NN, typename Fn>
-  static __device__ __forceinline__ void epilogue(const Acc<M, NN>& a1,
-                                                  const Acc<M, NN>& a2,
-                                                  float* row_out, float* red,
-                                                  Fn fn) {
+  // Fixed-order row and column sums of the outputs.  A thread adds its
+  // pairs' shares into slots (row_slot, col_slot); put_rows / put_cols add
+  // the lanes' slots (the four lanes of a row, the eight of a column) and
+  // write each warp's sums to red (row_red / col_red floats); after a
+  // barrier take_row / take_col add one row's or column's warps in order
+  // (rows: the row block's warps; columns: the row blocks).
+  template <int M, int NN>
+  static __device__ __forceinline__ void put_rows(
+      const float (&part)[Acc<M, NN>::kRowSlots], float* red) {
     using A = Acc<M, NN>;
     const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    const int g = lane >> 2, q = lane & 3;
     const int rb = warp % A::RB, cw = warp / A::RB;
-    float sum[2] = {0.0f, 0.0f};
+    float p[2] = {part[0], part[1]};
 #pragma unroll
-    for (int t = 0; t < A::CT; ++t) {
-      const int ct = cw + A::WPR * t;
-      if (8 * ct >= NN) continue;
+    for (int h = 0; h < 2; ++h) {
+      p[h] += __shfl_xor_sync(0xffffffffu, p[h], 1);
+      p[h] += __shfl_xor_sync(0xffffffffu, p[h], 2);
+    }
+    if (cw < A::kActive && (lane & 3) == 0) {
+      red[cw * M + 16 * rb + (lane >> 2)] = p[0];
+      red[cw * M + 16 * rb + (lane >> 2) + 8] = p[1];
+    }
+  }
+  template <int M, int NN>
+  __host__ __device__ static constexpr int row_red() {
+    return Acc<M, NN>::kActive * M;
+  }
+  template <int M, int NN>
+  static __device__ __forceinline__ float take_row(const float* red, int i) {
+    float s = 0.0f;
+    for (int w = 0; w < Acc<M, NN>::kActive; ++w) s += red[w * M + i];
+    return s;
+  }
+  template <int M, int NN>
+  static __device__ __forceinline__ void put_cols(
+      const float2 (&part)[Acc<M, NN>::kColSlots], float* red) {
+    using A = Acc<M, NN>;
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int rb = warp % A::RB, cw = warp / A::RB;
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int i = 16 * rb + g + 8 * (e >> 1);
-        const int j = 8 * ct + 2 * q + (e & 1);
-        if (i < M) sum[e >> 1] += fn(i, j, a1.v[t][e], a2.v[t][e]);
+    for (int c = 0; c < A::kColSlots; ++c) {
+      float2 p = part[c];
+#pragma unroll
+      for (int off = 4; off < 32; off <<= 1) {
+        p.x += __shfl_xor_sync(0xffffffffu, p.x, off);
+        p.y += __shfl_xor_sync(0xffffffffu, p.y, off);
+      }
+      const int cp = cw * A::PPW + (c >> 1);
+      if (lane < 4 && cp < A::CP) {
+        const int j = 16 * cp + 8 * (c & 1) + 2 * lane;
+        red[rb * NN + j] = p.x;
+        red[rb * NN + j + 1] = p.y;
       }
     }
-    if (row_out != nullptr) {
+  }
+  template <int M, int NN>
+  __host__ __device__ static constexpr int col_red() {
+    return Acc<M, NN>::RB * NN;
+  }
+  template <int M, int NN>
+  static __device__ __forceinline__ float take_col(const float* red, int j) {
+    float s = 0.0f;
+    for (int r = 0; r < Acc<M, NN>::RB; ++r) s += red[r * NN + j];
+    return s;
+  }
+
+  // a pair of values (c even) into a split tile, hi and lo
+  template <int C>
+  static __device__ __forceinline__ void store2(Tile<C> t, int r, int c,
+                                                float v0, float v1) {
+    const uint32_t off = elem_off<C>(r, c);
+    uint32_t hi, lo;
+    split_bf16(v0, v1, hi, lo);
+    *reinterpret_cast<uint32_t*>(t.hi + off) = hi;
+    *reinterpret_cast<uint32_t*>(t.lo + off) = lo;
+  }
+
+  // a pair of an input tile (c even)
+  template <int C>
+  static __device__ __forceinline__ float2 get2(Tile<C> t, int r, int c) {
+    return __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(t.hi + elem_off<C>(r, c)));
+  }
+
+  // rows [0, rows) x columns [0, width) of a row-major bf16 source (row r
+  // at src + r stride) into a [Q, C] tile, zeros elsewhere: cp.async where
+  // the source's rows are 16-byte aligned (vec), else 2-byte loads
+  template <int C>
+  static __device__ __forceinline__ void load_rows(Tile<C> t, const Elem* src,
+                                                   int64_t stride, int rows,
+                                                   int width, bool vec) {
+    constexpr int kCpr = C / 8;
+    const uint32_t base = smem_u32(t.hi);
+    for (int k = threadIdx.x; k < kQ * kCpr; k += kT) {
+      const int r = k / kCpr, ch = k - r * kCpr;
+      const bool ok = r < rows && ch * 8 < width;
+      const Elem* s = src + (ok ? r * stride + ch * 8 : 0);
+      if (vec) {
+        cp_async16(base + chunk_off<C>(r, ch), s, ok);
+      } else {
+        uint32_t w[4] = {0u, 0u, 0u, 0u};
+        if (ok) {
+          const uint16_t* e = reinterpret_cast<const uint16_t*>(s);
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 1);
-        sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 2);
-        const int i = 16 * rb + g + 8 * h;
-        if (q == 0 && i < M) red[cw * M + i] = sum[h];
-      }
-      __syncthreads();
-      for (int i = threadIdx.x; i < M; i += kThreads) {
-        float v = 0.0f;
-        for (int w = 0; w < A::WPR; ++w) v += red[w * M + i];
-        row_out[i] = v;
+          for (int u = 0; u < 4; ++u)
+            w[u] = static_cast<uint32_t>(e[2 * u]) |
+                   (static_cast<uint32_t>(e[2 * u + 1]) << 16);
+        }
+        *reinterpret_cast<uint4*>(t.hi + chunk_off<C>(r, ch)) =
+            make_uint4(w[0], w[1], w[2], w[3]);
       }
     }
-    __syncthreads();
   }
 };
 
-template <typename T>
-struct EngineOf;
-template <>
-struct EngineOf<float> {
-  using type = FmaEngine;
+// f32: the f32 cores, W warps.  Thread (lane, warp) owns rows warp + W r
+// and the column pairs 2 lane + 64 s.  Tiles are f32 with rows padded by one word.
+template <int W>
+struct FmaEngine {
+  static constexpr int kW = W, kT = 32 * W;  // warps, threads
+  using Elem = float;
+  static constexpr int kPlanes = 1;
+
+  template <int C>
+  __host__ __device__ static constexpr int plane(int rows) {
+    return round128(rows * (C + 1) * 4);
+  }
+
+  template <int C>
+  struct Tile {
+    float* p;
+  };
+  template <int C>
+  static __device__ __forceinline__ Tile<C> tile(unsigned char* base, int) {
+    return {reinterpret_cast<float*>(base)};
+  }
+
+  template <int M, int NN>
+  struct Acc {
+    static constexpr int R = M / W;
+    static_assert(M % W == 0, "rows");
+    static constexpr int S = (NN + 63) / 64;
+    static constexpr int kPairs = R * S;
+    static constexpr int kRowSlots = R;
+    static constexpr int kColSlots = S;
+    static __device__ __forceinline__ int row_slot(int k) { return k / S; }
+    static __device__ __forceinline__ int col_slot(int k) { return k % S; }
+    float v[R][S][2];
+    __device__ __forceinline__ float* pair(int k) { return v[k / S][k % S]; }
+    static __device__ __forceinline__ bool coord(int k, int& i, int& j) {
+      i = (threadIdx.x >> 5) + W * (k / S);
+      j = 2 * (threadIdx.x & 31) + 64 * (k % S);
+      return j < NN;
+    }
+  };
+
+  template <int M, int NN>
+  static __device__ __forceinline__ void zero(Acc<M, NN>& acc) {
+#pragma unroll
+    for (int k = 0; k < Acc<M, NN>::kPairs; ++k)
+      acc.pair(k)[0] = acc.pair(k)[1] = 0.0f;
+  }
+
+  template <int M, int NN, int K, bool AT, bool BT, bool AS, bool BS, int CA,
+            int CB>
+  static __device__ __forceinline__ void product(Acc<M, NN>& acc, Tile<CA> a,
+                                                 Tile<CB> b) {
+    using A = Acc<M, NN>;
+    const int ty = threadIdx.x >> 5, tx = threadIdx.x & 31;
+#pragma unroll 2
+    for (int k = 0; k < K; ++k) {
+      float av[A::R];
+#pragma unroll
+      for (int r = 0; r < A::R; ++r) {
+        const int i = ty + W * r;
+        av[r] = AT ? a.p[k * (CA + 1) + i] : a.p[i * (CA + 1) + k];
+      }
+#pragma unroll
+      for (int s = 0; s < A::S; ++s) {
+        const int j = 2 * tx + 64 * s;
+        if (NN % 64 != 0 && j >= NN) continue;
+        const float b0 = BT ? b.p[j * (CB + 1) + k] : b.p[k * (CB + 1) + j];
+        const float b1 =
+            BT ? b.p[(j + 1) * (CB + 1) + k] : b.p[k * (CB + 1) + j + 1];
+#pragma unroll
+        for (int r = 0; r < A::R; ++r) {
+          acc.v[r][s][0] = fmaf(av[r], b0, acc.v[r][s][0]);
+          acc.v[r][s][1] = fmaf(av[r], b1, acc.v[r][s][1]);
+        }
+      }
+    }
+  }
+
+  // as MmaEngine's: a row is owned by one warp (its lanes' slots, then a
+  // shuffle tree); a column by one lane of each warp (the warps in order)
+  template <int M, int NN>
+  static __device__ __forceinline__ void put_rows(
+      const float (&part)[Acc<M, NN>::kRowSlots], float* red) {
+#pragma unroll
+    for (int r = 0; r < Acc<M, NN>::kRowSlots; ++r) {
+      const float v = warp_sum(part[r]);
+      if ((threadIdx.x & 31) == 0) red[(threadIdx.x >> 5) + W * r] = v;
+    }
+  }
+  template <int M, int NN>
+  __host__ __device__ static constexpr int row_red() {
+    return M;
+  }
+  template <int M, int NN>
+  static __device__ __forceinline__ float take_row(const float* red, int i) {
+    return red[i];
+  }
+  template <int M, int NN>
+  static __device__ __forceinline__ void put_cols(
+      const float2 (&part)[Acc<M, NN>::kColSlots], float* red) {
+    const int ty = threadIdx.x >> 5;
+#pragma unroll
+    for (int s = 0; s < Acc<M, NN>::kColSlots; ++s) {
+      const int j = 2 * (threadIdx.x & 31) + 64 * s;
+      if (j < NN) {
+        red[ty * NN + j] = part[s].x;
+        red[ty * NN + j + 1] = part[s].y;
+      }
+    }
+  }
+  template <int M, int NN>
+  __host__ __device__ static constexpr int col_red() {
+    return W * NN;
+  }
+  template <int M, int NN>
+  static __device__ __forceinline__ float take_col(const float* red, int j) {
+    float s = 0.0f;
+    for (int w = 0; w < W; ++w) s += red[w * NN + j];
+    return s;
+  }
+
+  template <int C>
+  static __device__ __forceinline__ void store2(Tile<C> t, int r, int c,
+                                                float v0, float v1) {
+    t.p[r * (C + 1) + c] = v0;
+    t.p[r * (C + 1) + c + 1] = v1;
+  }
+
+  template <int C>
+  static __device__ __forceinline__ float2 get2(Tile<C> t, int r, int c) {
+    return make_float2(t.p[r * (C + 1) + c], t.p[r * (C + 1) + c + 1]);
+  }
+
+  // as MmaEngine::load_rows, f32, all of a thread's loads before its stores
+  template <int C>
+  static __device__ __forceinline__ void load_rows(Tile<C> t, const Elem* src,
+                                                   int64_t stride, int rows,
+                                                   int width, bool) {
+    constexpr int kPer = kQ * C / kT;
+    constexpr int kBatch = kPer < 8 ? kPer : 8;  // loads in flight
+#pragma unroll
+    for (int u0 = 0; u0 < kPer; u0 += kBatch) {
+      float v[kBatch];
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        const int e = threadIdx.x + (u0 + u) * kT;
+        const int r = e / C, c = e - r * C;
+        v[u] = r < rows && c < width ? src[r * stride + c] : 0.0f;
+      }
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        const int e = threadIdx.x + (u0 + u) * kT;
+        const int r = e / C, c = e - r * C;
+        t.p[r * (C + 1) + c] = v[u];
+      }
+    }
+  }
+
 };
-template <>
-struct EngineOf<__nv_bfloat16> {
-  using type = MmaEngine;
+
+// rows [0, n) of the f32 [n, C] states at s0 (device or shared memory)
+// into tile t0 (rows n..R-1 zero; split where the engine splits) and,
+// where STORE1, of s1 into t1; returns this thread's share of <s0, s1> (0
+// where s1 is null).  Loads go in batches of four float4 pairs, each batch
+// before its stores.
+template <class E, int R, int C, bool STORE1>
+__device__ __forceinline__ float load_states(typename E::template Tile<C> t0,
+                                             const float* s0,
+                                             typename E::template Tile<C> t1,
+                                             const float* s1, int n) {
+  constexpr int kT = E::kT;
+  constexpr int kVec = R * C / 4;
+  constexpr int kPer = (kVec + kT - 1) / kT;
+  constexpr int kBatch = kPer < 4 ? kPer : 4;  // float4 pairs in flight
+  const float4 zero4 = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  float dot = 0.0f;
+#pragma unroll
+  for (int u0 = 0; u0 < kPer; u0 += kBatch) {
+    float4 v0[kBatch], v1[kBatch];
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int e = threadIdx.x + (u0 + u) * kT;
+      const bool ok = (kVec % kT == 0 || e < kVec) && e / (C / 4) < n;
+      v0[u] = ok ? reinterpret_cast<const float4*>(s0)[e] : zero4;
+      v1[u] = ok && s1 != nullptr ? reinterpret_cast<const float4*>(s1)[e]
+                                  : zero4;
+    }
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int e = threadIdx.x + (u0 + u) * kT;
+      if (kVec % kT != 0 && e >= kVec) break;
+      dot += v0[u].x * v1[u].x + v0[u].y * v1[u].y + v0[u].z * v1[u].z +
+             v0[u].w * v1[u].w;
+      const int r = e / (C / 4), c = 4 * (e - r * (C / 4));
+      E::store2(t0, r, c, v0[u].x, v0[u].y);
+      E::store2(t0, r, c + 2, v0[u].z, v0[u].w);
+      if constexpr (STORE1) {
+        E::store2(t1, r, c, v1[u].x, v1[u].y);
+        E::store2(t1, r, c + 2, v1[u].z, v1[u].w);
+      }
+    }
+  }
+  return dot;
+}
+
+// the row sums over j of fn(k, i, j) (a float2: columns j, j + 1) for
+// the outputs of an M x NN product, each warp's share into red (the
+// engine's row_red floats): take_row after a barrier gives row i's sum
+template <class E, int M, int NN, typename Fn>
+__device__ __forceinline__ void put_row_sums(Fn fn, float* red) {
+  using A = typename E::template Acc<M, NN>;
+  float part[A::kRowSlots];
+#pragma unroll
+  for (int r = 0; r < A::kRowSlots; ++r) part[r] = 0.0f;
+#pragma unroll
+  for (int k = 0; k < A::kPairs; ++k) {
+    int i, j;
+    if (A::coord(k, i, j)) {
+      const float2 v = fn(k, i, j);
+      part[A::row_slot(k)] += v.x + v.y;
+    }
+  }
+  E::template put_rows<M, NN>(part, red);
+}
+
+template <typename T, int W>
+struct EngineOf;
+template <int W>
+struct EngineOf<float, W> {
+  using type = FmaEngine<W>;
+};
+template <int W>
+struct EngineOf<__nv_bfloat16, W> {
+  using type = MmaEngine<W>;
 };
 
 template <typename T>
@@ -375,17 +738,22 @@ struct BwdArgs {
   const T* c;
   const float* d;  // null: no D-skip
   const T* dy;
-  float* states;   // [B, H, chunks, N, P] f32
   T* dx;           // [B, L, H, P]
-  float* part_b;   // [B, L, H, slices, N] f32
+  float* ddt;      // [B, L, H]
+  T* db;           // [B, L, G, N]
+  T* dc;
+  float* states;   // [B, H, chunks, N, P]: S_loc, then S_in
+  float* adj;      // [B, H, chunks, N, P]: C, then dS
+  float* totals;   // [B, H, chunks]: T = cum_Q
+  float* part_b;   // [B, L, tiles, N] (G = 1)
   float* part_c;
-  float* part_dt;  // [B, L, H, slices] f32
-  float* part_a;   // [B, H, slices] f32
+  float* part_a;   // [B, chunks, H]
   float* part_d;
   int64_t seq, chunks;
-  int heads, groups, slices, dim_p;
+  int heads, groups, head_tile, tiles;
   Strides xs, dts, bs, cs, dys;
   int64_t a_stride, d_stride;
+  bool dy_vec;     // dy's rows are 16-byte aligned (bf16 cp.async)
 };
 
 // warp 0: cum (inclusive scan of a dt, two tokens a lane), e = exp(cum),
@@ -420,377 +788,492 @@ __device__ __forceinline__ void chunk_decays(float a_h, const float* dt_s,
   if (lane == 0) total_s[0] = total;
 }
 
-// ROWS x W values of a row-major source (row r at src + r * stride; rows
-// past `rows` read as zeros) into f32 shared memory with row pitch PITCH.
-// Each thread issues all its loads before its first store, so a block has
-// up to (ROWS W / 256) loads a thread in flight (with 8 warps an SM, one
-// load at a time left the walk waiting on memory).
-template <int ROWS, int W, int PITCH, typename T>
-__device__ __forceinline__ void load_tile(float* dst, const T* src,
-                                          int64_t stride, int rows) {
-  using B = typename Bits<T>::type;
-  constexpr int kCount = ROWS * W;
-  constexpr int kPer = (kCount + kThreads - 1) / kThreads;
-  // at most kBatch loads a thread in flight: in bf16, 16 or all of them
-  // held the walk's registers past 255 (more spills) and ran slower, 4 too
-  constexpr int kMaxBatch = sizeof(B) == 2 ? 8 : 16;
-  constexpr int kBatch = kPer < kMaxBatch ? kPer : kMaxBatch;
-  const B* bits = reinterpret_cast<const B*>(src);
-#pragma unroll
-  for (int i0 = 0; i0 < kPer; i0 += kBatch) {
-    B v[kBatch];
-#pragma unroll
-    for (int i = 0; i < kBatch; ++i) {
-      const int e = threadIdx.x + (i0 + i) * kThreads;
-      const int r = e / W;
-      v[i] = (kCount % kThreads == 0 || e < kCount) && r < rows
-                 ? bits[r * stride + e % W]
-                 : B(0);
-    }
-#pragma unroll
-    for (int i = 0; i < kBatch; ++i) {
-      const int e = threadIdx.x + (i0 + i) * kThreads;
-      if (kCount % kThreads == 0 || e < kCount)
-        dst[(e / W) * PITCH + e % W] = bits_to_f32(v[i]);
-    }
-  }
+// head h's rows of the chunk: x and dy into their tiles, dt into dt_s (0
+// past L; threads 0..Q-1), by cp.async where the engine copies so
+template <class E, int P, typename T>
+__device__ __forceinline__ void load_head(const BwdArgs<T>& args,
+                                          typename E::template Tile<P> xt,
+                                          typename E::template Tile<P> dyt,
+                                          float* dt_s, int64_t bb, int h,
+                                          int64_t l0, int rows) {
+  E::load_rows(xt, args.x + bb * args.xs.b + h * args.xs.h + l0 * args.xs.l,
+               args.xs.l, rows, P, true);
+  E::load_rows(dyt,
+               args.dy + bb * args.dys.b + h * args.dys.h + l0 * args.dys.l,
+               args.dys.l, rows, P, args.dy_vec);
+  const int r = threadIdx.x;
+  if (r < kQ)
+    cp_async4(smem_u32(dt_s + r),
+              args.dt + bb * args.dts.b + h * args.dts.h +
+                  (l0 + (r < rows ? r : 0)) * args.dts.l,
+              r < rows);
 }
 
-// rows [Q][W] of a [B, L, H, ·] input (element strides st) at token l0 into
-// f32 shared memory with row pitch PITCH; zeros past L
-template <int W, int PITCH, typename T>
-__device__ __forceinline__ void load_rows(float* dst, const T* src,
-                                          Strides st, int64_t l0, int rows) {
-  load_tile<kQ, W, PITCH>(dst, src + l0 * st.l, st.l, rows);
+// the N columns of b and c a head reads (G = 1: shared by every head)
+template <class E, int NP, typename T>
+__device__ __forceinline__ void load_bc(const BwdArgs<T>& args,
+                                        typename E::template Tile<NP> bt,
+                                        typename E::template Tile<NP> ct,
+                                        int64_t bb, int grp, int64_t l0,
+                                        int rows, int n) {
+  E::load_rows(bt, args.b + bb * args.bs.b + grp * args.bs.h + l0 * args.bs.l,
+               args.bs.l, rows, n, true);
+  E::load_rows(ct, args.c + bb * args.cs.b + grp * args.cs.h + l0 * args.cs.l,
+               args.cs.l, rows, n, true);
 }
 
-// Shared memory of the two walks, in floats
-template <int PS, int N>
-struct Smem {
-  static constexpr int kPX = PS + 1;  // row pitch of x, dy, S, dS
-  static constexpr int kPN = N + 1;   // row pitch of b, c
-  static constexpr int kX = 0;
-  static constexpr int kDy = kX + kQ * kPX;
-  static constexpr int kB = kDy + kQ * kPX;
-  static constexpr int kC = kB + kQ * kPN;
-  static constexpr int kSin = kC + kQ * kPN;
-  static constexpr int kDs = kSin + N * kPX;
-  static constexpr int kW = kDs + N * kPX;
-  static constexpr int kDcb = kW + kQ * kPitchQ;
-  static constexpr int kVec = kDcb + kQ * kPitchQ;
-  // vectors of Q: dt, cum, e, g, f, row sums of dW o W, df, S_in dy . c
-  static constexpr int kRed = kVec + 8 * kQ;    // [kWarps][max(Q, N)]
-  static constexpr int kCol = kRed + kWarps * (N > kQ ? N : kQ);
-  static constexpr int kMisc = kCol + 2 * kWarps * kQ;  // column partials
-  static constexpr int kFloats = kMisc + 4 * kWarps;
-  // the state recompute: b, x, S and the vectors
-  static constexpr int kStatesFloats = kQ * kPN + kQ * kPX + N * kPX + 8 * kQ;
+// ---------------------------------------------------------------------------
+// (1) S_loc and C of every (batch, chunk, head)
+// ---------------------------------------------------------------------------
+// 8 warps; two blocks an SM in bf16 where a thread's share of the [N, P]
+// outputs leaves it room in 128 registers (N P <= 128 x 64), else one
+template <typename T, int P, int N>
+struct StatesCfg {
+  static constexpr int kW = 8;
+  static constexpr int kNP = (N < 16 ? 16 : N) * P;
+  static constexpr int kMinBlocks = sizeof(T) == 2 && kNP <= 128 * 64 ? 2 : 1;
 };
 
-// blocks an SM the walks ask ptxas to allow: two where their shared memory
-// lets two in (N <= 16), so that one block's loads overlap the other's
-// products, in bf16 (the f32 walk would spill in the 128 registers that
-// leaves a thread); one at N = 128 (208 KB)
-template <typename T, int N>
-constexpr int kMinBlocks =
-    N <= 16 && sizeof(T) == sizeof(__nv_bfloat16) ? 2 : 1;
+template <class E, int P, int N>
+struct StatesSmem {
+  static constexpr int NP = N < 16 ? 16 : N;  // N = 8 padded to the k of 16
+  static constexpr int kB = 0;
+  static constexpr int kC = kB + E::template plane<NP>(kQ);
+  static constexpr int kX = kC + E::template plane<NP>(kQ);
+  static constexpr int kDy = kX + E::template plane<P>(kQ);
+  static constexpr int kBf = kDy + E::template plane<P>(kQ);  // b f, then c e
+  static constexpr int kVec = kBf + E::kPlanes * E::template plane<NP>(kQ);
+  static constexpr int kBytes = kVec + 6 * kQ * 4;  // dt, cum, e, g, f, T
+  static_assert(kBytes <= kMaxSmem, "shared memory");
+};
 
-// (a) S entering each chunk -> states[b, h, z, :, slice]
-template <typename T, int PS, int N>
-__global__ void __launch_bounds__(kThreads, kMinBlocks<T, N>)
-    ssd_bwd_states_kernel(const BwdArgs<T> args) {
-  using E = typename EngineOf<T>::type;
-  using S = Smem<PS, N>;
-  extern __shared__ float sm[];
-  float* b_s = sm;                                // [Q][N + 1]
-  float* x_s = b_s + kQ * S::kPN;                 // [Q][PS + 1]
-  float* st_s = x_s + kQ * S::kPX;                // [N][PS + 1]
-  float* dt_s = st_s + N * S::kPX;
+template <typename T, int P, int N>
+__global__ void __launch_bounds__(32 * StatesCfg<T, P, N>::kW,
+                                  StatesCfg<T, P, N>::kMinBlocks)
+    ssd_bwd_chunk_states_kernel(const BwdArgs<T> args) {
+  using E = typename EngineOf<T, StatesCfg<T, P, N>::kW>::type;
+  using S = StatesSmem<E, P, N>;
+  constexpr int NP = S::NP;
+  using Acc = typename E::template Acc<NP, P>;
+  extern __shared__ __align__(128) unsigned char sm[];
+  const auto bt = E::template tile<NP>(sm + S::kB, kQ);
+  const auto ct = E::template tile<NP>(sm + S::kC, kQ);
+  const auto xt = E::template tile<P>(sm + S::kX, kQ);
+  const auto dyt = E::template tile<P>(sm + S::kDy, kQ);
+  const auto ft = E::template tile<NP>(sm + S::kBf, kQ);
+  float* dt_s = reinterpret_cast<float*>(sm + S::kVec);
   float* cum_s = dt_s + kQ;
   float* e_s = cum_s + kQ;
   float* g_s = e_s + kQ;
   float* f_s = g_s + kQ;
   float* total_s = f_s + kQ;
 
-  const int p0 = blockIdx.x * PS;
-  const int h = blockIdx.y;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int h0 = blockIdx.x * args.head_tile;
+  const int h1 = min(args.heads, h0 + args.head_tile);
+  const int64_t z = blockIdx.y;
   const int64_t bb = blockIdx.z;
-  const int grp = args.groups == 1 ? 0 : h;
-  const float a_h = args.a[h * args.a_stride];
-  const T* xp = args.x + bb * args.xs.b + h * args.xs.h + p0;
-  const float* dtp = args.dt + bb * args.dts.b + h * args.dts.h;
-  const T* bp = args.b + bb * args.bs.b + grp * args.bs.h;
-  const int64_t P = args.dim_p;
-  float* out = args.states +
-               (bb * args.heads + h) * args.chunks * N * P + p0;
+  const int64_t l0 = z * kQ;
+  const int rows =
+      static_cast<int>(args.seq - l0 < kQ ? args.seq - l0 : kQ);
+  const bool shared_bc = args.groups == 1;
+  if (shared_bc) load_bc<E, NP>(args, bt, ct, bb, 0, l0, rows, N);
 
-  for (int e = threadIdx.x; e < N * PS; e += kThreads)
-    st_s[(e / PS) * S::kPX + e % PS] = 0.0f;
-
-  for (int64_t z = 0; z < args.chunks; ++z) {
-    const int64_t l0 = z * kQ;
-    const int rows = static_cast<int>(
-        args.seq - l0 < kQ ? args.seq - l0 : kQ);
-    load_rows<N, S::kPN>(b_s, bp, args.bs, l0, rows);
-    load_rows<PS, S::kPX>(x_s, xp, args.xs, l0, rows);
-    for (int r = threadIdx.x; r < kQ; r += kThreads)
-      dt_s[r] = r < rows ? dtp[(l0 + r) * args.dts.l] : 0.0f;
+  for (int h = h0; h < h1; ++h) {
+    __syncthreads();  // the previous head is done with the tiles
+    if (!shared_bc) load_bc<E, NP>(args, bt, ct, bb, h, l0, rows, N);
+    load_head<E, P>(args, xt, dyt, dt_s, bb, h, l0, rows);
+    cp_async_wait_all();
     __syncthreads();
-    // the state entering chunk z out, 16-byte rows of PS columns
-    float* oz = out + z * N * P;
-    for (int e = threadIdx.x; e < N * PS; e += kThreads) {
-      const int n = e / PS, p = e - n * PS;
-      oz[n * P + p] = st_s[n * S::kPX + p];
+    const int64_t head = (bb * args.heads + h) * args.chunks + z;
+    if (warp == 0) {
+      chunk_decays(args.a[h * args.a_stride], dt_s, cum_s, e_s, g_s, f_s,
+                   total_s);
+      if (lane == 0) args.totals[head] = total_s[0];
     }
-    if (threadIdx.x < 32)
-      chunk_decays(a_h, dt_s, cum_s, e_s, g_s, f_s, total_s);
-    __syncthreads();
-    // S = exp(T) S + sum_j (b_j f_j) x_j^T
-    typename E::template Acc<N, PS> acc;
-    E::zero(acc);
-    E::template product<N, PS, kQ, true, false>(
-        acc, [&](int n, int j) { return b_s[j * S::kPN + n] * f_s[j]; },
-        [&](int j, int p) { return x_s[j * S::kPX + p]; });
-    const float decay = expf(total_s[0]);
-    E::epilogue(acc, acc, nullptr, nullptr,
-                [&](int n, int p, float v, float) {
-                  float* sp = st_s + n * S::kPX + p;
-                  *sp = decay * *sp + v;
-                  return 0.0f;
-                });
+    // S_loc = (b f)^T x, then C = (c e)^T dy: [N, P] f32 out; b f and c e
+    // take turns in one split tile
+#pragma unroll 1
+    for (int o = 0; o < 2; ++o) {
+      __syncthreads();  // the decays are in; the first product is done
+      for (int k = threadIdx.x; k < kQ * NP / 2; k += E::kT) {
+        const int r = k / (NP / 2), c = 2 * (k - r * (NP / 2));
+        const float2 v = E::get2(o == 0 ? bt : ct, r, c);
+        const float w = (o == 0 ? f_s : e_s)[r];
+        E::store2(ft, r, c, v.x * w, v.y * w);
+      }
+      __syncthreads();
+      Acc s;
+      E::zero(s);
+      E::template product<NP, P, kQ, true, false, true, false>(
+          s, ft, o == 0 ? xt : dyt);
+      float* out = (o == 0 ? args.states : args.adj) + head * N * P;
+#pragma unroll
+      for (int k = 0; k < Acc::kPairs; ++k) {
+        int i, j;
+        if (Acc::coord(k, i, j) && i < N)
+          store_pair(out + i * P + j, s.pair(k)[0], s.pair(k)[1]);
+      }
+    }
   }
 }
 
-// (b) the reverse walk
-template <typename T, int PS, int N>
-__global__ void __launch_bounds__(kThreads, kMinBlocks<T, N>)
-    ssd_bwd_kernel(const BwdArgs<T> args) {
-  using E = typename EngineOf<T>::type;
-  using S = Smem<PS, N>;
-  extern __shared__ float sm[];
-  float* x_s = sm + S::kX;        // [Q][PS + 1]
-  float* dy_s = sm + S::kDy;      // [Q][PS + 1]
-  float* b_s = sm + S::kB;        // [Q][N + 1]
-  float* c_s = sm + S::kC;        // [Q][N + 1]
-  float* sin_s = sm + S::kSin;    // [N][PS + 1]: S entering the chunk
-  float* ds_s = sm + S::kDs;      // [N][PS + 1]: dS leaving it
-  float* w_s = sm + S::kW;        // [Q][Q + 1]: CB, then W
-  float* dcb_s = sm + S::kDcb;    // [Q][Q + 1]: dW, then dCB
-  float* dt_s = sm + S::kVec;
+// ---------------------------------------------------------------------------
+// (2) the state pass: S_loc -> S_in forward, C -> dS backward, in place
+// ---------------------------------------------------------------------------
+// One batch of kPassDepth chunks of a thread's walks: the forward walk's
+// chunks z0.. and the backward walk's chunks Z-1-z0.. (loads, then stores)
+struct PassBatch {
+  float4 vs[kPassDepth], va[kPassDepth];
+  float ts[kPassDepth], ta[kPassDepth];
+};
+
+__device__ __forceinline__ void pass_load(PassBatch& q, const float4* sp,
+                                          const float4* ap, const float* tp,
+                                          int64_t z0, int64_t chunks,
+                                          int64_t np4) {
+#pragma unroll
+  for (int u = 0; u < kPassDepth; ++u) {
+    const int64_t zf = z0 + u, zb = chunks - 1 - zf;
+    if (zf < chunks) {
+      q.vs[u] = sp[zf * np4];
+      q.va[u] = ap[zb * np4];
+      q.ts[u] = tp[zf];
+      q.ta[u] = tp[zb];
+    }
+  }
+}
+
+__device__ __forceinline__ void pass_step(const PassBatch& q, float4* sp,
+                                          float4* ap, float4& s, float4& d,
+                                          int64_t z0, int64_t chunks,
+                                          int64_t np4) {
+#pragma unroll
+  for (int u = 0; u < kPassDepth; ++u) {
+    const int64_t zf = z0 + u, zb = chunks - 1 - zf;
+    if (zf < chunks) {
+      sp[zf * np4] = s;
+      ap[zb * np4] = d;
+      const float fs = expf(q.ts[u]), fa = expf(q.ta[u]);
+      s = make_float4(fs * s.x + q.vs[u].x, fs * s.y + q.vs[u].y,
+                      fs * s.z + q.vs[u].z, fs * s.w + q.vs[u].w);
+      d = make_float4(fa * d.x + q.va[u].x, fa * d.y + q.va[u].y,
+                      fa * d.z + q.va[u].z, fa * d.w + q.va[u].w);
+    }
+  }
+}
+
+// Each thread walks one float4 of one (batch, head)'s [N, P] through every
+// chunk, both ways.  Two batches of loads alternate, so that one batch is
+// in flight while the other is stored.
+__global__ void __launch_bounds__(kPassThreads, 2)
+    ssd_bwd_state_pass_kernel(float* __restrict__ states,
+                              float* __restrict__ adj,
+                              const float* __restrict__ totals,
+                              int64_t count, int64_t chunks, int64_t np4) {
+  const int64_t e = blockIdx.x * static_cast<int64_t>(kPassThreads) +
+                    threadIdx.x;
+  if (e >= count) return;
+  const int64_t bh = e / np4;
+  const int64_t off = bh * chunks * np4 + (e - bh * np4);
+  float4* sp = reinterpret_cast<float4*>(states) + off;
+  float4* ap = reinterpret_cast<float4*>(adj) + off;
+  const float* tp = totals + bh * chunks;
+  float4 s = make_float4(0.0f, 0.0f, 0.0f, 0.0f), d = s;
+  PassBatch qa, qb;
+  pass_load(qa, sp, ap, tp, 0, chunks, np4);
+  for (int64_t z0 = 0; z0 < chunks; z0 += 2 * kPassDepth) {
+    pass_load(qb, sp, ap, tp, z0 + kPassDepth, chunks, np4);
+    pass_step(qa, sp, ap, s, d, z0, chunks, np4);
+    pass_load(qa, sp, ap, tp, z0 + 2 * kPassDepth, chunks, np4);
+    pass_step(qb, sp, ap, s, d, z0 + kPassDepth, chunks, np4);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// (3) the per-chunk products
+// ---------------------------------------------------------------------------
+// 16 warps, one block an SM; 8 (255 registers a thread) where the outputs a
+// thread holds would not fit in 128: f32, and bf16 at P = N = 128
+template <typename T, int P, int N>
+struct ChunkCfg {
+  static constexpr int kW =
+      sizeof(T) == 2 && !(P == 128 && N == 128) ? 16 : 8;
+};
+
+template <class E, int P, int N>
+struct ChunkSmem {
+  static constexpr int NP = N < 16 ? 16 : N;
+  static constexpr int kB = 0;
+  static constexpr int kC = kB + E::template plane<NP>(kQ);
+  static constexpr int kX = kC + E::template plane<NP>(kQ);
+  static constexpr int kDy = kX + E::template plane<P>(kQ);
+  static constexpr int kDs = kDy + E::template plane<P>(kQ);
+  static constexpr int kW = kDs + E::kPlanes * E::template plane<P>(NP);
+  static constexpr int kEnd = kW + E::kPlanes * E::template plane<kQ>(kQ);
+  // the warps' shares of five sums, each read by warp 0 at the end of a
+  // head: rowm and colm (dW o W over rows, columns), colg (dW o CB o L over
+  // columns), df, vin
+  static constexpr int kRedRowm = 0;
+  static constexpr int kRedColm = kRedRowm + E::template row_red<kQ, kQ>();
+  static constexpr int kRedColg = kRedColm + E::template col_red<kQ, kQ>();
+  static constexpr int kRedDf = kRedColg + E::template col_red<kQ, kQ>();
+  static constexpr int kRedVin = kRedDf + E::template row_red<kQ, P>();
+  static constexpr int kRedFloats = kRedVin + E::template row_red<kQ, NP>();
+  // dt, cum, e, g, f [Q]; the sums' shares; the per-warp shares of
+  // <S_in, dS> and dd; T
+  static constexpr int kVecBytes =
+      (5 * kQ + kRedFloats + 2 * E::kW + 4) * 4;
+  static constexpr int kSinBytes = E::kPlanes * E::template plane<P>(NP);
+  // S_in beside dS where both fit, else in dS's place after db
+  static constexpr bool kTwoS = kEnd + kSinBytes + kVecBytes <= kMaxSmem;
+  static constexpr int kSin = kTwoS ? kEnd : kDs;
+  static constexpr int kVec = kEnd + (kTwoS ? kSinBytes : 0);
+  static constexpr int kBytes = kVec + kVecBytes;
+  static_assert(kBytes <= kMaxSmem, "shared memory");
+};
+
+template <typename T, int P, int N>
+__global__ void __launch_bounds__(32 * ChunkCfg<T, P, N>::kW, 1)
+    ssd_bwd_chunk_kernel(const BwdArgs<T> args) {
+  using E = typename EngineOf<T, ChunkCfg<T, P, N>::kW>::type;
+  using S = ChunkSmem<E, P, N>;
+  constexpr int NP = S::NP;
+  using AccQQ = typename E::template Acc<kQ, kQ>;
+  using AccQP = typename E::template Acc<kQ, P>;
+  using AccQN = typename E::template Acc<kQ, NP>;
+  extern __shared__ __align__(128) unsigned char sm[];
+  const auto bt = E::template tile<NP>(sm + S::kB, kQ);
+  const auto ct = E::template tile<NP>(sm + S::kC, kQ);
+  const auto xt = E::template tile<P>(sm + S::kX, kQ);
+  const auto dyt = E::template tile<P>(sm + S::kDy, kQ);
+  const auto dst = E::template tile<P>(sm + S::kDs, NP);
+  const auto sint = E::template tile<P>(sm + S::kSin, NP);
+  const auto wt = E::template tile<kQ>(sm + S::kW, kQ);  // W, then dCB
+  float* dt_s = reinterpret_cast<float*>(sm + S::kVec);
   float* cum_s = dt_s + kQ;
   float* e_s = cum_s + kQ;
   float* g_s = e_s + kQ;
   float* f_s = g_s + kQ;
-  float* rowm_s = f_s + kQ;       // sum_j dW_ij W_ij
-  float* df_s = rowm_s + kQ;      // x_j . (dS^T b_j)
-  float* vin_s = df_s + kQ;       // c_i . (S_in dy_i)
-  float* red_s = sm + S::kRed;
-  float* colm_s = sm + S::kCol;   // [kWarps][Q] partial column sums of M
-  float* colg_s = colm_s + kWarps * kQ;  // ... of dW o CB o L
-  float* misc_s = sm + S::kMisc;  // [0]: T, [1 + w]: warp partials
+  float* red_s = f_s + kQ;
+  float* rowm_r = red_s + S::kRedRowm;  // sum_j dW_ij W_ij
+  float* colm_r = red_s + S::kRedColm;  // sum_i dW_ij W_ij
+  float* colg_r = red_s + S::kRedColg;  // sum_i dW_ij CB_ij L_ij
+  float* df_r = red_s + S::kRedDf;      // x_j . (dS^T b_j)
+  float* vin_r = red_s + S::kRedVin;    // c_i . (S_in dy_i)
+  float* sds_s = red_s + S::kRedFloats;  // [W]
+  float* dd_s = sds_s + E::kW;    // [W]
+  float* total_s = dd_s + E::kW;
 
-  const int tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5;
-  const int slice = blockIdx.x;
-  const int p0 = slice * PS;
-  const int h = blockIdx.y;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int ht = blockIdx.x;
+  const int h0 = ht * args.head_tile;
+  const int h1 = min(args.heads, h0 + args.head_tile);
+  const int64_t z = blockIdx.y;
   const int64_t bb = blockIdx.z;
-  const int grp = args.groups == 1 ? 0 : h;
-  const float a_h = args.a[h * args.a_stride];
+  const int64_t l0 = z * kQ;
+  const int rows =
+      static_cast<int>(args.seq - l0 < kQ ? args.seq - l0 : kQ);
+  const int H = args.heads;
+  const bool shared_bc = args.groups == 1;
   const bool has_d = args.d != nullptr;
-  const float d_h = has_d ? args.d[h * args.d_stride] : 0.0f;
-  const T* xp = args.x + bb * args.xs.b + h * args.xs.h + p0;
-  const T* dyp = args.dy + bb * args.dys.b + h * args.dys.h + p0;
-  const float* dtp = args.dt + bb * args.dts.b + h * args.dts.h;
-  const T* bp = args.b + bb * args.bs.b + grp * args.bs.h;
-  const T* cp = args.c + bb * args.cs.b + grp * args.cs.h;
-  const int64_t P = args.dim_p;
-  const float* states = args.states +
-                        (bb * args.heads + h) * args.chunks * N * P + p0;
-  const int64_t dx_row = static_cast<int64_t>(args.heads) * P;
-  T* dxp = args.dx + bb * args.seq * dx_row + h * P + p0;
-  // partial rows: [B, L, H, slices, ·]
-  const int64_t hs = static_cast<int64_t>(args.heads) * args.slices;
-  const int64_t part_row0 = bb * args.seq * hs + h * args.slices + slice;
 
-  for (int e = tid; e < N * PS; e += kThreads)
-    ds_s[(e / PS) * S::kPX + e % PS] = 0.0f;
-  float da_acc = 0.0f, dd_acc = 0.0f;
+  AccQN db, dc;  // G = 1: the sums over the tile's heads
+  E::zero(db);
+  E::zero(dc);
+  AccQQ cb;
+  if (shared_bc) load_bc<E, NP>(args, bt, ct, bb, 0, l0, rows, N);
 
-  for (int64_t z = args.chunks - 1; z >= 0; --z) {
-    const int64_t l0 = z * kQ;
-    const int rows = static_cast<int>(
-        args.seq - l0 < kQ ? args.seq - l0 : kQ);
-    // ---- load the chunk; zeros past L ------------------------------------
-    load_rows<PS, S::kPX>(x_s, xp, args.xs, l0, rows);
-    load_rows<PS, S::kPX>(dy_s, dyp, args.dys, l0, rows);
-    load_rows<N, S::kPN>(b_s, bp, args.bs, l0, rows);
-    load_rows<N, S::kPN>(c_s, cp, args.cs, l0, rows);
-    for (int r = tid; r < kQ; r += kThreads)
-      dt_s[r] = r < rows ? dtp[(l0 + r) * args.dts.l] : 0.0f;
-    load_tile<N, PS, S::kPX>(sin_s, states + z * N * P, P, N);
+  for (int h = h0; h < h1; ++h) {
+    const float a_h = args.a[h * args.a_stride];
+    const float d_h = has_d ? args.d[h * args.d_stride] : 0.0f;
+    const int64_t head = (bb * H + h) * args.chunks + z;
+    const float* sin_g = args.states + head * N * P;
+    __syncthreads();  // the previous head is done with every tile
+    load_head<E, P>(args, xt, dyt, dt_s, bb, h, l0, rows);
+    if (!shared_bc) load_bc<E, NP>(args, bt, ct, bb, h, l0, rows, N);
+    float sds = load_states<E, NP, P, S::kTwoS>(
+        dst, args.adj + head * N * P, sint, sin_g, N);
+    sds = warp_sum(sds);
+    if (lane == 0) sds_s[warp] = sds;
+    cp_async_wait_all();
+    __syncthreads();  // head h's loads have landed
+    if (warp == 0) chunk_decays(a_h, dt_s, cum_s, e_s, g_s, f_s, total_s);
     __syncthreads();
-    if (warp == 0)
-      chunk_decays(a_h, dt_s, cum_s, e_s, g_s, f_s, misc_s);
-    // ---- CB = c b^T and dW = dy x^T --------------------------------------
-    {
-      typename E::template Acc<kQ, kQ> cb, dw;
+
+    // ---- CB = c b^T (once a block for one group) and dW = dy x^T ---------
+    if (!shared_bc || h == h0) {
       E::zero(cb);
-      E::zero(dw);
-      E::template product<kQ, kQ, N, false, false>(
-          cb, [&](int i, int k) { return c_s[i * S::kPN + k]; },
-          [&](int k, int j) { return b_s[j * S::kPN + k]; });
-      E::template product<kQ, kQ, PS, false, false>(
-          dw, [&](int i, int k) { return dy_s[i * S::kPX + k]; },
-          [&](int k, int j) { return x_s[j * S::kPX + k]; });
-      E::epilogue(cb, dw, nullptr, nullptr,
-                  [&](int i, int j, float v1, float v2) {
-                    w_s[i * kPitchQ + j] = v1;
-                    dcb_s[i * kPitchQ + j] = v2;
-                    return 0.0f;
-                  });
+      E::template product<kQ, kQ, NP, false, true, false, false>(cb, ct, bt);
     }
-    // ---- W, dCB, and the sums of M = dW o W and dW o CB o L --------------
-    // warp w: rows 8w..8w+7; lane: columns lane and lane + 32
-    {
-      float cm[2] = {0.0f, 0.0f}, cg[2] = {0.0f, 0.0f};
-      for (int r = 0; r < kQ / kWarps; ++r) {
-        const int i = warp * (kQ / kWarps) + r;
-        const float ci = cum_s[i];
-        float rm = 0.0f;
+    AccQQ dw;
+    E::zero(dw);
+    E::template product<kQ, kQ, P, false, true, false, false>(dw, dyt, xt);
+    // W into the tile; dCB replaces dW in registers; the sums of dW o W
+    // over each row and column and of dW o CB o L over each column
+    float rowm[AccQQ::kRowSlots];
+    float2 colm[AccQQ::kColSlots], colg[AccQQ::kColSlots];
 #pragma unroll
-        for (int u = 0; u < 2; ++u) {
-          const int j = lane + 32 * u;
-          float* wp = w_s + i * kPitchQ + j;
-          float* dp = dcb_s + i * kPitchQ + j;
-          float wv = 0.0f, dcb = 0.0f, m = 0.0f, gt = 0.0f;
-          if (j <= i) {
-            const float l = expf(ci - cum_s[j]);
-            const float cbl = *wp * l;
-            const float dwv = *dp;
-            wv = cbl * dt_s[j];
-            dcb = dwv * l * dt_s[j];
-            m = dwv * wv;
-            gt = dwv * cbl;
-          }
-          *wp = wv;
-          *dp = dcb;
-          rm += m;
-          cm[u] += m;
-          cg[u] += gt;
-        }
-        rm = warp_sum(rm);
-        if (lane == 0) rowm_s[i] = rm;
-      }
+    for (int r = 0; r < AccQQ::kRowSlots; ++r) rowm[r] = 0.0f;
+#pragma unroll
+    for (int c = 0; c < AccQQ::kColSlots; ++c)
+      colm[c] = colg[c] = make_float2(0.0f, 0.0f);
+#pragma unroll
+    for (int k = 0; k < AccQQ::kPairs; ++k) {
+      int i, j;
+      if (!AccQQ::coord(k, i, j)) continue;
+      const float ci = cum_s[i];
+      float wv[2], mv[2], gv[2];
 #pragma unroll
       for (int u = 0; u < 2; ++u) {
-        colm_s[warp * kQ + lane + 32 * u] = cm[u];
-        colg_s[warp * kQ + lane + 32 * u] = cg[u];
+        const int jj = j + u;
+        const float l = jj <= i ? expf(ci - cum_s[jj]) : 0.0f;
+        const float cbl = cb.pair(k)[u] * l;
+        const float dwv = dw.pair(k)[u];
+        wv[u] = cbl * dt_s[jj];
+        mv[u] = dwv * wv[u];
+        gv[u] = dwv * cbl;
+        dw.pair(k)[u] = dwv * l * dt_s[jj];
+      }
+      E::store2(wt, i, j, wv[0], wv[1]);
+      rowm[AccQQ::row_slot(k)] += mv[0] + mv[1];
+      colm[AccQQ::col_slot(k)].x += mv[0];
+      colm[AccQQ::col_slot(k)].y += mv[1];
+      colg[AccQQ::col_slot(k)].x += gv[0];
+      colg[AccQQ::col_slot(k)].y += gv[1];
+    }
+    E::template put_rows<kQ, kQ>(rowm, rowm_r);
+    E::template put_cols<kQ, kQ>(colm, colm_r);
+    E::template put_cols<kQ, kQ>(colg, colg_r);
+
+    // ---- dx = W^T dy + f (b dS) + d dy; df = x . (b dS) -------------------
+    {
+      AccQP ax;
+      E::zero(ax);
+      E::template product<kQ, P, NP, false, false, false, true>(ax, bt, dst);
+      put_row_sums<E, kQ, P>(
+          [&](int k, int i, int j) {
+            const float2 xv = E::get2(xt, i, j);
+            return make_float2(xv.x * ax.pair(k)[0], xv.y * ax.pair(k)[1]);
+          },
+          df_r);
+#pragma unroll
+      for (int k = 0; k < AccQP::kPairs; ++k) {
+        int i, j;
+        if (AccQP::coord(k, i, j)) {
+          ax.pair(k)[0] *= f_s[i];
+          ax.pair(k)[1] *= f_s[i];
+        }
+      }
+      __syncthreads();  // W is in its tile
+      E::template product<kQ, P, kQ, true, false, true, false>(ax, wt, dyt);
+      T* dxp = args.dx + ((bb * args.seq + l0) * H + h) * P;
+      float dd = 0.0f;
+#pragma unroll
+      for (int k = 0; k < AccQP::kPairs; ++k) {
+        int i, j;
+        if (!AccQP::coord(k, i, j)) continue;
+        const float2 yv = E::get2(dyt, i, j), xv = E::get2(xt, i, j);
+        dd += yv.x * xv.x + yv.y * xv.y;
+        if (i < rows)
+          store_pair(dxp + static_cast<int64_t>(i) * H * P + j,
+                     ax.pair(k)[0] + d_h * yv.x, ax.pair(k)[1] + d_h * yv.y);
+      }
+      dd = warp_sum(dd);
+      if (lane == 0) dd_s[warp] = dd;
+    }
+    __syncthreads();  // W is read: dCB takes its place
+#pragma unroll
+    for (int k = 0; k < AccQQ::kPairs; ++k) {
+      int i, j;
+      if (AccQQ::coord(k, i, j))
+        E::store2(wt, i, j, dw.pair(k)[0], dw.pair(k)[1]);
+    }
+    __syncthreads();
+
+    // ---- db = dCB^T c + f (x dS^T) ----------------------------------------
+    {
+      AccQN u;
+      E::zero(u);
+      E::template product<kQ, NP, P, false, true, false, true>(u, xt, dst);
+      if (!shared_bc) E::zero(db);
+#pragma unroll
+      for (int k = 0; k < AccQN::kPairs; ++k) {
+        int i, j;
+        if (AccQN::coord(k, i, j)) {
+          db.pair(k)[0] = fmaf(f_s[i], u.pair(k)[0], db.pair(k)[0]);
+          db.pair(k)[1] = fmaf(f_s[i], u.pair(k)[1], db.pair(k)[1]);
+        }
+      }
+      E::template product<kQ, NP, kQ, true, false, true, false>(db, wt, ct);
+    }
+    if constexpr (!S::kTwoS) {  // S_in into dS's place
+      __syncthreads();
+      load_states<E, NP, P, false>(dst, sin_g, dst, nullptr, N);
+      __syncthreads();
+    }
+
+    // ---- dc = dCB b + e (dy S_in^T); vin = c . (dy S_in^T) ---------------
+    {
+      AccQN u;
+      E::zero(u);
+      E::template product<kQ, NP, P, false, true, false, true>(u, dyt, sint);
+      put_row_sums<E, kQ, NP>(
+          [&](int k, int i, int j) {
+            const float2 cv = E::get2(ct, i, j);
+            return make_float2(cv.x * u.pair(k)[0], cv.y * u.pair(k)[1]);
+          },
+          vin_r);
+      if (!shared_bc) E::zero(dc);
+#pragma unroll
+      for (int k = 0; k < AccQN::kPairs; ++k) {
+        int i, j;
+        if (AccQN::coord(k, i, j)) {
+          dc.pair(k)[0] = fmaf(e_s[i], u.pair(k)[0], dc.pair(k)[0]);
+          dc.pair(k)[1] = fmaf(e_s[i], u.pair(k)[1], dc.pair(k)[1]);
+        }
+      }
+      E::template product<kQ, NP, kQ, false, false, true, false>(dc, wt, bt);
+    }
+    if (!shared_bc) {  // this head's db and dc out
+      const int64_t row = static_cast<int64_t>(args.groups) * N;
+      T* dbp = args.db + (bb * args.seq + l0) * row + h * N;
+      T* dcp = args.dc + (bb * args.seq + l0) * row + h * N;
+#pragma unroll
+      for (int k = 0; k < AccQN::kPairs; ++k) {
+        int i, j;
+        if (AccQN::coord(k, i, j) && i < rows && j < N) {
+          store_pair(dbp + i * row + j, db.pair(k)[0], db.pair(k)[1]);
+          store_pair(dcp + i * row + j, dc.pair(k)[0], dc.pair(k)[1]);
+        }
       }
     }
-    __syncthreads();
-    // ---- dx = W^T dy + f (b dS) + d dy; df_j = x_j . (b dS)_j --------------
-    {
-      typename E::template Acc<kQ, PS> v1, v2;
-      E::zero(v1);
-      E::zero(v2);
-      E::template product<kQ, PS, kQ, true, false>(
-          v1, [&](int j, int i) { return w_s[i * kPitchQ + j]; },
-          [&](int i, int p) { return dy_s[i * S::kPX + p]; });
-      E::template product<kQ, PS, N, false, true>(
-          v2, [&](int j, int n) { return b_s[j * S::kPN + n]; },
-          [&](int n, int p) { return ds_s[n * S::kPX + p]; });
-      E::epilogue(v1, v2, df_s, red_s,
-                  [&](int j, int p, float u1, float u2) {
-                    const float dyv = dy_s[j * S::kPX + p];
-                    const float xv = x_s[j * S::kPX + p];
-                    if (j < rows)
-                      dxp[(l0 + j) * dx_row + p] =
-                          from_f32<T>(u1 + f_s[j] * u2 + d_h * dyv);
-                    dd_acc += dyv * xv;
-                    return xv * u2;
-                  });
-    }
-    // ---- dc = dCB b + e (dy S_in^T); vin_i = c_i . (dy S_in^T)_i -----------
-    {
-      typename E::template Acc<kQ, N> v1, v2;
-      E::zero(v1);
-      E::zero(v2);
-      E::template product<kQ, N, kQ, true, false>(
-          v1, [&](int i, int j) { return dcb_s[i * kPitchQ + j]; },
-          [&](int j, int n) { return b_s[j * S::kPN + n]; });
-      E::template product<kQ, N, PS, false, true>(
-          v2, [&](int i, int p) { return dy_s[i * S::kPX + p]; },
-          [&](int p, int n) { return sin_s[n * S::kPX + p]; });
-      float* part = args.part_c + part_row0 * N;
-      E::epilogue(v1, v2, vin_s, red_s,
-                  [&](int i, int n, float u1, float u2) {
-                    if (i < rows)
-                      part[(l0 + i) * hs * N + n] = u1 + e_s[i] * u2;
-                    return c_s[i * S::kPN + n] * u2;
-                  });
-    }
-    // ---- db = dCB^T c + f (x dS^T) --------------------------------------
-    {
-      typename E::template Acc<kQ, N> v1, v2;
-      E::zero(v1);
-      E::zero(v2);
-      E::template product<kQ, N, kQ, true, false>(
-          v1, [&](int j, int i) { return dcb_s[i * kPitchQ + j]; },
-          [&](int i, int n) { return c_s[i * S::kPN + n]; });
-      E::template product<kQ, N, PS, false, true>(
-          v2, [&](int j, int p) { return x_s[j * S::kPX + p]; },
-          [&](int p, int n) { return ds_s[n * S::kPX + p]; });
-      float* part = args.part_b + part_row0 * N;
-      E::epilogue(v1, v2, nullptr, nullptr,
-                  [&](int j, int n, float u1, float u2) {
-                    if (j < rows)
-                      part[(l0 + j) * hs * N + n] = u1 + f_s[j] * u2;
-                    return 0.0f;
-                  });
-    }
-    // ---- dS_in = exp(T) dS + (e c)^T dy, and <S_in, dS> --------------------
-    // (every read of dS above is behind the epilogues' barriers; each
-    // element is read and written by its one owner)
-    float sds = 0.0f;
-    {
-      typename E::template Acc<N, PS> v1;
-      E::zero(v1);
-      E::template product<N, PS, kQ, true, false>(
-          v1, [&](int n, int i) { return c_s[i * S::kPN + n] * e_s[i]; },
-          [&](int i, int p) { return dy_s[i * S::kPX + p]; });
-      const float decay = expf(misc_s[0]);
-      E::epilogue(v1, v1, nullptr, nullptr,
-                  [&](int n, int p, float u1, float) {
-                    float* dp = ds_s + n * S::kPX + p;
-                    sds += sin_s[n * S::kPX + p] * *dp;
-                    *dp = decay * *dp + u1;
-                    return 0.0f;
-                  });
-    }
-    sds = warp_sum(sds);
-    if (lane == 0) misc_s[1 + warp] = sds;
-    __syncthreads();
-    // ---- d(cum), its reverse cumulative sum, ddt and da: warp 0 ----------
+
+    // ---- d(cum), its reverse cumulative sum, ddt; da and dd: warp 0 -------
+    __syncthreads();  // the sums' shares are in
     if (warp == 0) {
-      const float total = misc_s[0];
-      float sin_ds = 0.0f;
-      for (int w = 0; w < kWarps; ++w) sin_ds += misc_s[1 + w];
+      float sin_ds = 0.0f, ddv = 0.0f;
+      for (int w = 0; w < E::kW; ++w) {
+        sin_ds += sds_s[w];
+        ddv += dd_s[w];
+      }
       // lane owns rows 2 lane and 2 lane + 1
-      float dcum[2], fdf = 0.0f;
+      float dcum[2], df[2], colg[2], fdf = 0.0f;
 #pragma unroll
       for (int u = 0; u < 2; ++u) {
         const int i = 2 * lane + u;
-        float colm = 0.0f;
-        for (int w = 0; w < kWarps; ++w) colm += colm_s[w * kQ + i];
-        const float fd = f_s[i] * df_s[i];
-        dcum[u] = rowm_s[i] - colm + e_s[i] * vin_s[i] - fd;
+        df[u] = E::template take_row<kQ, P>(df_r, i);
+        colg[u] = E::template take_col<kQ, kQ>(colg_r, i);
+        const float fd = f_s[i] * df[u];
+        dcum[u] = E::template take_row<kQ, kQ>(rowm_r, i) -
+                  E::template take_col<kQ, kQ>(colm_r, i) +
+                  e_s[i] * E::template take_row<kQ, NP>(vin_r, i) - fd;
         fdf += fd;
       }
       fdf = warp_sum(fdf);
-      if (lane == 31) dcum[1] += expf(total) * sin_ds + fdf;
+      if (lane == 31) dcum[1] += expf(total_s[0]) * sin_ds + fdf;
       // ds_t = sum_{i >= t} dcum_i: an inclusive scan from the top lane down
-      float pair = dcum[0] + dcum[1];
+      const float pair = dcum[0] + dcum[1];
       float incl = pair;
 #pragma unroll
       for (int off = 1; off < 32; off <<= 1) {
@@ -800,160 +1283,146 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks<T, N>)
       const float above = incl - pair;  // rows past 2 lane + 1
       const float ds1 = above + dcum[1];
       const float ds0 = ds1 + dcum[0];
-      float* part = args.part_dt + part_row0;
+      float da = 0.0f;
 #pragma unroll
       for (int u = 0; u < 2; ++u) {
         const int i = 2 * lane + u;
         const float ds = u ? ds1 : ds0;
-        float colg = 0.0f;
-        for (int w = 0; w < kWarps; ++w) colg += colg_s[w * kQ + i];
         if (i < rows)
-          part[(l0 + i) * hs] = a_h * ds + g_s[i] * df_s[i] + colg;
-        da_acc += dt_s[i] * ds;
+          args.ddt[(bb * args.seq + l0 + i) * H + h] =
+              a_h * ds + g_s[i] * df[u] + colg[u];
+        da += dt_s[i] * ds;
+      }
+      da = warp_sum(da);
+      if (lane == 0) {
+        const int64_t part = (bb * args.chunks + z) * H + h;
+        args.part_a[part] = da;
+        if (has_d) args.part_d[part] = ddv;
       }
     }
-    __syncthreads();
   }
 
-  // da over the chunks (warp 0's lanes), dd over the chunks and the block
-  const int64_t head_part = (bb * args.heads + h) * args.slices + slice;
-  if (warp == 0) {
-    da_acc = warp_sum(da_acc);
-    if (lane == 0) args.part_a[head_part] = da_acc;
-  }
-  dd_acc = warp_sum(dd_acc);
-  if (lane == 0) misc_s[1 + warp] = dd_acc;
-  __syncthreads();
-  if (tid == 0) {
-    float v = 0.0f;
-    for (int w = 0; w < kWarps; ++w) v += misc_s[1 + w];
-    args.part_d[head_part] = v;
+  if (shared_bc) {  // the tile's sums of db and dc out
+    const int64_t row = static_cast<int64_t>(args.tiles) * N;
+    float* pb = args.part_b + (bb * args.seq + l0) * row + ht * N;
+    float* pc = args.part_c + (bb * args.seq + l0) * row + ht * N;
+#pragma unroll
+    for (int k = 0; k < AccQN::kPairs; ++k) {
+      int i, j;
+      if (AccQN::coord(k, i, j) && i < rows && j < N) {
+        store_pair(pb + i * row + j, db.pair(k)[0], db.pair(k)[1]);
+        store_pair(pc + i * row + j, dc.pair(k)[0], dc.pair(k)[1]);
+      }
+    }
   }
 }
 
-// (c) db, dc [B, L, G, N] = sum over the group's heads and the slices
+// ---------------------------------------------------------------------------
+// (4) fixed-order sums of the partials
+// ---------------------------------------------------------------------------
+// db, dc [B, L, 1, N] = sum over the head tiles (G = 1)
 template <typename T>
 __global__ void ssd_bwd_reduce_bc_kernel(const float* __restrict__ part_b,
                                          const float* __restrict__ part_c,
                                          T* __restrict__ db,
                                          T* __restrict__ dc, int64_t rows,
-                                         int heads, int groups, int slices,
-                                         int dim_n) {
+                                         int tiles, int dim_n) {
   const int64_t e = blockIdx.x * static_cast<int64_t>(blockDim.x) +
                     threadIdx.x;
-  const int64_t total = rows * groups * dim_n;  // rows = B L
-  if (e >= total) return;
-  const int n = static_cast<int>(e % dim_n);
-  const int64_t rg = e / dim_n;
-  const int grp = static_cast<int>(rg % groups);
-  const int64_t row = rg / groups;
-  const int per = heads / groups;
-  const int64_t hs = static_cast<int64_t>(heads) * slices;
-  const int64_t base = (row * hs + static_cast<int64_t>(grp) * per * slices) *
-                       dim_n + n;
+  if (e >= rows * dim_n) return;  // rows = B L
+  const int64_t row = e / dim_n;
+  const int64_t base = row * tiles * dim_n + (e - row * dim_n);
   float sb = 0.0f, sc = 0.0f;
-  for (int k = 0; k < per * slices; ++k) {
-    sb += part_b[base + k * dim_n];
-    sc += part_c[base + k * dim_n];
+  for (int t = 0; t < tiles; ++t) {
+    sb += part_b[base + t * dim_n];
+    sc += part_c[base + t * dim_n];
   }
-  db[e] = from_f32<T>(sb);
-  dc[e] = from_f32<T>(sc);
+  store_one(db + e, sb);
+  store_one(dc + e, sc);
 }
 
-// ddt [B, L, H] = sum over the slices
-__global__ void ssd_bwd_reduce_dt_kernel(const float* __restrict__ part,
-                                         float* __restrict__ ddt,
-                                         int64_t count, int slices) {
-  const int64_t e = blockIdx.x * static_cast<int64_t>(blockDim.x) +
-                    threadIdx.x;
-  if (e >= count) return;
-  float v = 0.0f;
-  for (int s = 0; s < slices; ++s) v += part[e * slices + s];
-  ddt[e] = v;
-}
-
-// da, dd [H] = sum over the batch and the slices
+// da, dd [H] = sum over (batch, chunk)
 __global__ void ssd_bwd_reduce_heads_kernel(const float* __restrict__ part_a,
                                             const float* __restrict__ part_d,
                                             float* __restrict__ da,
                                             float* __restrict__ dd,
-                                            int64_t batch, int heads,
-                                            int slices) {
+                                            int64_t count, int heads) {
   const int h = blockIdx.x * blockDim.x + threadIdx.x;
   if (h >= heads) return;
   float sa = 0.0f, sd = 0.0f;
-  for (int64_t b = 0; b < batch; ++b)
-    for (int s = 0; s < slices; ++s) {
-      const int64_t k = (b * heads + h) * slices + s;
-      sa += part_a[k];
-      sd += part_d[k];
-    }
+  for (int64_t k = 0; k < count; ++k) {
+    sa += part_a[k * heads + h];
+    if (dd != nullptr) sd += part_d[k * heads + h];
+  }
   da[h] = sa;
   if (dd != nullptr) dd[h] = sd;
 }
 
-template <typename T, int PS, int N>
-cudaError_t launch(const BwdArgs<T>& args, int64_t batch, T* db, T* dc,
-                   float* ddt, float* da, float* dd, cudaStream_t stream) {
-  using S = Smem<PS, N>;
-  const dim3 grid(static_cast<unsigned>(args.slices),
-                  static_cast<unsigned>(args.heads),
+template <typename T, int P, int N>
+cudaError_t launch(const BwdArgs<T>& args, int64_t batch, float* da,
+                   float* dd, cudaStream_t stream) {
+  const dim3 grid(static_cast<unsigned>(args.tiles),
+                  static_cast<unsigned>(args.chunks),
                   static_cast<unsigned>(batch));
-  auto states = ssd_bwd_states_kernel<T, PS, N>;
-  const int states_bytes = S::kStatesFloats * 4;
+  using ES = typename EngineOf<T, StatesCfg<T, P, N>::kW>::type;
+  auto states = ssd_bwd_chunk_states_kernel<T, P, N>;
+  const int states_bytes = StatesSmem<ES, P, N>::kBytes;
   cudaError_t err = cudaFuncSetAttribute(
       states, cudaFuncAttributeMaxDynamicSharedMemorySize, states_bytes);
   if (err != cudaSuccess) return err;
-  states<<<grid, kThreads, states_bytes, stream>>>(args);
+  states<<<grid, ES::kT, states_bytes, stream>>>(args);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  auto walk = ssd_bwd_kernel<T, PS, N>;
-  const int bytes = S::kFloats * 4;
+
+  const int64_t np4 = static_cast<int64_t>(N) * P / 4;
+  const int64_t count = batch * args.heads * np4;
+  ssd_bwd_state_pass_kernel<<<
+      static_cast<unsigned>((count + kPassThreads - 1) / kPassThreads),
+      kPassThreads, 0, stream>>>(args.states, args.adj, args.totals, count,
+                                 args.chunks, np4);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  using EC = typename EngineOf<T, ChunkCfg<T, P, N>::kW>::type;
+  auto chunk = ssd_bwd_chunk_kernel<T, P, N>;
+  const int chunk_bytes = ChunkSmem<EC, P, N>::kBytes;
   err = cudaFuncSetAttribute(
-      walk, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+      chunk, cudaFuncAttributeMaxDynamicSharedMemorySize, chunk_bytes);
   if (err != cudaSuccess) return err;
-  walk<<<grid, kThreads, bytes, stream>>>(args);
+  chunk<<<grid, EC::kT, chunk_bytes, stream>>>(args);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const int64_t rows = batch * args.seq;
-  const int64_t bc = rows * args.groups * N;
-  ssd_bwd_reduce_bc_kernel<T><<<static_cast<unsigned>((bc + 255) / 256), 256,
-                                0, stream>>>(args.part_b, args.part_c, db, dc,
-                                             rows, args.heads, args.groups,
-                                             args.slices, N);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const int64_t dts = rows * args.heads;
-  ssd_bwd_reduce_dt_kernel<<<static_cast<unsigned>((dts + 255) / 256), 256,
-                             0, stream>>>(args.part_dt, ddt, dts,
-                                          args.slices);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
+
+  if (args.groups == 1) {
+    const int64_t bn = batch * args.seq * N;
+    ssd_bwd_reduce_bc_kernel<T><<<static_cast<unsigned>((bn + 255) / 256),
+                                  256, 0, stream>>>(
+        args.part_b, args.part_c, args.db, args.dc, batch * args.seq,
+        args.tiles, N);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
   ssd_bwd_reduce_heads_kernel<<<(args.heads + 127) / 128, 128, 0, stream>>>(
-      args.part_a, args.part_d, da, dd, batch, args.heads, args.slices);
+      args.part_a, args.part_d, da, dd, batch * args.chunks, args.heads);
   return cudaGetLastError();
 }
 
-template <typename T, int PS>
-cudaError_t launch_n(const BwdArgs<T>& args, int64_t batch, int dim_n, T* db,
-                     T* dc, float* ddt, float* da, float* dd,
-                     cudaStream_t s) {
-  if (dim_n == 8) return launch<T, PS, 8>(args, batch, db, dc, ddt, da, dd, s);
-  if (dim_n == 16)
-    return launch<T, PS, 16>(args, batch, db, dc, ddt, da, dd, s);
-  return launch<T, PS, 128>(args, batch, db, dc, ddt, da, dd, s);
+template <typename T, int P>
+cudaError_t launch_n(const BwdArgs<T>& args, int64_t batch, int dim_n,
+                     float* da, float* dd, cudaStream_t s) {
+  if (dim_n == 8) return launch<T, P, 8>(args, batch, da, dd, s);
+  if (dim_n == 16) return launch<T, P, 16>(args, batch, da, dd, s);
+  return launch<T, P, 128>(args, batch, da, dd, s);
 }
 
 template <typename T>
-cudaError_t launch_typed(const BwdArgs<T>& args, int64_t batch, int dim_n,
-                         void* db, void* dc, float* ddt, float* da,
-                         float* dd, cudaStream_t s) {
-  T* dbt = static_cast<T*>(db);
-  T* dct = static_cast<T*>(dc);
-  switch (args.dim_p) {
-    case 16: return launch_n<T, 16>(args, batch, dim_n, dbt, dct, ddt, da, dd, s);
-    case 32: return launch_n<T, 32>(args, batch, dim_n, dbt, dct, ddt, da, dd, s);
-    default: return launch_n<T, 64>(args, batch, dim_n, dbt, dct, ddt, da, dd, s);
+cudaError_t launch_typed(const BwdArgs<T>& args, int64_t batch, int dim_p,
+                         int dim_n, float* da, float* dd, cudaStream_t s) {
+  switch (dim_p) {
+    case 16: return launch_n<T, 16>(args, batch, dim_n, da, dd, s);
+    case 32: return launch_n<T, 32>(args, batch, dim_n, da, dd, s);
+    case 64: return launch_n<T, 64>(args, batch, dim_n, da, dd, s);
+    default: return launch_n<T, 128>(args, batch, dim_n, da, dd, s);
   }
 }
 
@@ -963,9 +1432,36 @@ bool supported_p(int64_t p) {
 
 bool supported_n(int64_t n) { return n == 8 || n == 16 || n == 128; }
 
-// column slices of P the walk takes, one block each: P / 64 from P = 128
-int slices_of(int64_t dim_p) {
-  return dim_p > 64 ? static_cast<int>(dim_p / 64) : 1;
+// bf16 rows of a [batch, seq, heads, ·] tensor start on 16 bytes
+bool rows_aligned16(const void* p, int64_t batch, int64_t seq, int64_t heads,
+                    int64_t sb, int64_t sl, int64_t sh) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0 &&
+         (batch == 1 || sb * 2 % 16 == 0) && (seq == 1 || sl * 2 % 16 == 0) &&
+         (heads == 1 || sh * 2 % 16 == 0);
+}
+
+template <typename T>
+int run(const void* x, const float* dt, const float* a, const void* b,
+        const void* c, const float* d, const void* dy, void* dx, float* ddt,
+        float* da, void* db, void* dc, float* dd, float* states, float* adj,
+        float* totals, float* part_b, float* part_c, float* part_a,
+        float* part_d, int64_t batch, int64_t seq, int64_t heads,
+        int64_t groups, int64_t dim_p, int64_t dim_n, int64_t head_tile,
+        Strides xs, Strides dts, int64_t a_stride, Strides bs, Strides cs,
+        int64_t d_stride, Strides dys, cudaStream_t s) {
+  const int64_t chunks = (seq + kQ - 1) / kQ;
+  const BwdArgs<T> args{
+      static_cast<const T*>(x), dt, a, static_cast<const T*>(b),
+      static_cast<const T*>(c), d, static_cast<const T*>(dy),
+      static_cast<T*>(dx), ddt, static_cast<T*>(db), static_cast<T*>(dc),
+      states, adj, totals, part_b, part_c, part_a, part_d, seq, chunks,
+      static_cast<int>(heads), static_cast<int>(groups),
+      static_cast<int>(head_tile),
+      static_cast<int>((heads + head_tile - 1) / head_tile), xs, dts, bs, cs,
+      dys, a_stride, d_stride,
+      rows_aligned16(dy, batch, seq, heads, dys.b, dys.l, dys.h)};
+  return launch_typed(args, batch, static_cast<int>(dim_p),
+                      static_cast<int>(dim_n), da, dd, s);
 }
 
 }  // namespace
@@ -976,62 +1472,51 @@ extern "C" {
 // heads] f32, a [heads] f32, b and c [batch, seq, groups, dim_n] of x's
 // type (groups 1 or heads; stride 0 along the group axis allowed), d
 // [heads] f32 or null, all on the current device and read through the
-// given element strides (batch, sequence, head; 1 along dim_p and dim_n).
-// Writes dx [batch, seq, heads, dim_p] (x's type), ddt [batch, seq, heads]
-// f32, da [heads] f32, db and dc [batch, seq, groups, dim_n] (x's type)
-// and, where d is given, dd [heads] f32, all contiguous.  f32 workspaces
-// the wrapper allocates (S = dim_p / 64 from dim_p = 128, else 1): states
-// [batch, heads, ceil(seq / 64), dim_n, dim_p], part_b and part_c [batch,
-// seq, heads, S, dim_n], part_dt [batch, seq, heads, S], part_a and part_d
-// [batch, heads, S].  Launches five kernels on the stream; returns the
-// first launch error (0 on success); it does not synchronise.
+// given element strides (batch, sequence, head; 1 along dim_p and dim_n);
+// bf16 x, b and c need 16-byte base pointers and strides.  Writes dx
+// [batch, seq, heads, dim_p] (x's type), ddt [batch, seq, heads] f32, da
+// [heads] f32, db and dc [batch, seq, groups, dim_n] (x's type) and, where
+// d is given, dd [heads] f32, all contiguous.  f32 workspaces the wrapper
+// allocates (Z = ceil(seq / 64), tiles = ceil(heads / head_tile)): states
+// and adj [batch, heads, Z, dim_n, dim_p], totals [batch, heads, Z],
+// part_b and part_c [batch, seq, tiles, dim_n] (read only where groups is
+// 1), part_a and part_d [batch, Z, heads].  Launches four kernels, five
+// where groups is 1, on the stream; returns the first launch error (0 on
+// success); it does not synchronise.
 int repro_ssd_scan_bwd(const void* x, const float* dt, const float* a,
                        const void* b, const void* c, const float* d,
                        const void* dy, void* dx, float* ddt, float* da,
                        void* db, void* dc, float* dd, float* states,
-                       float* part_b, float* part_c, float* part_dt,
-                       float* part_a, float* part_d, int64_t batch,
-                       int64_t seq, int64_t heads, int64_t groups,
-                       int64_t dim_p, int64_t dim_n, int64_t x_sb,
-                       int64_t x_sl, int64_t x_sh, int64_t dt_sb,
-                       int64_t dt_sl, int64_t dt_sh, int64_t a_stride,
-                       int64_t b_sb, int64_t b_sl, int64_t b_sh,
-                       int64_t c_sb, int64_t c_sl, int64_t c_sh,
-                       int64_t d_stride, int64_t dy_sb, int64_t dy_sl,
-                       int64_t dy_sh, int dtype, void* stream) {
-  if (batch <= 0 || seq <= 0 || heads <= 0 || batch > 65535 ||
-      heads > 65535 || (groups != 1 && groups != heads) ||
-      !supported_p(dim_p) || !supported_n(dim_n) || (d == nullptr) !=
-      (dd == nullptr))
-    return cudaErrorInvalidValue;
+                       float* adj, float* totals, float* part_b,
+                       float* part_c, float* part_a, float* part_d,
+                       int64_t batch, int64_t seq, int64_t heads,
+                       int64_t groups, int64_t dim_p, int64_t dim_n,
+                       int64_t head_tile, int64_t x_sb, int64_t x_sl,
+                       int64_t x_sh, int64_t dt_sb, int64_t dt_sl,
+                       int64_t dt_sh, int64_t a_stride, int64_t b_sb,
+                       int64_t b_sl, int64_t b_sh, int64_t c_sb, int64_t c_sl,
+                       int64_t c_sh, int64_t d_stride, int64_t dy_sb,
+                       int64_t dy_sl, int64_t dy_sh, int dtype, void* stream) {
   const int64_t chunks = (seq + kQ - 1) / kQ;
+  if (batch <= 0 || seq <= 0 || heads <= 0 || batch > 65535 ||
+      chunks > 65535 || heads > 65535 || head_tile <= 0 ||
+      (groups != 1 && groups != heads) || !supported_p(dim_p) ||
+      !supported_n(dim_n) || (d == nullptr) != (dd == nullptr))
+    return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int slices = slices_of(dim_p);
   const Strides xs{x_sb, x_sl, x_sh}, dts{dt_sb, dt_sl, dt_sh},
       bs{b_sb, b_sl, b_sh}, cs{c_sb, c_sl, c_sh}, dys{dy_sb, dy_sl, dy_sh};
-  if (dtype == kF32) {
-    const BwdArgs<float> args{
-        static_cast<const float*>(x), dt, a, static_cast<const float*>(b),
-        static_cast<const float*>(c), d, static_cast<const float*>(dy),
-        states, static_cast<float*>(dx), part_b, part_c, part_dt, part_a,
-        part_d, seq, chunks, static_cast<int>(heads),
-        static_cast<int>(groups), slices, static_cast<int>(dim_p), xs, dts,
-        bs, cs, dys, a_stride, d_stride};
-    return launch_typed(args, batch, static_cast<int>(dim_n), db, dc, ddt, da,
-                        dd, s);
-  }
+  if (dtype == kF32)
+    return run<float>(x, dt, a, b, c, d, dy, dx, ddt, da, db, dc, dd, states,
+                      adj, totals, part_b, part_c, part_a, part_d, batch, seq,
+                      heads, groups, dim_p, dim_n, head_tile, xs, dts,
+                      a_stride, bs, cs, d_stride, dys, s);
   if (dtype != kBF16) return cudaErrorInvalidValue;
-  const BwdArgs<__nv_bfloat16> args{
-      static_cast<const __nv_bfloat16*>(x), dt, a,
-      static_cast<const __nv_bfloat16*>(b),
-      static_cast<const __nv_bfloat16*>(c), d,
-      static_cast<const __nv_bfloat16*>(dy), states,
-      static_cast<__nv_bfloat16*>(dx), part_b, part_c, part_dt, part_a,
-      part_d, seq, chunks, static_cast<int>(heads), static_cast<int>(groups),
-      slices, static_cast<int>(dim_p), xs, dts, bs, cs, dys, a_stride,
-      d_stride};
-  return launch_typed(args, batch, static_cast<int>(dim_n), db, dc, ddt, da,
-                      dd, s);
+  return run<__nv_bfloat16>(x, dt, a, b, c, d, dy, dx, ddt, da, db, dc, dd,
+                            states, adj, totals, part_b, part_c, part_a,
+                            part_d, batch, seq, heads, groups, dim_p, dim_n,
+                            head_tile, xs, dts, a_stride, bs, cs, d_stride,
+                            dys, s);
 }
 
 const char* repro_ssd_scan_bwd_error_string(int code) {

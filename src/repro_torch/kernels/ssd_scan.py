@@ -20,9 +20,13 @@ rounded to x's dtype.
 
 The backward (no TPU counterpart: the JAX package differentiates its plain
 SSD) has the plain version :func:`repro_torch.kernels.ref.ssd_scan_bwd`.
-It recomputes the state entering every chunk into an f32 workspace, walks
-the chunks from the last to the first with the state's gradient on chip,
-and adds its per-head partial sums in a fixed order (no atomics: all six
+It runs chunk-parallel: a first kernel computes, for every (batch, chunk,
+head) at once, the chunk's local state and local adjoint into f32
+workspaces; an elementwise pass turns them into the state entering each
+chunk and the gradient of the state leaving it; a third kernel does every
+per-chunk product, one block per (batch, chunk, tile of
+:data:`BWD_HEAD_TILE` heads).  Partial sums (db and dc over the head tiles,
+da and dd over the chunks) are added in a fixed order (no atomics: all six
 gradients are bit-identical from run to run).  :class:`SsdScanFn` ties the
 two together for autograd.  It takes b and c unexpanded, [B, L, G, N] with
 G = 1 (one group shared by every head, what the model hands over) or G = H,
@@ -63,9 +67,10 @@ CP_ASYNC_ALIGN = 16
 CHUNK = 64
 CB_TILE_FLOATS = 10 * 256
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-#: the backward walks slices of at most this many columns of P, one thread
-#: block each (csrc/ssd_scan_bwd.cu)
-BWD_SLICE = 64
+#: heads a thread block of the backward's per-chunk kernels takes; with one
+#: group of b and c their db and dc are summed over the tile in the block
+#: (csrc/ssd_scan_bwd.cu)
+BWD_HEAD_TILE = 8
 
 launches = LaunchCounter("ssd_scan")
 bwd_launches = LaunchCounter("ssd_scan_bwd")
@@ -75,7 +80,7 @@ _bound = {}
 #: each source's C entry: its pointer and 64-bit integer arguments
 _ARGTYPES = {
     "ssd_scan": [ctypes.c_void_p] * 8 + [ctypes.c_int64] * 20,
-    "ssd_scan_bwd": [ctypes.c_void_p] * 19 + [ctypes.c_int64] * 23,
+    "ssd_scan_bwd": [ctypes.c_void_p] * 20 + [ctypes.c_int64] * 24,
 }
 
 
@@ -188,9 +193,12 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     return y
 
 
-def bwd_slices(P: int) -> int:
-    """Column slices of P the backward walks, one thread block each."""
-    return max(1, P // BWD_SLICE)
+def bwd_head_tiles(H: int) -> list:
+    """The heads of each thread block of the backward's per-chunk kernels,
+    in order: ``range(t T, min(H, (t + 1) T))`` for t < ceil(H / T), T =
+    :data:`BWD_HEAD_TILE`, as the kernels compute them from T."""
+    T = BWD_HEAD_TILE
+    return [range(h, min(H, h + T)) for h in range(0, H, T)]
 
 
 def check_bwd_inputs(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
@@ -220,31 +228,38 @@ def check_bwd_inputs(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
         raise ValueError(f"dy on {dy.device}, x on {x.device}")
 
 
-def bwd_workspace(x: torch.Tensor, N: int):
-    """The backward's f32 scratch for x [B, L, H, P] and state dim N,
-    allocated with ``torch.empty`` (the kernels write every element they
-    read): the states entering each chunk [B, H, ceil(L / CHUNK), N, P],
-    the per-(head, slice) partials of db and dc [B, L, H, S, N] and of ddt
-    [B, L, H, S], and of da and dd [B, H, S], S = ``bwd_slices(P)``."""
+def bwd_workspace(x: torch.Tensor, N: int, groups: int = 1):
+    """The backward's f32 scratch for x [B, L, H, P], state dim N and b, c
+    of ``groups`` groups, allocated with ``torch.empty`` (the kernels write
+    every element they read), in the C entry's order: the local states,
+    then the states entering each chunk, and the local adjoints, then the
+    gradients of the states leaving each chunk, each [B, H, Z, N, P] (Z =
+    ceil(L / CHUNK)); cum_Q of each chunk [B, H, Z]; the per-tile sums of db
+    and dc [B, L, T, N] (T = ``len(bwd_head_tiles(H))``; empty where groups
+    is H, whose db and dc the kernel writes directly); the per-chunk
+    partials of da and dd [B, Z, H]."""
     B, L, H, P = x.shape
-    S = bwd_slices(P)
+    Z = -(-L // CHUNK)
+    T = len(bwd_head_tiles(H)) if groups == 1 else 0
     f32 = dict(dtype=torch.float32, device=x.device)
-    return (torch.empty((B, H, -(-L // CHUNK), N, P), **f32),
-            torch.empty((B, L, H, S, N), **f32),
-            torch.empty((B, L, H, S, N), **f32),
-            torch.empty((B, L, H, S), **f32),
-            torch.empty((B, H, S), **f32), torch.empty((B, H, S), **f32))
+    return (torch.empty((B, H, Z, N, P), **f32),
+            torch.empty((B, H, Z, N, P), **f32),
+            torch.empty((B, H, Z), **f32),
+            torch.empty((B, L, T, N), **f32),
+            torch.empty((B, L, T, N), **f32),
+            torch.empty((B, Z, H), **f32), torch.empty((B, Z, H), **f32))
 
 
 def bwd_call_args(x, dt, a, b, c, dy, d_skip, outs, work) -> tuple:
     """The C entry's arguments: inputs, the outputs (dx, ddt, da, db, dc,
-    dd), the workspace, sizes, strides, dtype and the current stream."""
+    dd), the workspace, sizes, the head tile, strides, dtype and the
+    current stream."""
     B, L, H, P = x.shape
     G, N = b.shape[2], b.shape[3]
     ptr = (lambda t: 0 if t is None else t.data_ptr())
     return (x.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(),
             c.data_ptr(), ptr(d_skip), dy.data_ptr(), *map(ptr, outs),
-            *(t.data_ptr() for t in work), B, L, H, G, P, N,
+            *(t.data_ptr() for t in work), B, L, H, G, P, N, BWD_HEAD_TILE,
             x.stride(0), x.stride(1), x.stride(2),
             dt.stride(0), dt.stride(1), dt.stride(2), a.stride(0),
             b.stride(0), b.stride(1), b.stride(2),
@@ -252,7 +267,8 @@ def bwd_call_args(x, dt, a, b, c, dy, d_skip, outs, work) -> tuple:
             d_skip.stride(0) if d_skip is not None else 0,
             dy.stride(0), dy.stride(1), dy.stride(2),
             _DTYPE_CODES[x.dtype],
-            torch.cuda.current_stream(x.device).cuda_stream)
+            torch.cuda.current_stream(x.device).cuda_stream
+            if x.is_cuda else 0)
 
 
 def ssd_scan_bwd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
@@ -262,9 +278,10 @@ def ssd_scan_bwd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     (G = 1 or H), and the output's gradient dy -> (dx, ddt, da, db, dc,
     dd), contiguous: dx, db and dc in x's dtype (db and dc summed over each
     group's heads), ddt, da and dd in f32, dd None without ``d_skip`` (see
-    ``ref.ssd_scan_bwd``).  Five kernels (the states, the reverse walk, and
-    three fixed-order sums of the partials), counted as one launch; the
-    scratch is :func:`bwd_workspace`'s."""
+    ``ref.ssd_scan_bwd``).  Four kernels (the local states, the state
+    pass, the per-chunk products, the fixed-order sums of da and dd) and,
+    with one group, a fifth (the sums of db and dc over the head tiles),
+    counted as one launch; the scratch is :func:`bwd_workspace`'s."""
     check_bwd_inputs(x, dt, a, b, c, dy, d_skip)
     B, L, H, P = x.shape
     G, N = b.shape[2], b.shape[3]
@@ -281,7 +298,7 @@ def ssd_scan_bwd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     with torch.cuda.device(x.device):
         err = fn(*bwd_call_args(x, dt, a, b, c, dy, d_skip,
                                 (dx, ddt, da, db, dc, dd),
-                                bwd_workspace(x, N)))
+                                bwd_workspace(x, N, G)))
     if err:
         raise RuntimeError(f"ssd_scan_bwd kernel launch failed: "
                            f"{err_string(err).decode()} (cudaError {err})")

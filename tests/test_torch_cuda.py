@@ -721,11 +721,15 @@ SSD_BWD_TOL = {torch.float32: 5e-4, torch.bfloat16: 2e-2}
 SSD_BWD_REL_L2 = {torch.float32: 1e-4, torch.bfloat16: 2e-3}
 SSD_GRADS = ("dx", "ddt", "da", "db", "dc", "dd")
 # B, L, H, P, N: tests/test_kernels.py:137-141, ragged L (1, 63, 1000), P
-# = 128 (two slices of P), a mamba2-like layer
+# = 128, a mamba2-like layer; then head tiles of the per-chunk kernels
+# (kssd.BWD_HEAD_TILE heads a block) cut short: H = 3 (one tile of 3) and
+# H = 81 (ten of 8 and one of 1), each at P = 128, and a last chunk of 8
+# tokens across a tile of 8 heads and one of 4
 SSD_BWD_CASES = [(2, 128, 4, 16, 8), (1, 256, 8, 32, 16), (2, 64, 2, 64, 128),
                  (1, 1, 3, 64, 128), (2, 63, 4, 32, 16), (1, 1000, 2, 64, 128),
                  (1, 192, 2, 128, 128), (1, 200, 3, 128, 16),
-                 (2, 512, 16, 64, 128)]
+                 (2, 512, 16, 64, 128), (1, 256, 3, 128, 128),
+                 (1, 130, 81, 128, 16), (2, 200, 12, 64, 128)]
 
 
 def _ssd_bwd_inputs(card, case, dtype, seed=0, grouped=True):
@@ -782,6 +786,24 @@ def test_ssd_bwd_kernel_strongly_decaying_head_gives_no_nan(card, dtype):
     assert all(bool(torch.isfinite(t).all()) for t in got)
     _hold_ssd_bwd(got, ref.ssd_scan_bwd(x, dt, a, b, c, dy, d_skip=d),
                   dtype, "strong decay")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_bwd_kernel_takes_dy_rows_off_16_bytes(card, dtype):
+    """dy as a view whose rows do not start on 16 bytes (the wrapper asks
+    only for stride 1 along P): bf16 rows are read 2 bytes at a time in
+    place of cp.async, and the six gradients equal those of a contiguous
+    copy, bit for bit."""
+    x, dt, a, b, c, d, dy = _ssd_bwd_inputs(card, (2, 200, 12, 64, 128),
+                                            dtype)
+    wide = torch.zeros(dy.shape[:3] + (dy.shape[3] + 1,), device=card,
+                       dtype=dtype)
+    wide[..., 1:] = dy
+    view = wide[..., 1:]
+    assert view.data_ptr() % 16 and view.stride(3) == 1
+    got = kssd.ssd_scan_bwd(x, dt, a, b, c, view, d_skip=d)
+    want = kssd.ssd_scan_bwd(x, dt, a, b, c, dy, d_skip=d)
+    assert all(torch.equal(u, v) for u, v in zip(got, want))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -260,14 +260,19 @@ def _bf16_terms(v, split):
 
 def kernel_arithmetic_bwd(x, dt, a, b, c, dy, d_skip=None, split=True):
     """A plain model of the bf16 backward kernel's rounding
-    (csrc/ssd_scan_bwd.cu), chunks of 64 tokens: cum, the decays, c·b,
-    dW = dy·xᵀ, W and dCB in f32; the states S_in recomputed and dS carried
-    in f32 across chunks.  The operands that are not inputs enter their
-    products in bf16, hi + lo with ``split`` (as the kernel takes them) or
-    rounded once without: W (in Wᵀ dy), dCB (in dCB b and dCBᵀ c), dS (in
-    b dS and x dSᵀ), S_in (in dy S_inᵀ), c e (in dS_in) and b f (in the
-    state recompute).  x, dy, b and c are bf16 inputs and enter as they
-    are; products are summed in f64 here and in f32 on the card."""
+    (csrc/ssd_scan_bwd.cu), chunks of 64 tokens: cum, the decays, c·b
+    (once per (batch, chunk) where b and c are one group: the same numbers
+    for every head), dW = dy·xᵀ, W and dCB in f32; each chunk's local
+    state Σ_j (b_j f_j) x_jᵀ and local adjoint Σ_i (c_i e_i) dy_iᵀ in f32,
+    then the f32 state pass: S_in by the forward walk S ← exp(T) S +
+    S_loc, dS by the backward walk over the local adjoints (one rounding a
+    step, as the card's fused multiply-add).  The operands that are not
+    inputs enter their products in bf16, hi + lo with ``split`` (as the
+    kernel takes them) or rounded once without: W (in Wᵀ dy), dCB (in dCB b
+    and dCBᵀ c), dS (in b dS and x dSᵀ), S_in (in dy S_inᵀ), c e (in the
+    local adjoint) and b f (in the local state).  x, dy, b and c are bf16
+    inputs and enter as they are; products are summed in f64 here and in
+    f32 on the card."""
     Q = kssd.CHUNK
     B, L, H, P = x.shape
     G, N = b.shape[2], b.shape[3]
@@ -301,21 +306,29 @@ def kernel_arithmetic_bwd(x, dt, a, b, c, dy, d_skip=None, split=True):
     gt = torch.where(mask, dw * cbl, zero).double()
     decay = torch.exp(total).double()[..., None, None]
 
+    s_loc = [torch.einsum("bjhn,bjhp->bhnp", _bf16_terms(
+        bd[:, z].float() * f[:, z, ..., None], split), xd[:, z]).float()
+        for z in range(nc)]
+    c_loc = [torch.einsum("bihn,bihp->bhnp", _bf16_terms(
+        cd[:, z].float() * e[:, z, ..., None], split), dyd[:, z]).float()
+        for z in range(nc)]
+    s_in, d_s = [None] * nc, [None] * nc
     S = torch.zeros(B, H, N, P)
-    s_in = []
     for z in range(nc):
-        s_in.append(S)
-        bf = _bf16_terms(bd[:, z].float() * f[:, z, ..., None], split)
-        S = (decay[:, z] * S.double() + torch.einsum(
-            "bjhn,bjhp->bhnp", bf, xd[:, z])).float()
-    dS = torch.zeros(B, H, N, P)
+        s_in[z] = S
+        S = (decay[:, z] * S.double() + s_loc[z].double()).float()
+    S = torch.zeros(B, H, N, P)
+    for z in reversed(range(nc)):
+        d_s[z] = S
+        S = (decay[:, z] * S.double() + c_loc[z].double()).float()
     dx = torch.empty(B, nc, Q, H, P, dtype=torch.float64)
     db, dc = (torch.empty(B, nc, Q, H, N, dtype=torch.float64)
               for _ in range(2))
     ddt = torch.empty(B, nc, Q, H, dtype=torch.float64)
     da = torch.zeros(H, dtype=torch.float64)
-    for z in reversed(range(nc)):
+    for z in range(nc):
         fz, ez = f[:, z].double(), e[:, z].double()
+        dS = d_s[z]
         wt, dcbt = _bf16_terms(w[:, z], split), _bf16_terms(dcb[:, z], split)
         dst, sint = _bf16_terms(dS, split), _bf16_terms(s_in[z], split)
         bds = torch.einsum("bjhn,bhnp->bjhp", bd[:, z], dst).float().double()
@@ -329,10 +342,7 @@ def kernel_arithmetic_bwd(x, dt, a, b, c, dy, d_skip=None, split=True):
         db[:, z] = (torch.einsum("bijh,bihn->bjhn", dcbt, cd[:, z])
                     + fz[..., None] * torch.einsum(
                         "bjhp,bhnp->bjhn", xd[:, z], dst))
-        ce = _bf16_terms(cd[:, z].float() * e[:, z, ..., None], split)
         sds = (s_in[z].double() * dS.double()).sum((-2, -1))
-        dS = (decay[:, z] * dS.double() + torch.einsum(
-            "bihn,bihp->bhnp", ce, dyd[:, z])).float()
         dcum = (m[:, z].sum(2) - m[:, z].sum(1) + ez * vin - fz * df)
         dcum[:, -1] += decay[:, z, :, 0, 0] * sds + (fz * df).sum(1)
         ds = dcum.flip(1).cumsum(1).flip(1)
@@ -438,18 +448,60 @@ def test_bwd_wrapper_checks_the_device_last():
         kssd.ssd_scan_bwd(x, dt, a, b, c, dy, d)
 
 
-@pytest.mark.parametrize("P,slices", [(16, 1), (32, 1), (64, 1), (128, 2)])
-def test_bwd_workspace_shapes(P, slices):
+@pytest.mark.parametrize("groups", [1, 3], ids=["group", "per_head"])
+@pytest.mark.parametrize("P", [16, 32, 64, 128])
+def test_bwd_workspace_shapes(P, groups):
+    """The chunk-parallel backward's scratch: the local states and
+    adjoints (then S_in and dS) [B, H, Z, N, P], cum_Q [B, H, Z], the
+    per-tile sums of db and dc [B, L, tiles, N] (none for per-head b and
+    c, whose db and dc the kernel writes itself), the per-chunk da and dd
+    [B, Z, H]; all f32."""
     x = torch.zeros((2, 130, 3, P), dtype=torch.bfloat16)
-    states, part_b, part_c, part_dt, part_a, part_d = kssd.bwd_workspace(
-        x, 16)
-    assert kssd.bwd_slices(P) == slices
-    assert tuple(states.shape) == (2, 3, 3, 16, P)
-    assert tuple(part_b.shape) == tuple(part_c.shape) == (2, 130, 3, slices,
-                                                          16)
-    assert tuple(part_dt.shape) == (2, 130, 3, slices)
-    assert tuple(part_a.shape) == tuple(part_d.shape) == (2, 3, slices)
-    assert all(t.dtype == torch.float32 for t in (states, part_b, part_dt))
+    work = kssd.bwd_workspace(x, 16, groups)
+    states, adj, totals, part_b, part_c, part_a, part_d = work
+    assert tuple(states.shape) == tuple(adj.shape) == (2, 3, 3, 16, P)
+    assert tuple(totals.shape) == (2, 3, 3)
+    tiles = 1 if groups == 1 else 0
+    assert tuple(part_b.shape) == tuple(part_c.shape) == (2, 130, tiles, 16)
+    assert tuple(part_a.shape) == tuple(part_d.shape) == (2, 3, 3)
+    assert all(t.dtype == torch.float32 for t in work)
+
+
+def test_bwd_workspace_does_not_grow_at_the_training_layer():
+    """At the mamba2-2.7b training layer (x [2, 4096, 80, 64], N 128, one
+    group) the scratch, counted from its shapes on the meta device, is
+    below the 1.01e9 bytes of the slice-by-slice design it replaces (its
+    states 3.4e8 and per-head db and dc partials 6.7e8)."""
+    x = torch.empty((2, 4096, 80, 64), dtype=torch.bfloat16, device="meta")
+    work = kssd.bwd_workspace(x, 128, 1)
+    nbytes = sum(t.numel() * t.element_size() for t in work)
+    assert nbytes < 2 * 4096 * 80 * 128 * 4 * 2 + 2 * 80 * 64 * 128 * 64 * 4
+    assert tuple(work[3].shape) == (2, 4096, 10, 128)  # 8 heads a tile
+
+
+@pytest.mark.parametrize("groups", ["one", "per_head"])
+@pytest.mark.parametrize("H", [1, 3, 80, 128])
+def test_bwd_head_tiles_count_every_head_once(H, groups):
+    """The head tiles the wrapper hands the per-chunk kernels (the tile
+    size in the C call, the tile count in the partials' shape): in order,
+    each at most BWD_HEAD_TILE heads, every head in exactly one; with one
+    group the per-tile db and dc sums have one slot per tile, with b and c
+    per head none."""
+    G = 1 if groups == "one" else H
+    tiles = kssd.bwd_head_tiles(H)
+    heads = [h for t in tiles for h in t]
+    assert heads == list(range(H))
+    assert all(0 < len(t) <= kssd.BWD_HEAD_TILE for t in tiles)
+    assert len(tiles) == -(-H // kssd.BWD_HEAD_TILE)
+    x, dt, a, b, c, d, dy = _torch(_inputs(1, 70, H, 16, 8, G), "float32")
+    work = kssd.bwd_workspace(x, 8, G)
+    assert tuple(work[3].shape) == (1, 70, len(tiles) if G == 1 else 0, 8)
+    outs = (torch.empty_like(x), torch.empty((1, 70, H)), torch.empty(H),
+            torch.empty_like(b), torch.empty_like(c), torch.empty(H))
+    args = kssd.bwd_call_args(x, dt, a, b, c, dy, d, outs, work)
+    assert len(args) == len(kssd._ARGTYPES["ssd_scan_bwd"]) + 2
+    # batch, seq, heads, groups, P, N, then the head tile
+    assert args[20:27] == (1, 70, H, G, 16, 8, kssd.BWD_HEAD_TILE)
 
 
 class _Kernels:

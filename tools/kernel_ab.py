@@ -9,13 +9,20 @@ SSD backward).  PATH is another checkout of the repository (e.g. the
 parent commit unpacked with ``git archive``), whose
 ``src/repro_torch/kernels/csrc/NAME.cu`` is taken, or such a source file
 itself; it is compiled with this checkout's ``nvcc`` flags into
-``build/kernel_ab/``.  Both libraries take the same C call.  For each case
-the two kernels run on the same inputs and their outputs are compared bit
-for bit; then ``--rounds`` rounds of other, this, this, other, each timed
-with CUDA events (median of 10 runs; the 32k layer, 3), so that a drift of
-the card's clock falls on both.  One JSON line per case: ``identical``,
-each side's medians and their median, and this / other.  The last line is
-the card's name and power limit from ``nvidia-smi``.
+``build/kernel_ab/``.  The flash forward's two libraries take the same C
+call.  The SSD backward's C signature and scratch change with its design,
+so each side goes through its own wrapper: PATH's
+``src/repro_torch/kernels/ssd_scan.py`` is loaded by path (PATH must then
+be a checkout) and its ``_ARGTYPES``, ``bwd_workspace`` and
+``bwd_call_args`` bind, size and call that side.  For each case the two
+kernels run on the same inputs and their outputs are compared bit for bit
+and, where they differ, by each output's relative L2 between the two sides
+(``rel_l2``, over max(1, |other|)); then ``--rounds`` rounds of other,
+this, this, other, each timed with CUDA events (median of 10 runs; the 32k
+layer, 3), so that a drift of the card's clock falls on both.  One JSON
+line per case: ``identical``, each side's medians and their median, and
+this / other.  The last line is the card's name and power limit from
+``nvidia-smi``.
 
 The cases.  ``flash_attention``: chip_smoke.py's serving layers
 (llama3-8b's main path and its 32k prefill layer, dbrx-132b, internvl2-1b,
@@ -32,6 +39,8 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import importlib.util
+import inspect
 import json
 import math
 import statistics
@@ -72,10 +81,24 @@ def bind_flash(path: Path):
     return fn
 
 
-def bind_ssd_bwd(path: Path):
+def wrapper_at(checkout: Path, module: str):
+    """``src/repro_torch/kernels/<module>.py`` of another checkout, loaded
+    by path under its own name (its imports of the package resolve to this
+    checkout's, which it uses only for building and binding)."""
+    path = checkout / "src" / "repro_torch" / "kernels" / f"{module}.py"
+    spec = importlib.util.spec_from_file_location(f"kernel_ab_other_{module}",
+                                                  path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def bind_ssd_bwd(path: Path, wrapper):
+    """The SSD backward's C entry in the library at ``path``, as
+    ``wrapper`` (that side's ssd_scan module) declares it."""
     fn = ctypes.CDLL(str(path)).repro_ssd_scan_bwd
-    fn.argtypes = ([ctypes.c_void_p] * 19 + [ctypes.c_int64] * 23
-                   + [ctypes.c_int, ctypes.c_void_p])
+    fn.argtypes = wrapper._ARGTYPES["ssd_scan_bwd"] + [ctypes.c_int,
+                                                       ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -120,10 +143,16 @@ def flash_cases(torch, sides):
         torch.cuda.empty_cache()
 
 
-def ssd_bwd_cases(torch, sides):
-    """Per case: (name, its fields, {side: timed call}, {check: identical})."""
-    from repro_torch.kernels import ssd_scan as kssd
+def rel_l2(torch, got, want) -> float:
+    return float((got.double() - want.double()).norm()) / max(
+        1.0, float(want.double().norm()))
 
+
+def ssd_bwd_cases(torch, sides, wrappers):
+    """Per case: (name, its fields, {side: timed call}, {check: result}).
+    Each side sizes its scratch and builds its arguments with its own
+    wrapper (``wrappers[side]``)."""
+    grads = ("dx", "ddt", "da", "db", "dc", "dd")
     for i, (name, shape, xd) in enumerate(SSD_BWD_CASES):
         B, L, H, P, N = shape
         dtype = getattr(torch, xd)
@@ -133,22 +162,29 @@ def ssd_bwd_cases(torch, sides):
                     torch.empty((H,), device="cuda"), torch.empty_like(b),
                     torch.empty_like(c), torch.empty((H,), device="cuda"))
                 for s in sides}
-        work = kssd.bwd_workspace(x, N)
+        work = {}
+        for s, w in wrappers.items():
+            takes_groups = "groups" in inspect.signature(
+                w.bwd_workspace).parameters
+            work[s] = w.bwd_workspace(x, N, *([b.shape[2]] if takes_groups
+                                              else []))
 
         def call(side):
-            err = sides[side](*kssd.bwd_call_args(x, dt, a, b, c, dy, d,
-                                                  outs[side], work))
+            err = sides[side](*wrappers[side].bwd_call_args(
+                x, dt, a, b, c, dy, d, outs[side], work[side]))
             if err:
                 raise RuntimeError(f"{side} {name}: cudaError {err}")
 
         for side in sides:
             call(side)
         torch.cuda.synchronize()
-        identical = all(torch.equal(u, v) for u, v in zip(outs["other"],
-                                                          outs["this"]))
+        checks = {"identical": all(torch.equal(u, v) for u, v in
+                                   zip(outs["other"], outs["this"]))}
+        if not checks["identical"]:
+            checks["rel_l2"] = {g: rel_l2(torch, u, v) for g, u, v in
+                                zip(grads, outs["this"], outs["other"])}
         yield (name, {"shape": list(shape), "dtype": xd, "runs": 10},
-               {s: (lambda s=s: call(s)) for s in sides},
-               {"identical": identical})
+               {s: (lambda s=s: call(s)) for s in sides}, checks)
         del x, dt, a, b, c, dy, d, outs, work
         torch.cuda.empty_cache()
 
@@ -172,9 +208,10 @@ def ssd_inputs(torch, shape, dtype, seed):
     return x, dt, a, b, c, dy, d
 
 
-#: kernel -> (its wrapper module, how to bind a library, its cases)
-KERNELS = {"flash_attention": ("flash_attention", bind_flash, flash_cases),
-           "ssd_scan_bwd": ("ssd_scan", bind_ssd_bwd, ssd_bwd_cases)}
+#: kernel -> (its wrapper module, whether each side binds through its own
+#: wrapper, its cases)
+KERNELS = {"flash_attention": ("flash_attention", False, flash_cases),
+           "ssd_scan_bwd": ("ssd_scan", True, ssd_bwd_cases)}
 
 
 def main() -> int:
@@ -192,7 +229,7 @@ def main() -> int:
 
     if not torch.cuda.is_available():
         sys.exit("kernel_ab: CUDA is not available")
-    module, bind, cases = KERNELS[args.kernel]
+    module, own_wrapper, cases = KERNELS[args.kernel]
     wrapper = importlib.import_module(f"repro_torch.kernels.{module}")
     out_dir = ROOT / "build" / "kernel_ab"
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -203,8 +240,18 @@ def main() -> int:
     subprocess.run(build.nvcc_command(other_src, other_lib,
                                       build.find_nvcc()),
                    check=True, capture_output=True)
-    sides = {"other": bind(other_lib),
-             "this": wrapper._bind(args.kernel)[0]}
+    this_fn = wrapper._bind(args.kernel)[0]
+    if own_wrapper:
+        if args.other.suffix == ".cu":
+            sys.exit("kernel_ab: --kernel ssd_scan_bwd needs a checkout, "
+                     "whose wrapper binds its side")
+        wrappers = {"other": wrapper_at(args.other, module), "this": wrapper}
+        sides = {"other": bind_ssd_bwd(other_lib, wrappers["other"]),
+                 "this": this_fn}
+        side_cases = cases(torch, sides, wrappers)
+    else:
+        sides = {"other": bind_flash(other_lib), "this": this_fn}
+        side_cases = cases(torch, sides)
 
     def timed(fn, runs):
         for _ in range(2):
@@ -220,7 +267,7 @@ def main() -> int:
             times.append(start.elapsed_time(end))
         return statistics.median(times)
 
-    for name, fields, calls, identical in cases(torch, sides):
+    for name, fields, calls, identical in side_cases:
         ms = {s: [] for s in sides}
         for _ in range(args.rounds):
             for side in ("other", "this", "this", "other"):
