@@ -170,13 +170,24 @@ Phases, each printing one JSON line with its seconds:
     59.7 GB), as phase 26, the MoE's routes held to the plain run's in
     (a): the SSD backward at N 16 and 128 heads, the first MoE training on
     the card;
-28. summary: the ``kernels`` line, the peak device memory, the
+28. ``mesh_train``: llama3-8b at full width, 2 layers (int8 moments),
+    through ``launch.train``'s mesh path on a 1 x 1 NCCL mesh (world size
+    1, ``cuda``; the box has one card, and NCCL takes no two ranks on one
+    device), driven by ``launch.elastic.ElasticTrainer`` in ranges of 2
+    steps over a TaskQueue with a manual clock: trainer A completes
+    [0, 2) and dies at step 3, the lease passes, trainer B restores step 2
+    through ``restore(shardings=)`` and finishes [2, 4); (a) the first
+    step's loss and gradients against the mesh-less step, (b) the restore
+    bit-identical, (c) the flash launches per step as in phase 25, (d)
+    each range completed once, (e) the step time against the mesh-less
+    step's (the DTensor path's cost) and the save and restore seconds;
+29. summary: the ``kernels`` line, the peak device memory, the
     ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.
 
 Each LM is freed before the next is drawn.  The launch counts are set to
 0 just before each main-path run (phases 2-7, 10-24, llama_train's run
-and resumed step, and the runs of phases 26-27) and read just after it;
-the ``kernels`` line adds those counts.  The training phases' first-step
+and resumed step, the runs of phases 26-27, and mesh_train's elastic
+run) and read just after it; the ``kernels`` line adds those counts.  The training phases' first-step
 comparisons and profiled steps verify: their launches stay in their
 lines.  The decode checks'
 prefills (phases 11, 13, 15, 18, 20, 22 and 24) verify: their launches
@@ -3045,6 +3056,230 @@ def phase_ssm_train(torch, seed: int, backend, which: str) -> dict:
             "seconds": time.perf_counter() - t0}
 
 
+#: the mesh phase: llama3-8b at full width, MESH_LAYERS of its 32 layers
+#: (2.1e9 parameters with the vocabulary's two 0.53e9 matrices; f32
+#: masters, int8 moments, so that each of its two checkpoints is ~10 GB of
+#: the chunk store's Python copies rather than ~25 GB), trained through
+#: launch.train's mesh path on a 1 x 1 NCCL mesh, MESH_STEPS steps in
+#: elastic ranges of MESH_RANGE
+MESH_LAYERS, MESH_STEPS, MESH_RANGE = 2, 4, 2
+#: the elastic queue's lease: trainer A dies mid-range, the clock passes
+#: the lease, trainer B claims the range again
+MESH_LEASE_S = 30.0
+
+
+class ManualClock:
+    """The queue's clock, moved by hand."""
+
+    def __init__(self):
+        self.t = 0.0
+
+    def __call__(self):
+        return self.t
+
+
+def phase_mesh_train(torch, seed: int, backend) -> dict:
+    """llama3-8b at full width, MESH_LAYERS layers, through launch.train's
+    mesh path on a 1 x 1 NCCL mesh (world size 1, cuda; no fallback: NCCL
+    failing to start, or a mesh not on cuda, fails the phase), driven by
+    launch.elastic.ElasticTrainer over a TaskQueue with a manual clock in
+    ranges of MESH_RANGE steps: trainer A completes [0, 2), dies at step 3,
+    the clock passes the lease, trainer B restores step 2 through
+    ``restore(shardings=)`` and finishes [2, 4).  (a) The first step's loss
+    and gradients under the mesh against the mesh-less step (the kernels
+    both ways; dq's last bits vary run to run), under TRAIN_LOSS_RTOL and
+    TRAIN_GRAD_REL_L2; (b) the restored state bit-identical to the saved
+    one; (c) the flash launches per step as llama_train counts them; (d)
+    every range completed once, steps re-run only from the last commit;
+    (e) the step time against the mesh-less step's at the same depth (what
+    the DTensor path costs), and the seconds spent saving and restoring."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.convert import reference_shapes
+    from repro_torch.core.taskqueue import TaskQueue
+    from repro_torch.data import TokenDataset, write_corpus
+    from repro_torch.launch import ElasticTrainer, submit_step_ranges
+    from repro_torch.launch import mesh as pmesh
+    from repro_torch.launch import sharding as shd
+    from repro_torch.launch import train as ptrain
+    from repro_torch.models import build
+    from repro_torch.train import make_train_step
+    from repro_torch.train import optimizer as opt_mod
+    from repro_torch.train.checkpoint import flatten_with_path
+
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config(LLAMA), num_layers=MESH_LAYERS)
+    L = cfg.num_layers
+    per_step = {"flash_attention": 2 * L, "flash_attention_bwd": L}
+    args = train_args(seed, mesh=True, steps=MESH_STEPS, moments="int8",
+                      ckpt_every=MESH_RANGE)
+    cs = ptrain.make_store(None)
+    spec = ptrain.corpus_spec(args, cfg)
+    write_corpus(cs, spec)
+    first = next(TokenDataset(cs, spec).batches(args.batch, args.seq))
+    batch = {k: torch.as_tensor(first[k]).cuda() for k in ("tokens",
+                                                          "labels")}
+    torch.cuda.reset_peak_memory_stats()
+
+    # the mesh-less step at the same depth: its first loss and gradients,
+    # and its step time
+    model = build(cfg)
+    params = model.init(seed, param_dtype=torch.float32)
+    names = leaf_names(params)
+    n_params = sum(t.numel() for t in opt_mod.tree_leaves(params))
+    loss_ref, grads_ref = first_step_grads(torch, model, params, batch)
+    grads_ref = [g.detach() for g in grads_ref]
+    opt_cfg = ptrain.optimizer_config(args)
+    state = opt_mod.init(params, opt_cfg, reference_shapes(cfg))
+    step = make_train_step(model, opt_cfg)
+    plain_step_s = []
+    for _ in range(3):
+        (params, state, _), s = synced(torch, lambda: step(params, state,
+                                                           batch))
+        plain_step_s.append(s)
+    del params, state, step, model
+    torch.cuda.empty_cache()
+
+    # trainer A on the 1 x 1 mesh; (a) its first step's gradients
+    saved = {"saves": 0}
+
+    def capture(to_numpy):
+        def call(*a, **kw):
+            tree = to_numpy(*a, **kw)
+            if saved["saves"] == 0:
+                saved["tree"] = tree  # the state saved at step MESH_RANGE
+            saved["saves"] += 1
+            return tree
+        return call
+
+    tr_a = ptrain.Trainer(args, cfg, cs)
+    mesh = tr_a.mesh
+    check(mesh is not None and mesh.device_type == "cuda"
+          and dist.get_backend() == "nccl" and dist.get_world_size() == 1,
+          f"mesh_train: mesh {mesh}, backend {dist.get_backend()}")
+    tr_a.fresh()
+    wq = tr_a.params["blocks"][0]["attn"]["wq"]
+    placements = [str(p) for p in wq.placements]
+    backend.reset_launch_counts()
+    (grads_m, metrics_m), grads_s = synced(
+        torch, lambda: tr_a.step_fn.grads(tr_a.params, batch))
+    check_launches = backend.launch_counts()
+    check(all(check_launches[k] == n for k, n in per_step.items()),
+          f"mesh_train first step: launches {check_launches}")
+    loss_m = float(metrics_m["loss"])
+    vs_plain = grads_diff(torch, opt_mod.tree_leaves(grads_m), grads_ref,
+                          names)
+    loss_rel = abs(loss_m - loss_ref) / abs(loss_ref)
+    del grads_m, grads_ref
+    torch.cuda.empty_cache()
+    check(loss_rel < TRAIN_LOSS_RTOL,
+          f"mesh_train: first loss {loss_m} against mesh-less {loss_ref}")
+    check(vs_plain["max_rel_l2"] < TRAIN_GRAD_REL_L2,
+          f"mesh_train: gradients against the mesh-less step {vs_plain}")
+
+    # the elastic run: A completes [0, 2) and dies at step 3; B restores
+    step_s, save_s, restore_s, ran, identical = [], [], [], [], []
+    clock = ManualClock()
+    queue = TaskQueue(clock=clock, default_lease_s=MESH_LEASE_S)
+    ranges = submit_step_ranges(queue, MESH_STEPS, MESH_RANGE)
+
+    def elastic(worker, tr):
+        def step_fn(s):
+            ran.append((worker, s))
+            _, seconds = synced(torch, lambda: tr.run_step(s))
+            step_s.append((worker, s, seconds))
+
+        def save_fn(s):
+            _, seconds = synced(torch, lambda: (tr.save(s), tr.wait()))
+            save_s.append(seconds)
+
+        return ElasticTrainer(queue, worker, step_fn=step_fn,
+                              save_fn=save_fn, restore_fn=tr.resume,
+                              lease_s=MESH_LEASE_S)
+
+    def held_restore(restore):
+        def call(self, *a, **kw):
+            _, seconds = synced(torch, lambda: restore(self, *a, **kw))
+            restore_s.append(seconds)
+            got = ptrain.state_to_numpy(
+                opt_mod.tree_map(shd.gather, self.params),
+                opt_mod.AdamState(
+                    step=self.opt_state.step,
+                    mu=ptrain._moment_map(shd.gather, self.opt_state.mu),
+                    nu=ptrain._moment_map(shd.gather, self.opt_state.nu)),
+                cfg)
+            want = saved.pop("tree")
+            identical.append(all(
+                a.dtype == b.dtype and np.array_equal(a, b)
+                for (_, a), (_, b) in zip(flatten_with_path(got),
+                                          flatten_with_path(want))))
+        return call
+
+    backend.reset_launch_counts()
+    with patched(ptrain, "state_to_numpy", capture), \
+            patched(ptrain.Trainer, "restore", held_restore):
+        a = elastic("a", tr_a)
+        check(a.run_once() == "steps:0:2", "mesh_train: A's first range")
+        a.run_once(die_at_step=MESH_RANGE + 1)  # vanishes at step 3
+        del a, tr_a
+        torch.cuda.empty_cache()
+        clock.t += MESH_LEASE_S + 1.0
+        tr_b = ptrain.Trainer(args, cfg, cs)
+        b = elastic("b", tr_b)
+        b.run()
+    launches = backend.launch_counts()
+    steps_run = len(ran)
+    check(all(launches[k] == n * steps_run for k, n in per_step.items()),
+          f"mesh_train run: launches {launches} for {steps_run} steps")
+    check(identical == [True],
+          f"mesh_train: the restored state differs from the saved: "
+          f"{identical}")
+    check(ran == [("a", 0), ("a", 1), ("a", 2), ("b", 2), ("b", 3)],
+          f"mesh_train: steps run {ran}")
+    check(queue.done() and queue.stats["completed"] == ranges
+          and tr_b.ckpt.steps() == [MESH_RANGE, MESH_STEPS],
+          f"mesh_train: queue {queue.stats}, checkpoints "
+          f"{tr_b.ckpt.steps()}")
+    check(int(tr_b.opt_state.step) == MESH_STEPS
+          and all(bool(torch.isfinite(shd.gather(t)).all())
+                  for t in opt_mod.tree_leaves(tr_b.params)),
+          "mesh_train: the final state")
+    read = dict(tr_b.ckpt.read_stats)
+    peak = torch.cuda.max_memory_allocated()
+    del tr_b, b
+    pmesh.shutdown()
+    torch.cuda.empty_cache()
+
+    mesh_ms = statistics.median(s for w, i, s in step_s
+                                if (w, i) not in (("a", 0), ("b", 2))) * 1e3
+    plain_ms = statistics.median(plain_step_s[1:]) * 1e3
+    return {"phase": "mesh_train", "arch": cfg.arch_id, "layers": L,
+            "full_layers": get_config(LLAMA).num_layers,
+            "parameters": n_params, "batch": [args.batch, args.seq],
+            "dtype": cfg.dtype, "masters": "float32",
+            "moments": args.moments, "backend": "nccl", "world_size": 1,
+            "mesh": {"data": 1, "model": 1}, "device_type": "cuda",
+            "wq_placements": placements,
+            "launches": launches, "launches_per_step": per_step,
+            "first_step": {"loss": loss_m, "mesh_less_loss": loss_ref,
+                           "loss_rel": loss_rel,
+                           "loss_rtol": TRAIN_LOSS_RTOL,
+                           "grads_vs_mesh_less": vs_plain,
+                           "grad_rel_l2_limit": TRAIN_GRAD_REL_L2,
+                           "grads_s": grads_s,
+                           "check_launches": check_launches},
+            "elastic": {"ranges": ranges, "steps_run": ran,
+                        "queue": dict(queue.stats),
+                        "restored_identical": identical[0]},
+            "step_s": step_s, "step_ms": mesh_ms,
+            "mesh_less_step_s": plain_step_s, "mesh_less_step_ms": plain_ms,
+            "dtensor_overhead_ms": mesh_ms - plain_ms,
+            "save_s": save_s, "restore_s": restore_s,
+            "restore_read": read, "peak_device_bytes": peak,
+            "seconds": time.perf_counter() - t0}
+
+
 def kernel_line(name: str, results, tol, launches: int) -> dict:
     """One kernel's entry in the ``kernels`` line: its main-path case's
     times and bound, its f32 cases' largest error and the limit that case
@@ -3145,6 +3380,10 @@ def main() -> int:
         emit(train)
         lm_lines.append(train)
         peak = max(peak, train["peak_device_bytes"])
+    mesh_train = phase_mesh_train(torch, args.seed, backend)
+    emit(mesh_train)
+    lm_lines.append(mesh_train)
+    peak = max(peak, mesh_train["peak_device_bytes"])
 
     def lm_launches(kernel: str) -> int:
         """The main paths' launches: each served prefill and generate run

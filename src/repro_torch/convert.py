@@ -302,6 +302,25 @@ def params_from_numpy(tree: Mapping, cfg: ModelConfig, device,
     return params
 
 
+def split_layers(tree: Mapping, cfg: ModelConfig, take) -> dict:
+    """A tree in the JAX package's layout, of any leaves -> the port's
+    layout, each port leaf ``take(leaf, index)`` of the JAX leaf it is part
+    of: ``index`` is its layer's slice of the stacked axes (``()`` for a
+    top-level leaf).  :func:`params_from_numpy`'s layout, without its
+    checks or casts (a restored tree of DTensors takes this path)."""
+    _, top, stacks = _layout(cfg)
+    params: dict = {stack: [{} for _ in range(n)]
+                    for stack, (n, _) in stacks.items()}
+    for path in top:
+        _put(params, path, take(_get(tree, path), ()))
+    for stack, (_, leaves) in stacks.items():
+        for sub, (_, where) in leaves.items():
+            leaf = _get(tree, f"{stack}/{sub}")
+            for layer, index in where:
+                _put(params[stack][layer], sub, take(leaf, index))
+    return params
+
+
 def _index(arr, index: tuple):
     """One layer's slice of a stacked leaf (a QTensor's payload and row
     scales alike)."""

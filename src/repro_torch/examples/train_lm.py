@@ -53,8 +53,8 @@ def main(argv=None):
     out = train_mod.run(argparse.Namespace(
         arch="llama-100m", variant="full", steps=args.steps,
         batch=args.batch, seq=args.seq, lr=1e-3, warmup=10, seed=0,
-        moments="fp32", microbatches=1, mesh_data=1, mesh_model=1,
-        data_shards=8, store=None, ckpt_every=max(50, args.steps // 4),
+        moments="fp32", microbatches=1, mesh=False, mesh_data=1,
+        mesh_model=1, data_shards=8, store=None, ckpt_every=max(50, args.steps // 4),
         ckpt_codec="zlib", log_every=max(10, args.steps // 10),
         resume=False, preempt_at=0, device=args.device))
     hist = out["history"]

@@ -6,8 +6,9 @@ parameter tree carries across leaf for leaf (``repro_torch.convert``).
 Every function keeps the JAX package's arithmetic: which dtype each step
 runs in and where it rounds.
 
-Left for a later slice: the activation mesh and ``constrain`` (one card;
-meshes are ROADMAP.md queue 1 item 8).
+The activation mesh and ``constrain`` have no counterpart: on a mesh
+(``launch/train.py``) activations are local to a rank, each rank running
+its own rows with every leaf gathered.
 """
 
 from __future__ import annotations

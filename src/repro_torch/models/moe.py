@@ -15,7 +15,13 @@ scatter formulation that avoids a one-hot dispatch product):
 * the combine gathers each assignment's row, times ``keep`` and its
   normalised router weight, summed over k; a shared expert (Llama-4) is a
   plain FFN added on top;
-* the Switch aux loss E·Σ_e f_e·P_e·w.
+* the Switch aux loss E·Σ_e f_e·P_e·w, of the batch's fractions f_e
+  (assignments) and P_e (mean router probability).  Under
+  :func:`global_batch` (a data-parallel train step, each rank on its own
+  rows) the fractions are the global batch's: the expert counts are summed
+  over the ranks, and each rank's aux is its rows' share of the global
+  E·Σ_e f_e·P_e·w, so the shares add up to it (a mean of the ranks' own
+  aux losses would be another number).
 
 Nothing here synchronises with the host: no boolean-mask indexing, no
 ``nonzero``, no ``.item()``.  The expert products are cuBLAS batched
@@ -30,13 +36,33 @@ DBRX (16 experts top-4), Llama-4 Maverick (128 top-1 + 1 shared) and Jamba
 
 from __future__ import annotations
 
-from typing import NamedTuple
+import contextlib
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import common
 from repro_torch.models.ffn import ffn_forward, init_ffn
+
+
+#: set by :func:`global_batch`: sums a tensor over the data-parallel ranks
+_BATCH_SUM: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
+
+
+@contextlib.contextmanager
+def global_batch(batch_sum: Optional[Callable[[torch.Tensor],
+                                              torch.Tensor]]):
+    """Inside, the aux loss takes its fractions over the global batch,
+    ``batch_sum`` summing a tensor over the ranks (None: this rank's batch
+    is the batch).  A train step keeps it set through its backward, where
+    remat recomputes the layers."""
+    global _BATCH_SUM
+    old, _BATCH_SUM = _BATCH_SUM, batch_sum
+    try:
+        yield
+    finally:
+        _BATCH_SUM = old
 
 
 class Route(NamedTuple):
@@ -168,6 +194,14 @@ def moe_forward(params: dict, cfg: ModelConfig, x: torch.Tensor):
     frac = torch.zeros((E,), dtype=torch.float32, device=x.device)
     frac.index_add_(0, r.topk_idx.reshape(-1),
                     torch.ones((n,), dtype=torch.float32, device=x.device))
-    mean_p = r.probs.reshape(-1, E).mean(dim=0)
+    if _BATCH_SUM is None:
+        mean_p = r.probs.reshape(-1, E).mean(dim=0)
+        aux = E * (frac / n * mean_p).sum() * cfg.router_aux_weight
+        return y, aux
+    # this rank's share: the global counts (n of them over n / K tokens)
+    # against its own rows' probabilities over the global token count
+    frac = _BATCH_SUM(frac)
+    n = frac.sum()
+    mean_p = r.probs.reshape(-1, E).sum(dim=0) / (n / K)
     aux = E * (frac / n * mean_p).sum() * cfg.router_aux_weight
     return y, aux

@@ -1,7 +1,7 @@
 """Training and serving runtime of the port: the optimizer, the training
-step on autograd, checkpointing, and the serving steps.  Gradient
-compression (``repro/train/grad_compression.py``) comes with the
-multi-card slice (``ROADMAP.md`` queue 1 item 8)."""
+step on autograd, checkpointing (sharded restore too), and the serving
+steps.  Gradient compression (``repro/train/grad_compression.py``) is
+not ported yet (``ROADMAP.md`` queue 1 item 8 (c))."""
 
 from repro_torch.train.checkpoint import CheckpointManager
 from repro_torch.train.optimizer import AdamState, OptimizerConfig

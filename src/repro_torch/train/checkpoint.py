@@ -19,13 +19,22 @@ numpy arrays.  A tree in the JAX package's layout (``{"params":
 convert.params_to_numpy(...), "opt": AdamState(...)}``) gives the JAX
 package's leaf names.  Chunks are zlib-compressed by default, as the JAX
 package writes them; ``codec="raw"`` writes them as they are (a reader
-takes either: the codec is in each array's manifest).  ``shardings`` is
-accepted only as None: meshes are ``ROADMAP.md`` queue 1 item 8.
+takes either: the codec is in each array's manifest).
+
+On a mesh (``launch/sharding.py``), ``save(..., shardings=)`` writes the
+same leaves, whole, with each leaf's chunks cut at its shard boundaries
+(and so no larger than a shard); ``restore(..., shardings=)`` reads each
+leaf region-wise, each rank only its own shard, and returns DTensors.  A
+checkpoint written at any mesh, or by either package, restores at any
+other: a region that is not one chunk is assembled from the chunks that
+cover it.  :attr:`CheckpointManager.read_stats` counts the bytes the last
+restore read.
 """
 
 from __future__ import annotations
 
 import json
+import math
 import re
 import threading
 import time
@@ -123,6 +132,34 @@ def _default_chunks(shape, itemsize: int, target_bytes: int = 8 * MiB):
     return (int(rows),) + tuple(shape[1:])
 
 
+def _shard_chunks(shape, itemsize: int, counts) -> Tuple[int, ...]:
+    """:func:`_default_chunks`, each dimension split ``counts[d]`` ways
+    cut to a divisor of its shard, so that every shard is whole chunks."""
+    chunks = list(_default_chunks(shape, itemsize))
+    for d, n in enumerate(counts):
+        if n > 1:
+            part = shape[d] // n
+            c = min(chunks[d], part)
+            while part % c:
+                c -= 1
+            chunks[d] = c
+    return tuple(chunks)
+
+
+def _covering_bytes(spec, start, stop) -> int:
+    """Bytes of the chunks that cover the region [start, stop)."""
+    total = np.dtype(spec.dtype).itemsize
+    for s, e, dim, c in zip(start, stop, spec.shape, spec.chunks):
+        total *= sum(min(c, dim - i * c) for i in range(s // c, -(-e // c)))
+    return int(total)
+
+
+def _torch_dtype(leaf) -> torch.dtype:
+    if isinstance(leaf, torch.Tensor):
+        return leaf.dtype
+    return torch.from_numpy(np.zeros((), np.dtype(leaf.dtype))).dtype
+
+
 class CheckpointManager:
     """Step-indexed checkpoints for a tree of tensors or arrays."""
 
@@ -135,6 +172,9 @@ class CheckpointManager:
         self._async_lock = threading.Lock()
         self._pending: List[threading.Thread] = []
         self._errors: List[BaseException] = []
+        #: what the last restore read: the bytes of the regions it asked
+        #: for, of the chunks that cover them, and of the leaves whole
+        self.read_stats: Dict[str, int] = {}
 
     # -- naming ----------------------------------------------------------------
     def _step_prefix(self, step: int) -> str:
@@ -144,11 +184,16 @@ class CheckpointManager:
         return f"{self.cs.root}/{self._step_prefix(step)}/MANIFEST.json"
 
     # -- save --------------------------------------------------------------------
-    def save(self, step: int, tree: Any, extra: Optional[Dict] = None) -> None:
+    def save(self, step: int, tree: Any, extra: Optional[Dict] = None,
+             shardings: Any = None) -> None:
         """Blocking save: chunk objects first, manifest last (atomic
-        commit)."""
+        commit).  ``shardings`` (a tree of ``launch.sharding.Sharding``
+        matching ``tree``) cuts each leaf's chunks at its shard
+        boundaries; the leaves are written whole either way."""
+        counts = ([sh.shard_counts for _, sh in flatten_with_path(shardings)]
+                  if shardings is not None else None)
         entries = []
-        for path, leaf in flatten_with_path(tree):
+        for i, (path, leaf) in enumerate(flatten_with_path(tree)):
             arr = _to_host(leaf)
             if str(arr.dtype) == "bfloat16":
                 arr = arr.astype(np.float32)
@@ -157,8 +202,10 @@ class CheckpointManager:
             scalar = arr.ndim == 0
             if scalar:
                 arr = arr.reshape(1)
-            ca = self.cs.create(aname, arr.shape, arr.dtype,
-                                _default_chunks(arr.shape, arr.itemsize),
+            chunks = (_shard_chunks(arr.shape, arr.itemsize, counts[i])
+                      if counts is not None and not scalar
+                      else _default_chunks(arr.shape, arr.itemsize))
+            ca = self.cs.create(aname, arr.shape, arr.dtype, chunks,
                                 codec=self.codec)
             ca.write_region((0,) * arr.ndim, arr)
             entries.append({"name": lname, "array": aname,
@@ -171,8 +218,8 @@ class CheckpointManager:
                          json.dumps(manifest).encode())
         self._gc()
 
-    def save_async(self, step: int, tree: Any,
-                   extra: Optional[Dict] = None) -> threading.Thread:
+    def save_async(self, step: int, tree: Any, extra: Optional[Dict] = None,
+                   shardings: Any = None) -> threading.Thread:
         """Non-blocking save: the tree is copied to the host on the
         caller's thread (so the caller may go on updating its tensors),
         then written on a background thread.  :meth:`wait` joins it and
@@ -181,7 +228,7 @@ class CheckpointManager:
 
         def run():
             try:
-                self.save(step, snapshot, extra)
+                self.save(step, snapshot, extra, shardings)
             except BaseException as e:  # noqa: BLE001 — raised by wait()
                 with self._async_lock:
                     self._errors.append(e)
@@ -219,11 +266,12 @@ class CheckpointManager:
                 shardings: Any = None) -> Any:
         """Restore into ``template``'s structure; its leaves give only each
         leaf's dtype and, for tensors, device (their values are ignored).
-        A tensor leaf comes back a tensor, anything else a numpy array."""
-        if shardings is not None:
-            raise NotImplementedError(
-                "restore(shardings=...): the port runs on one card; meshes "
-                "and shardings are ROADMAP.md queue 1 item 8")
+        A tensor leaf comes back a tensor, anything else a numpy array.
+
+        With ``shardings`` (a tree of ``launch.sharding.Sharding`` matching
+        ``template``), each leaf comes back a DTensor on its mesh's device
+        with its placements, and this rank reads only its own shard of it
+        (a region read of the chunks that cover the shard)."""
         if step is None:
             step = self.latest_step()
             if step is None:
@@ -232,11 +280,14 @@ class CheckpointManager:
             self.cs.fs.read(self._manifest_key(step)).decode())
         by_name = {e["name"]: e for e in manifest["entries"]}
 
-        def read(path, leaf):
+        def entry_of(path):
             lname = leaf_name(path)
             if lname not in by_name:
                 raise KeyError(f"checkpoint step {step} missing leaf {lname}")
-            entry = by_name[lname]
+            return by_name[lname]
+
+        def read(path, leaf):
+            entry = entry_of(path)
             arr = self.cs.open(entry["array"]).read_all()
             if entry["scalar"]:
                 arr = arr.reshape(())
@@ -246,7 +297,38 @@ class CheckpointManager:
             dtype = getattr(leaf, "dtype", None)
             return arr.astype(dtype, copy=False) if dtype is not None else arr
 
-        leaves = (read(path, leaf) for path, leaf in flatten_with_path(template))
+        stats = {"region_bytes": 0, "chunk_bytes": 0, "leaf_bytes": 0}
+        self.read_stats = stats
+
+        def read_shard(path, leaf, sh):
+            from repro_torch.launch.sharding import from_local, shard_slices
+
+            entry = entry_of(path)
+            ca = self.cs.open(entry["array"])
+            shape = () if entry["scalar"] else tuple(entry["shape"])
+            region = shard_slices(sh, shape)
+            start = tuple(r.start for r in region) or (0,)
+            stop = tuple(r.stop for r in region) or (1,)
+            arr = ca.read_region(start, stop).reshape(
+                tuple(r.stop - r.start for r in region))
+            stats["region_bytes"] += arr.nbytes
+            stats["chunk_bytes"] += _covering_bytes(ca.spec, start, stop)
+            stats["leaf_bytes"] += (math.prod(ca.spec.shape)
+                                    * np.dtype(ca.spec.dtype).itemsize)
+            dev = (torch.device("cuda", torch.cuda.current_device())
+                   if sh.mesh.device_type == "cuda" else torch.device("cpu"))
+            local = torch.from_numpy(arr).to(device=dev,
+                                             dtype=_torch_dtype(leaf))
+            return from_local(local, sh, shape)
+
+        if shardings is not None:
+            pairs = list(zip(flatten_with_path(template),
+                             flatten_with_path(shardings)))
+            leaves = (read_shard(path, leaf, sh)
+                      for (path, leaf), (_, sh) in pairs)
+        else:
+            leaves = (read(path, leaf)
+                      for path, leaf in flatten_with_path(template))
         return _unflatten(template, leaves)
 
     # -- retention ------------------------------------------------------------------

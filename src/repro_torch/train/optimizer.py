@@ -23,6 +23,14 @@ without it a leaf's own shape decides.
 tensors in place, under ``torch.no_grad()``: at llama3-8b's 8 layers the
 f32 masters and two moments are 33.5 GB, which a functional update would
 hold twice.  The returned parameter tree and state hold the same tensors.
+
+On a mesh (``launch/train.py``) the update runs on each rank's local
+shards, given ``layouts``: a tree laid out as the params holding each
+leaf's ``launch.sharding.Sharding``.  The global norm is then one sum over
+every rank's shards, all-reduced, each shard's sum divided by its number
+of replicas so that a replicated leaf counts once; an int8 moment's row
+absmax is all-reduced (max) over the ranks that share the row, where the
+last axis is sharded.
 """
 
 from __future__ import annotations
@@ -32,6 +40,7 @@ import math
 from typing import Any, Callable, List, NamedTuple
 
 import torch
+import torch.distributed as dist
 
 #: the JAX package's quantization threshold: leaves of at least this many
 #: elements (and two dimensions) get int8 moments
@@ -108,9 +117,14 @@ def quantizable(shape) -> bool:
     return math.prod(shape) >= Q_MIN_SIZE and len(shape) >= 2
 
 
-def quantize(x: torch.Tensor) -> QTensor:
+def quantize(x: torch.Tensor, layout=None) -> QTensor:
+    """Row absmax int8; ``layout`` (a local shard's ``Sharding``) takes
+    each row's absmax over the ranks that share the row."""
     xf = x.float()
-    scale = (xf.abs().amax(dim=-1) / 127.0).clamp_min(1e-12)
+    amax = xf.abs().amax(dim=-1)
+    if layout is not None:
+        amax = layout.reduce_last_axis_max(amax)
+    scale = (amax / 127.0).clamp_min(1e-12)
     q = torch.round(xf / scale[..., None]).clamp(-127, 127).to(torch.int8)
     return QTensor(q=q, scale=scale, shape=tuple(x.shape))
 
@@ -154,11 +168,18 @@ def schedule(cfg: OptimizerConfig, step: torch.Tensor) -> torch.Tensor:
                                            cos)
 
 
-def global_norm(tree) -> torch.Tensor:
+def global_norm(tree, layouts=None) -> torch.Tensor:
     """sqrt of the sum over leaves (JAX order) of each leaf's f32 sum of
-    squares."""
+    squares.  With ``layouts`` the leaves are local shards: each one's sum
+    is divided by its replicas and the total all-reduced over the mesh
+    (which spans every rank)."""
     sums = [torch.sum(torch.square(x.float())) for x in tree_leaves(tree)]
-    return torch.sqrt(torch.sum(torch.stack(sums)))
+    if layouts is None:
+        return torch.sqrt(torch.sum(torch.stack(sums)))
+    total = torch.sum(torch.stack([
+        s / lay.replicas for s, lay in zip(sums, tree_leaves(layouts))]))
+    dist.all_reduce(total)
+    return torch.sqrt(total)
 
 
 def clip_by_global_norm(grads, max_norm: float):
@@ -172,7 +193,7 @@ def clip_by_global_norm(grads, max_norm: float):
 # ---------------------------------------------------------------------------
 @torch.no_grad()
 def update(grads, state: AdamState, params, cfg: OptimizerConfig,
-           shapes=None):
+           shapes=None, layouts=None):
     """One AdamW step -> (params, state, metrics ``grad_norm``, ``lr``).
 
     The JAX package's arithmetic: gradients in f32, clipped by the global
@@ -180,15 +201,18 @@ def update(grads, state: AdamState, params, cfg: OptimizerConfig,
     shape in ``shapes`` (default: their own) has two or more dimensions;
     the new parameter rounded once to its dtype.  Parameters and f32
     moments are updated in place, and f32 gradients are clipped in place;
-    int8 moments are replaced by their new quantization."""
+    int8 moments are replaced by their new quantization.  ``layouts``:
+    the leaves are local shards on a mesh (see the module's docstring)."""
     grads = tree_map(lambda g: g.float(), grads)
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, layouts)
     if cfg.grad_clip_norm > 0:  # in place: f32 gradients may be the caller's
         factor = torch.clamp(cfg.grad_clip_norm / (gnorm + 1e-9), max=1.0)
         for g in tree_leaves(grads):
             g.mul_(factor)
     shapes = shapes if shapes is not None else tree_map(
         lambda p: tuple(p.shape), params)
+    layouts = layouts if layouts is not None else tree_map(
+        lambda p: None, params)
 
     step = state.step + 1
     lr = schedule(cfg, step)
@@ -197,7 +221,7 @@ def update(grads, state: AdamState, params, cfg: OptimizerConfig,
     bc1 = 1 - torch.pow(torch.tensor(b1, device=stepf.device), stepf)
     bc2 = 1 - torch.pow(torch.tensor(b2, device=stepf.device), stepf)
 
-    def leaf_update(p, g, mu, nu, shape):
+    def leaf_update(p, g, mu, nu, shape, layout):
         quantized = isinstance(mu, QTensor)
         mu_f = dequantize(mu) if quantized else mu
         nu_f = dequantize(nu) ** 2 if quantized else nu
@@ -212,11 +236,12 @@ def update(grads, state: AdamState, params, cfg: OptimizerConfig,
             upd = upd + cfg.weight_decay * p.float()
         p.copy_((p.float() - lr * upd).to(p.dtype))
         if quantized:
-            return quantize(mu_f), quantize(torch.sqrt(nu_f))
+            return (quantize(mu_f, layout),
+                    quantize(torch.sqrt(nu_f), layout))
         return mu_f, nu_f
 
     moments = tree_map(leaf_update, params, grads, state.mu, state.nu,
-                       shapes)
+                       shapes, layouts)
 
     def pick(tree, i):  # the parameter tree's nodes are dicts and lists
         if isinstance(tree, dict):

@@ -20,6 +20,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
+from torch.testing._internal.distributed.fake_pg import FakeStore
 
 from repro.configs import get_config as jget_config
 from repro.core import ChunkStore as JChunkStore
@@ -34,6 +36,8 @@ from repro_torch.convert import (jax_layout, params_from_numpy,
                                  params_to_numpy, reference_shapes)
 from repro_torch.core import ChunkStore, Festivus, InMemoryObjectStore
 from repro_torch.core import LocalDirObjectStore
+from repro_torch.launch import mesh as pmesh
+from repro_torch.launch import sharding as shd
 from repro_torch.launch import train as ptrain
 from repro_torch.models import build
 from repro_torch.train import CheckpointManager, make_train_step
@@ -207,8 +211,26 @@ def test_roundtrip_bf16_widening_scalars_and_tensor_templates():
     assert got["step"].shape == () and int(got["step"]) == 7
     assert torch.equal(got["xs"][0], tree["xs"][0])
     assert isinstance(got["xs"][1], np.ndarray)
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        ckpt.restore(tree, shardings={})
+    # sharded: each rank of a (2, 1) mesh reads its rows of "w" region-wise
+    ckpt.save(2, {"w": torch.randn(6, 3).to(torch.bfloat16),
+                  "step": tree["step"]})
+    full = ckpt.restore({"w": tree["w"], "step": tree["step"]}, step=2)
+    for rank in range(2):
+        dist.init_process_group("fake", store=FakeStore(), rank=rank,
+                                world_size=2)
+        try:
+            mesh = pmesh.make_local_mesh(2, 1, device="cpu")
+            sh = {"w": shd.to_named_sharding(mesh, ("dp", None), (6, 3)),
+                  "step": shd.to_named_sharding(mesh, (), ())}
+            part = ckpt.restore({"w": tree["w"], "step": tree["step"]},
+                                step=2, shardings=sh)
+        finally:
+            dist.destroy_process_group()
+        assert part["w"].shape == (6, 3) and part["w"].dtype == torch.bfloat16
+        assert torch.equal(part["w"].to_local(),
+                           full["w"][3 * rank:3 * rank + 3])
+        assert int(part["step"].to_local()) == 7
+        assert ckpt.read_stats["region_bytes"] == 3 * 3 * 4 + 4
 
 
 def test_latest_gc_and_manifest_last():
@@ -266,5 +288,21 @@ def test_train_cli_preempted_and_resumed_ends_as_uninterrupted(tmp_path,
 
 
 def test_train_cli_refuses_meshes():
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        ptrain.run(_args(mesh_data=2))
+    """A mesh runs only where it is the world: in this one-rank world a
+    2 x 1 or 1 x 2 mesh raises (the JAX package would shrink it), a 1 x 1
+    mesh trains as the single device does (tests/test_torch_mesh.py runs
+    the 2-rank meshes)."""
+    try:
+        for kw in ({"mesh_data": 2}, {"mesh_model": 2}):
+            with pytest.raises(ValueError, match="world has 1 ranks"):
+                ptrain.run(_args(**kw))
+        one = ptrain.run(_args(mesh=True, steps=2))
+    finally:
+        pmesh.shutdown()
+    plain = ptrain.run(_args(steps=2))
+    assert one["history"] == [{**h, "tok_per_s": g["tok_per_s"]}
+                              for h, g in zip(plain["history"],
+                                              one["history"])]
+    for a, b in zip(opt.tree_leaves(plain["params"]),
+                    opt.tree_leaves(one["params"])):
+        assert torch.equal(a, b.to_local())
