@@ -181,7 +181,21 @@ Phases, each printing one JSON line with its seconds:
     bit-identical, (c) the flash launches per step as in phase 25, (d)
     each range completed once, (e) the step time against the mesh-less
     step's (the DTensor path's cost) and the save and restore seconds;
-29. summary: the ``kernels`` line, the peak device memory, the
+29. ``grad_compression``: ``train/grad_compression.py``'s
+    ``compressed_psum_mean`` over a 1-rank NCCL group on mesh_train's
+    first-step gradients (1.487·10⁹ f32 elements), bit-identical to the
+    same arithmetic written out on one rank, the error-feedback
+    invariant, its time, wire bytes against an f32 all-reduce's, and its
+    rate against the copy's;
+30. ``dryrun_check``: ``python -m repro_torch.launch.dryrun`` (fake
+    tensors, the fake process group), each cell its own process, started
+    before phase 25 and read here (they use the host, beside the training
+    phases, pinned to the upper half of the cores): the cells of llama_train and mesh_train, their predicted step
+    peaks within DRYRUN_PEAK_BAND of the step peaks those phases measured
+    (``step_peak_bytes``), predicted flops and roofline step beside the
+    measured step; llama3-8b, mamba2-2.7b and jamba-v0.1-52b at train_4k
+    on the 16 x 16 mesh, each ``ok``;
+31. summary: the ``kernels`` line, the peak device memory, the
     ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.
 
 Each LM is freed before the next is drawn.  The launch counts are set to
@@ -227,12 +241,6 @@ GRAD_TOL = {"float32": 1e-5, "bfloat16": 2e-2}  # tests/test_kernels.py:122
 FLASH_REL_L2 = {"float32": 1e-5, "bfloat16": 5e-3}
 EDGE_AGREEMENT = 0.999  # examples/field_segmentation.py:37
 MIN_PURITY = 0.8  # examples/field_segmentation.py:67
-#: NVIDIA's H100 SXM data sheet: HBM3 bytes/s and f32 operations/s outside
-#: the tensor cores, both at the 700 W power limit
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_F32_OPS_PER_S = 67e12
-#: the same data sheet: dense bf16 operations/s on the tensor cores
-PEAK_BF16_OPS_PER_S = 989e12
 COPY_BYTES = 4 * 1024 ** 3
 #: the TPU kernel each CUDA kernel replaces (its ``*_fwd`` entry point)
 REPLACES = {"composite": "src/repro/kernels/composite.py:53",
@@ -471,20 +479,11 @@ COMPOSITE_CASES = [
 ]
 
 
-def composite_bound(shape, x_bytes: int, w_bytes: int):
-    """Bytes and operations the function needs, and the least time."""
-    T, H, W, C = shape
-    nbytes = T * H * W * (C * x_bytes + w_bytes) + H * W * C * x_bytes
-    ops = 2 * T * H * W * C + T * H * W + H * W * C
-    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
-    ops_ms = ops / PEAK_F32_OPS_PER_S * 1e3
-    return nbytes, ops, max(bytes_ms, ops_ms), (
-        "bytes" if bytes_ms >= ops_ms else "operations")
 
 
 def phase_kernels(torch, seed: int, copy_rate: float) -> dict:
     from repro_torch.kernels import composite as kcomposite
-    from repro_torch.kernels import ref
+    from repro_torch.kernels import bounds, ref
 
     t0 = time.perf_counter()
     cases = []
@@ -516,7 +515,7 @@ def phase_kernels(torch, seed: int, copy_rate: float) -> dict:
         case = {"name": name, "shape": list(shape), "images": xd,
                 "weights": wd, "max_abs_err": err, "tol": tol}
         if timed:
-            nbytes, ops, bound_ms, bound_by = composite_bound(
+            nbytes, ops, bound_ms, bound_by = bounds.composite_bound(
                 shape, x.element_size(), w.element_size())
             ms = median_ms(torch, lambda: kcomposite.composite(x, w))
             plain_ms = median_ms(torch, lambda: ref.composite(x, w))
@@ -550,22 +549,11 @@ GRAD_MAG_CASES = [
 ]
 
 
-def grad_mag_bound(shape, x_bytes: int):
-    """Bytes and operations the function needs, and the least time: each
-    image and valid byte read once, both [H, W] f32 outputs written once;
-    8C + 8 operations per pixel and timestep."""
-    T, H, W, C = shape
-    nbytes = T * H * W * (C * x_bytes + 1) + 2 * 4 * H * W
-    ops = (8 * C + 8) * T * H * W
-    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
-    ops_ms = ops / PEAK_F32_OPS_PER_S * 1e3
-    return nbytes, ops, max(bytes_ms, ops_ms), (
-        "bytes" if bytes_ms >= ops_ms else "operations")
 
 
 def phase_grad_mag(torch, seed: int, copy_rate: float) -> dict:
     from repro_torch.kernels import grad_mag as kgrad
-    from repro_torch.kernels import ref
+    from repro_torch.kernels import bounds, ref
 
     t0 = time.perf_counter()
     cases = []
@@ -615,7 +603,7 @@ def phase_grad_mag(torch, seed: int, copy_rate: float) -> dict:
                 "valid_fraction": float(v.float().mean()),
                 "max_abs_err": err, "tol": tol, "count_exact": True}
         if timed:
-            nbytes, ops, bound_ms, bound_by = grad_mag_bound(
+            nbytes, ops, bound_ms, bound_by = bounds.grad_mag_bound(
                 shape, x.element_size())
             ms = median_ms(torch, lambda: kgrad.grad_mag(x, v))
             plain_ms = median_ms(torch, lambda: ref.grad_mag(x, v))
@@ -680,20 +668,6 @@ FLASH_CASES = [
 ]
 
 
-def flash_bound(shape, causal: bool, x_bytes: int):
-    """Operations and bytes the function needs, and the least time: the
-    scores and the weighted sum, 4·D FLOP per visible (query, key) pair
-    (query i sees min(Sk, i + 1 + Sk - Sq) keys when causal), at the
-    inputs' type's peak; q, k, v read once and the output written once."""
-    B, Hq, Hkv, Sq, Sk, D = shape
-    seen = Sq * (Sk - Sq) + Sq * (Sq + 1) // 2 if causal else Sq * Sk
-    ops = 4 * D * B * Hq * seen
-    nbytes = x_bytes * (2 * B * Hq * Sq * D + 2 * B * Hkv * Sk * D)
-    peak = PEAK_BF16_OPS_PER_S if x_bytes == 2 else PEAK_F32_OPS_PER_S
-    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
-    ops_ms = ops / peak * 1e3
-    return nbytes, ops, max(bytes_ms, ops_ms), (
-        "bytes" if bytes_ms >= ops_ms else "operations")
 
 
 def sdpa_ms(torch, q, k, v, causal: bool, runs: int) -> float:
@@ -735,7 +709,7 @@ def rel_l2(torch, got, want) -> float:
 
 def phase_flash(torch, seed: int, copy_rate: float) -> dict:
     from repro_torch.kernels import flash_attention as kflash
-    from repro_torch.kernels import ref
+    from repro_torch.kernels import bounds, ref
 
     t0 = time.perf_counter()
     cases = []
@@ -770,7 +744,7 @@ def phase_flash(torch, seed: int, copy_rate: float) -> dict:
         check(l2 < FLASH_REL_L2[xd],
               f"flash {name}: relative L2 {l2} >= {FLASH_REL_L2[xd]}")
         del got, want
-        nbytes, ops, bound_ms, bound_by = flash_bound(
+        nbytes, ops, bound_ms, bound_by = bounds.flash_bound(
             shape, causal, q.element_size())
         ms = median_ms(torch, lambda: kflash.flash_attention(
             q, k, v, causal=causal), runs=runs, warmup=1)
@@ -839,22 +813,6 @@ BWD_CASES = [
 BWD_DQ_RUN_SPREAD = 2 ** -7
 
 
-def bwd_bound(shape, causal: bool, x_bytes: int):
-    """Operations and bytes the backward needs, and the least time: five
-    products (S, dP, dV, dK, dQ) of 2·D FLOP per visible (query, key)
-    pair, 10·D; q, k, v, o, dO and the f32 log-sum-exp read once, dq, dk
-    and dv written once."""
-    B, Hq, Hkv, Sq, Sk, D = shape
-    seen = Sq * (Sk - Sq) + Sq * (Sq + 1) // 2 if causal else Sq * Sk
-    ops = 10 * D * B * Hq * seen
-    nbytes = (x_bytes * (4 * B * Hq * Sq * D + 2 * B * Hkv * Sk * D)
-              + 4 * B * Hq * Sq + x_bytes * (B * Hq * Sq * D
-                                             + 2 * B * Hkv * Sk * D))
-    peak = PEAK_BF16_OPS_PER_S if x_bytes == 2 else PEAK_F32_OPS_PER_S
-    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
-    ops_ms = ops / peak * 1e3
-    return nbytes, ops, max(bytes_ms, ops_ms), (
-        "bytes" if bytes_ms >= ops_ms else "operations")
 
 
 def sdpa_bwd_ms(torch, q, k, v, do, causal: bool, runs: int):
@@ -897,7 +855,7 @@ def phase_flash_bwd(torch, seed: int, copy_rate: float) -> dict:
     output (dq, dk, dv) held to BWD_TOL and BWD_REL_L2; the timed cases
     beside their bound, the plain version and SDPA's backward."""
     from repro_torch.kernels import flash_attention as kflash
-    from repro_torch.kernels import ref
+    from repro_torch.kernels import bounds, ref
 
     t0 = time.perf_counter()
     cases = []
@@ -943,7 +901,7 @@ def phase_flash_bwd(torch, seed: int, copy_rate: float) -> dict:
                       f"bwd {name} {xd} {out_name}: relative L2 "
                       f"{l2s[out_name]} > {BWD_REL_L2[xd]}")
             del got, want
-            nbytes, ops, bound_ms, bound_by = bwd_bound(
+            nbytes, ops, bound_ms, bound_by = bounds.bwd_bound(
                 shape, causal, q.element_size())
             case = {"name": name, "shape": [B, Hq, Hkv, Sq, Sk, D], "causal": causal,
                     "dtype": xd, "qk_transposed": qk_t,
@@ -1072,34 +1030,12 @@ def ssd_inputs(torch, shape, dtype, grouped: bool, skip: bool, kind: str,
     return x, dt, a, b.expand(B, L, H, N), c.expand(B, L, H, N), d
 
 
-def ssd_bound(shape, x_bytes: int, grouped: bool):
-    """Bytes and operations the function needs, and the least time: x, dt,
-    a, d and the distinct elements of b and c (one group's when they are
-    expanded) read once, y written once; the operations of the chunked
-    algorithm at Q = 128 over the causal pairs only: per head, W x on the
-    q(q+1)/2 pairs j <= i, then c S and the state update, q(q+1)P + 4qNP a
-    chunk of q tokens; c.b once per group (one when b and c are shared by
-    every head), q(q+1)N a chunk; at the inputs' type's peak."""
-    B, L, H, P, N = shape
-    groups = 1 if grouped else H
-    bc = 2 * B * L * N * groups * x_bytes
-    nbytes = 2 * B * L * H * P * x_bytes + B * L * H * 4 + 2 * H * 4 + bc
-    ops = 0
-    for q0 in range(0, L, SSD_CHUNK):
-        q = min(SSD_CHUNK, L - q0)
-        ops += H * (q * (q + 1) * P + 4 * q * N * P) + groups * q * (q + 1) * N
-    ops *= B
-    peak = PEAK_BF16_OPS_PER_S if x_bytes == 2 else PEAK_F32_OPS_PER_S
-    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
-    ops_ms = ops / peak * 1e3
-    return nbytes, ops, max(bytes_ms, ops_ms), (
-        "bytes" if bytes_ms >= ops_ms else "operations")
 
 
 def phase_ssd(torch, seed: int, copy_rate: float) -> dict:
     from functools import partial
 
-    from repro_torch.kernels import ref
+    from repro_torch.kernels import bounds, ref
     from repro_torch.kernels import ssd_scan as kssd
 
     t0 = time.perf_counter()
@@ -1129,8 +1065,8 @@ def phase_ssd(torch, seed: int, copy_rate: float) -> dict:
         check(l2 < SSD_REL_L2[xd],
               f"ssd {name}: relative L2 {l2} >= {SSD_REL_L2[xd]}")
         del got, want
-        nbytes, ops, bound_ms, bound_by = ssd_bound(shape, x.element_size(),
-                                                    grouped)
+        nbytes, ops, bound_ms, bound_by = bounds.ssd_bound(
+            shape, x.element_size(), grouped, chunk=SSD_CHUNK)
         ms = median_ms(torch, lambda: kssd.ssd_scan(x, dt, a, b, c, d_skip=d),
                        runs=runs, warmup=1)
         plain_ms = median_ms(torch, lambda: plain(x, dt, a, b, c, d_skip=d),
@@ -1203,34 +1139,6 @@ SSD_BWD_REL_L2 = {"float32": 1e-4, "bfloat16": 2e-3}
 SSD_GRADS = ("dx", "ddt", "da", "db", "dc", "dd")
 
 
-def ssd_bwd_bound(shape, x_bytes: int, grouped: bool, skip: bool,
-                  chunk: int):
-    """Bytes and operations the backward needs, and the least time: x, dy,
-    dt, a, d and the distinct b and c read once, dx, ddt, da, dd, db and dc
-    written once; the operations at the kernel's chunk (``chunk``,
-    kernels/ssd_scan.py:CHUNK), on the causal pairs only, per chunk of q
-    tokens and head 2q(q+1)(P + N) (dW = dy xᵀ, Wᵀ dy, dCB b, dCBᵀ c) and
-    10qNP (the state recompute, dSᵀ b, S_in dy, dS x and dS_in), and c·b
-    once per group, q(q+1)N; at the inputs' type's peak.  A smaller chunk
-    needs fewer pair products (down to the 10NP state terms a token), so
-    in f32, where the operations bound it, the function's own least time
-    is lower still."""
-    B, L, H, P, N = shape
-    groups = 1 if grouped else H
-    bc = 2 * B * L * N * groups * x_bytes
-    nbytes = (3 * B * L * H * P * x_bytes + 2 * B * L * H * 4 + 2 * bc
-              + (3 if skip else 2) * H * 4 + (H * 4 if skip else 0))
-    ops = 0
-    for q0 in range(0, L, chunk):
-        q = min(chunk, L - q0)
-        ops += (H * (2 * q * (q + 1) * (P + N) + 10 * q * N * P)
-                + groups * q * (q + 1) * N)
-    ops *= B
-    peak = PEAK_BF16_OPS_PER_S if x_bytes == 2 else PEAK_F32_OPS_PER_S
-    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
-    ops_ms = ops / peak * 1e3
-    return nbytes, ops, max(bytes_ms, ops_ms), (
-        "bytes" if bytes_ms >= ops_ms else "operations")
 
 
 def hold_ssd_bwd(torch, got, want, xd: str, what: str):
@@ -1266,7 +1174,7 @@ def phase_ssd_bwd(torch, seed: int, copy_rate: float) -> dict:
     PyTorch call computes it), each with its kernels' device times from a
     profiler trace; the main case twice more, all six gradients
     bit-identical."""
-    from repro_torch.kernels import ref
+    from repro_torch.kernels import bounds, ref
     from repro_torch.kernels import ssd_scan as kssd
 
     t0 = time.perf_counter()
@@ -1286,7 +1194,7 @@ def phase_ssd_bwd(torch, seed: int, copy_rate: float) -> dict:
         errs, limits, l2s = hold_ssd_bwd(torch, got, want, xd, name)
         del got, want
         B, L, H, P, N = shape
-        nbytes, ops, bound_ms, bound_by = ssd_bwd_bound(
+        nbytes, ops, bound_ms, bound_by = bounds.ssd_bwd_bound(
             shape, x.element_size(), grouped, skip, kssd.CHUNK)
         worst = max(errs, key=lambda k: errs[k] / limits[k])
         case = {"name": name, "shape": [B, L, H, P, N], "dtype": xd,
@@ -1481,6 +1389,32 @@ def synced(torch, fn):
     result = fn()
     torch.cuda.synchronize()
     return result, time.perf_counter() - t
+
+
+class StepPeaks:
+    """Each training step's peak device memory (the allocator's peak reset
+    just before the step, read just after; what ``launch/dryrun.py``
+    predicts for one step) and the memory allocated when it starts,
+    keeping the phase's own peak across the resets."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.steps = []
+        self.bases = []
+        self._before = 0
+
+    def __call__(self, fn):
+        cuda = self.torch.cuda
+        self._before = max(self._before, cuda.max_memory_allocated())
+        cuda.reset_peak_memory_stats()
+        self.bases.append(cuda.memory_allocated())
+        out = fn()
+        self.steps.append(cuda.max_memory_allocated())
+        return out
+
+    def phase_peak(self) -> int:
+        return max([self._before, self.torch.cuda.max_memory_allocated()]
+                   + self.steps)
 
 
 #: the caching allocator's counters that a stall inside a call would move:
@@ -2663,15 +2597,18 @@ def phase_llama_train(torch, seed: int, backend) -> dict:
     check(vs_plain["max_rel_l2"] < TRAIN_GRAD_REL_L2,
           f"llama_train: gradients against plain {vs_plain}")
 
-    # (b), (c): the run, each step timed from a synchronise to a synchronise
+    # (b), (c): the run, each step timed from a synchronise to a
+    # synchronise, with its peak memory
     step_s = []
+    peaks = StepPeaks(torch)
 
     def timed(make):
         def make_timed(*a, **kw):
             step = make(*a, **kw)
 
             def call(*step_args):
-                out, seconds = synced(torch, lambda: step(*step_args))
+                out, seconds = synced(torch, lambda: peaks(
+                    lambda: step(*step_args)))
                 step_s.append(seconds)
                 return out
             return call
@@ -2690,7 +2627,8 @@ def phase_llama_train(torch, seed: int, backend) -> dict:
     check(nll[-1] < nll[0], f"llama_train: nll did not fall: {nll}")
     check(out["checkpoints"] == [TRAIN_STEPS],
           f"llama_train: checkpoints {out['checkpoints']}")
-    peak_train = torch.cuda.max_memory_allocated()
+    peak_train = peaks.phase_peak()
+    step_memory = list(zip(peaks.bases, peaks.steps))
 
     # (d) --resume from the last step's checkpoint: the state it restores
     # is held against the live one (then freed), and it takes one step
@@ -2797,7 +2735,9 @@ def phase_llama_train(torch, seed: int, backend) -> dict:
                            "resume_s": resume_s},
             "optimizer_ms": optimizer_ms, "step_breakdown": breakdown,
             "peak_train_bytes": peak_train,
-            "peak_device_bytes": torch.cuda.max_memory_allocated(),
+            "step_peak_bytes": max(p for _, p in step_memory),
+            "step_memory": step_memory,
+            "peak_device_bytes": peaks.phase_peak(),
             "seconds": time.perf_counter() - t0}
 
 
@@ -3184,10 +3124,12 @@ def phase_mesh_train(torch, seed: int, backend) -> dict:
     queue = TaskQueue(clock=clock, default_lease_s=MESH_LEASE_S)
     ranges = submit_step_ranges(queue, MESH_STEPS, MESH_RANGE)
 
+    peaks = StepPeaks(torch)
+
     def elastic(worker, tr):
         def step_fn(s):
             ran.append((worker, s))
-            _, seconds = synced(torch, lambda: tr.run_step(s))
+            _, seconds = synced(torch, lambda: peaks(lambda: tr.run_step(s)))
             step_s.append((worker, s, seconds))
 
         def save_fn(s):
@@ -3246,7 +3188,7 @@ def phase_mesh_train(torch, seed: int, backend) -> dict:
                   for t in opt_mod.tree_leaves(tr_b.params)),
           "mesh_train: the final state")
     read = dict(tr_b.ckpt.read_stats)
-    peak = torch.cuda.max_memory_allocated()
+    peak = peaks.phase_peak()
     del tr_b, b
     pmesh.shutdown()
     torch.cuda.empty_cache()
@@ -3276,7 +3218,224 @@ def phase_mesh_train(torch, seed: int, backend) -> dict:
             "mesh_less_step_s": plain_step_s, "mesh_less_step_ms": plain_ms,
             "dtensor_overhead_ms": mesh_ms - plain_ms,
             "save_s": save_s, "restore_s": restore_s,
-            "restore_read": read, "peak_device_bytes": peak,
+            "restore_read": read, "step_peak_bytes": max(peaks.steps),
+            "step_memory": list(zip(peaks.bases, peaks.steps)),
+            "peak_device_bytes": peak,
+            "seconds": time.perf_counter() - t0}
+
+
+def phase_grad_compression(torch, seed: int, copy_rate: float) -> dict:
+    """train/grad_compression.py on the card: ``compressed_psum_mean`` over
+    a one-rank NCCL group on mesh_train's first-step gradients (llama3-8b
+    at full width, MESH_LAYERS layers, its corpus' first batch, f32),
+    held bit for bit against the same arithmetic written out on one rank
+    (dequant(requant(dequant(quant(g))))); the error-feedback invariant
+    g_eff - residual == dequant(quant(g_eff)) on every leaf
+    (tests/test_train.py:104-114); the call's time (median of 3), the bytes
+    it would put on the wire (int8 both hops) against an f32 ring
+    all-reduce's, and the rate at which it takes the f32 gradients in
+    against the device-to-device copy's."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenDataset, write_corpus
+    from repro_torch.launch import mesh as pmesh
+    from repro_torch.launch import train as ptrain
+    from repro_torch.models import build
+    from repro_torch.train import grad_compression as gc
+    from repro_torch.train import optimizer as opt_mod
+    from repro_torch.train.train_step import make_grads_fn
+
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config(LLAMA), num_layers=MESH_LAYERS)
+    args = train_args(seed, mesh=True, steps=MESH_STEPS, moments="int8")
+    cs = ptrain.make_store(None)
+    spec = ptrain.corpus_spec(args, cfg)
+    write_corpus(cs, spec)
+    first = next(TokenDataset(cs, spec).batches(args.batch, args.seq))
+    batch = {k: torch.as_tensor(first[k]).cuda() for k in ("tokens",
+                                                          "labels")}
+    model = build(cfg)
+    params = model.init(seed, param_dtype=torch.float32)
+    grads, _ = make_grads_fn(model)(params, batch)
+    grads = opt_mod.tree_map(lambda g: g.detach(), grads)
+    del params, model, batch
+    torch.cuda.empty_cache()
+    leaves = opt_mod.tree_leaves(grads)
+    n_elem = sum(g.numel() for g in leaves)
+
+    pmesh.init_distributed("cuda")
+    try:
+        check(dist.get_backend() == "nccl" and dist.get_world_size() == 1,
+              f"grad_compression: backend {dist.get_backend()}, world "
+              f"{dist.get_world_size()}")
+        seconds = []
+        for _ in range(3):
+            red, s = synced(torch, lambda: gc.compressed_psum_mean(
+                grads, None, 1))
+            seconds.append(s)
+        got = torch.cat([g.reshape(-1) for g in opt_mod.tree_leaves(red)])
+        del red
+    finally:
+        pmesh.shutdown()
+
+    # the same arithmetic on one rank, written out
+    cat = torch.cat([g.float().reshape(-1) for g in leaves])
+    s1 = torch.clamp(cat.abs().max(), min=1e-12) / 127.0
+    q1 = torch.clamp(torch.round(cat / s1), -127, 127).to(torch.int8)
+    del cat
+    p1 = q1.to(torch.float32) * s1
+    del q1
+    s2 = torch.clamp(p1.abs().max(), min=1e-12) / 127.0
+    q2 = torch.clamp(torch.round(p1 / s2), -127, 127).to(torch.int8)
+    del p1
+    want = q2.to(torch.float32) * s2
+    del q2
+    identical = bool(torch.equal(got, want))
+    max_diff = float((got - want).abs().max())
+    del got, want
+    check(identical, f"grad_compression: the one-rank result differs from "
+                     f"dequant(requant(dequant(quant(g)))) by {max_diff}")
+
+    # the error-feedback invariant, leaf by leaf
+    g_eff, err = gc.with_error_feedback(grads, gc.init_error_state(grads))
+    worst = float("-inf")
+    for ge, e in zip(opt_mod.tree_leaves(g_eff), opt_mod.tree_leaves(err)):
+        q, sc = gc.quantize_per_tensor(ge)
+        recon = gc.dequantize_per_tensor(q, sc)
+        excess = ((ge - e) - recon).abs() - (1e-6 + 1e-6 * recon.abs())
+        worst = max(worst, float(excess.max()))
+    del g_eff, err, grads, leaves
+    torch.cuda.empty_cache()
+    check(worst <= 0.0, f"grad_compression: error feedback off by {worst}")
+
+    ms = statistics.median(seconds) * 1e3
+    wire = 2 * n_elem + 2 * 4  # int8 both hops, one f32 scale each
+    f32_wire = 2 * 4 * n_elem  # an f32 ring all-reduce, 2x its operand
+    rate = 4 * n_elem / (ms * 1e-3)
+    return {"phase": "grad_compression", "arch": cfg.arch_id,
+            "layers": MESH_LAYERS, "elements": n_elem, "backend": "nccl",
+            "world_size": 1, "identical_to_plain": identical,
+            "error_feedback_excess": worst, "ms": ms, "seconds_runs": seconds,
+            "wire_bytes": wire, "f32_wire_bytes": f32_wire,
+            "wire_vs_f32": wire / f32_wire,
+            "f32_in_bytes_per_s": rate,
+            "vs_copy_bytes_per_s": rate / copy_rate,
+            "seconds": time.perf_counter() - t0}
+
+
+#: the dry run's cells that chip_smoke itself trains (llama_train without a
+#: mesh, mesh_train on its 1 x 1 mesh: their shapes) and three train_4k
+#: cells on the 16 x 16 production mesh
+DRYRUN_TRAINED = {
+    "llama_train": ["--arch", LLAMA, "--shape", "train_4k", "--mesh", "none",
+                    "--layers", str(TRAIN_LAYERS), "--batch",
+                    str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--moments",
+                    "fp32"],
+    "mesh_train": ["--arch", LLAMA, "--shape", "train_4k", "--mesh",
+                   "local", "--layers", str(MESH_LAYERS), "--batch",
+                   str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--moments",
+                   "int8"]}
+DRYRUN_PRODUCTION = (LLAMA, MAMBA, JAMBA)
+#: a trained cell's predicted step peak against the measured one
+DRYRUN_PEAK_BAND = (0.8, 1.25)
+DRYRUN_TIMEOUT_S = 600
+
+
+def dryrun_cores() -> set:
+    """The cores the dry-run processes are pinned to: the upper half of
+    this process's, so that the training phases they run beside keep the
+    lower half to themselves."""
+    cores = sorted(os.sched_getaffinity(0))
+    return set(cores[len(cores) // 2:])
+
+
+def start_dryruns() -> dict:
+    """``python -m repro_torch.launch.dryrun``, each cell a process of its
+    own, all started at once and pinned to ``dryrun_cores()`` (they use
+    the host, not the card, and run beside the training phases, away from
+    the cores this process drives the card from): the cells of
+    llama_train and mesh_train, and llama3-8b, mamba2-2.7b and
+    jamba-v0.1-52b at train_4k on the 16 x 16 mesh -> {cell: its
+    process}."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    cells = dict(DRYRUN_TRAINED)
+    for arch in DRYRUN_PRODUCTION:
+        cells[arch] = ["--arch", arch, "--shape", "train_4k", "--mesh",
+                       "single"]
+    cores = dryrun_cores()
+    procs = {}
+    for name, argv in cells.items():
+        procs[name] = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", *argv],
+            cwd=ROOT, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
+        with contextlib.suppress(ProcessLookupError):  # already ended
+            os.sched_setaffinity(procs[name].pid, cores)
+    return procs
+
+
+def stop(procs: dict) -> None:
+    for p in procs.values():
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+
+
+def phase_dryrun_check(torch, procs: dict, trained: dict) -> dict:
+    """The dry-run processes of ``start_dryruns``, read: each cell must
+    end ``ok``; for llama_train and mesh_train, the predicted step peak
+    against the step peak the phase measured, within DRYRUN_PEAK_BAND, and
+    the predicted flops and roofline step against the measured step time,
+    as ratios with no gate."""
+    t0 = time.perf_counter()
+    records = {}
+    try:
+        for name, p in procs.items():
+            out, err = p.communicate(timeout=DRYRUN_TIMEOUT_S)
+            lines = [ln for ln in out.splitlines() if ln.startswith("{")]
+            check(p.returncode == 0 and lines,
+                  f"dryrun {name}: exit {p.returncode}: {err[-2000:]}")
+            records[name] = json.loads(lines[-1])
+            check(records[name]["status"] == "ok",
+                  f"dryrun {name}: {records[name]}")
+    finally:
+        stop(procs)
+    held = {}
+    for name, rec in records.items():
+        if name not in trained:
+            continue
+        line = trained[name]
+        peak = rec["bytes_per_device"]["peak_estimate"]
+        ratio = peak / line["step_peak_bytes"]
+        step_ms = line["step_ms"]
+        held[name] = {
+            "predicted_peak_bytes": peak,
+            "measured_step_peak_bytes": line["step_peak_bytes"],
+            "measured_phase_peak_bytes": line["peak_device_bytes"],
+            "peak_ratio": ratio, "band": list(DRYRUN_PEAK_BAND),
+            "predicted_flops": rec["flops_per_device"],
+            "roofline_step_ms": rec["roofline"]["step_s"] * 1e3,
+            "roofline_bottleneck": rec["roofline"]["bottleneck"],
+            "measured_step_ms": step_ms,
+            "roofline_vs_measured": rec["roofline"]["step_s"] * 1e3
+            / step_ms,
+            "achieved_flops_per_s": rec["flops_per_device"]
+            / (step_ms * 1e-3),
+            "kernel_calls": rec["kernel_calls"]}
+        check(DRYRUN_PEAK_BAND[0] <= ratio <= DRYRUN_PEAK_BAND[1],
+              f"dryrun {name}: predicted peak {peak} against the measured "
+              f"step peak {line['step_peak_bytes']} ({ratio:.3f})")
+    production = {name: {k: records[name][k] for k in (
+        "chips", "bytes_per_device", "hbm_ok", "params", "flops_per_device",
+        "hbm_bytes_per_device", "collective_bytes_per_device",
+        "collective_s_per_device", "roofline", "model_flops",
+        "model_vs_hlo_flops", "kernel_calls", "trace_s")}
+        for name in DRYRUN_PRODUCTION}
+    return {"phase": "dryrun_check", "fake_device": records[LLAMA][
+        "fake_device"], "trained": held, "train_4k_16x16": production,
+            "trace_s": {name: rec["trace_s"] for name, rec in
+                        records.items()},
             "seconds": time.perf_counter() - t0}
 
 
@@ -3371,19 +3530,28 @@ def main() -> int:
         del model, params
         torch.cuda.empty_cache()
         peak = max([peak] + [ln["peak_device_bytes"] for ln in lm_lines])
-    train = phase_llama_train(torch, args.seed, backend)
-    emit(train)
-    lm_lines.append(train)
-    peak = max(peak, train["peak_device_bytes"])
-    for which in SSM_TRAIN:
-        train = phase_ssm_train(torch, args.seed, backend, which)
-        emit(train)
-        lm_lines.append(train)
-        peak = max(peak, train["peak_device_bytes"])
-    mesh_train = phase_mesh_train(torch, args.seed, backend)
-    emit(mesh_train)
-    lm_lines.append(mesh_train)
-    peak = max(peak, mesh_train["peak_device_bytes"])
+    dryruns = start_dryruns()
+    try:
+        llama_train = phase_llama_train(torch, args.seed, backend)
+        emit(llama_train)
+        lm_lines.append(llama_train)
+        peak = max(peak, llama_train["peak_device_bytes"])
+        for which in SSM_TRAIN:
+            train = phase_ssm_train(torch, args.seed, backend, which)
+            emit(train)
+            lm_lines.append(train)
+            peak = max(peak, train["peak_device_bytes"])
+        mesh_train = phase_mesh_train(torch, args.seed, backend)
+        emit(mesh_train)
+        lm_lines.append(mesh_train)
+        peak = max(peak, mesh_train["peak_device_bytes"])
+        compression = phase_grad_compression(torch, args.seed,
+                                             device["copy_bytes_per_s"])
+        emit(compression)
+        emit(phase_dryrun_check(torch, dryruns, {
+            "llama_train": llama_train, "mesh_train": mesh_train}))
+    finally:
+        stop(dryruns)
 
     def lm_launches(kernel: str) -> int:
         """The main paths' launches: each served prefill and generate run

@@ -22,9 +22,12 @@ The model is used ONLY by the benchmark/virtual-time paths; functional code
 (data pipeline, checkpointing) runs the same festivus implementation at
 native speed against real in-memory / on-disk backends.
 
-Unlike the JAX package's module, this copy carries no accelerator roofline
-constants and no ``mfu``/``roofline_terms``: those described the TPU target
-and have no counterpart in the port.
+Unlike the JAX package's module, this copy carries no TPU constants and
+no ``mfu``.  Its accelerator roofline (:func:`roofline_terms`, used by
+``launch/dryrun.py``) is the H100's, from the ``H100_*`` figures below:
+NVIDIA's data sheet for the H100 SXM5 80 GB (HBM3, 700 W) and its node
+(8 GPUs on NVLink 4, one 400 Gb/s NIC a GPU between nodes).  They are
+specifications, not measurements.
 """
 
 from __future__ import annotations
@@ -721,3 +724,46 @@ def fit_service_time_params(rows):
     t0 = mt - slope * mx
     return t0, 1.0 / slope
 
+
+
+# ---------------------------------------------------------------------------
+# the H100 roofline (data sheet figures: NVIDIA H100 80GB HBM3, 700 W)
+# ---------------------------------------------------------------------------
+#: dense bf16 operations/s on the tensor cores
+H100_PEAK_BF16_OPS_PER_S = 989e12
+#: f32 operations/s outside the tensor cores
+H100_PEAK_F32_OPS_PER_S = 67e12
+#: HBM3 bytes/s
+H100_HBM_BYTES_PER_S = 3.35e12
+#: HBM capacity ("80 GB"); a run on the card reads the card's own
+#: (``torch.cuda.get_device_properties(0).total_memory``)
+H100_HBM_BYTES = 80 * GB
+#: GPUs of one node, all to all on NVLink 4
+H100_GPUS_PER_NODE = 8
+#: NVLink 4 bytes/s each way a GPU (900 GB/s both ways)
+H100_NVLINK_BYTES_PER_S = 450e9
+#: one 400 Gb/s NIC a GPU between nodes
+H100_NIC_BYTES_PER_S = 400e9 / 8
+
+
+def link_bytes_per_s(ranks) -> float:
+    """The slowest link a collective over ``ranks`` (global ranks, 8 to a
+    node) crosses: NVLink within a node, a GPU's NIC across nodes."""
+    nodes = {r // H100_GPUS_PER_NODE for r in ranks}
+    return H100_NVLINK_BYTES_PER_S if len(nodes) <= 1 else H100_NIC_BYTES_PER_S
+
+
+def roofline_terms(flops: float, hbm_bytes: float, collective_s: float,
+                   chips: int):
+    """The three roofline terms of one step, in seconds (max dominates):
+    global ``flops`` at the bf16 tensor-core peak and global ``hbm_bytes``
+    at the HBM rate, both spread over ``chips``; ``collective_s`` is one
+    device's wire time, each collective priced at its link
+    (:func:`link_bytes_per_s`)."""
+    terms = {"compute_s": flops / (chips * H100_PEAK_BF16_OPS_PER_S),
+             "memory_s": hbm_bytes / (chips * H100_HBM_BYTES_PER_S),
+             "collective_s": collective_s}
+    terms["bottleneck"] = max(terms, key=lambda k: terms[k])
+    terms["step_s"] = max(terms["compute_s"], terms["memory_s"],
+                          terms["collective_s"])
+    return terms

@@ -20,6 +20,7 @@ import threading
 from typing import Dict, Union
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
 REQUIRED_CAPABILITY = (9, 0)
 
@@ -45,6 +46,15 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
             f"{torch.cuda.get_device_name(dev)} has compute capability {cap}; "
             f"the kernels are built for sm_90a {REQUIRED_CAPABILITY}")
     return dev
+
+
+def is_fake(t) -> bool:
+    """True for a ``FakeTensor`` (``launch/dryrun.py``'s): it has shapes,
+    dtypes and strides but no memory, so a kernel's custom op takes its
+    registered fake implementation and nothing is launched.  The wrappers'
+    checks skip what only memory has (the device, the base pointers) for
+    such a tensor."""
+    return isinstance(t, FakeTensor)
 
 
 def refuse_autograd(kernel: str, tensors, reason: str) -> None:

@@ -36,20 +36,29 @@ inputs run on the f32 cores, held to 3e-5.
 The wrappers check shapes, dtype, head_dim and the strides and raise on
 anything the kernels do not take (for bf16, TMA needs the base pointers
 and the batch, head and sequence strides in multiples of 16 bytes),
-allocates the output with ``torch.empty``, launches on the current stream
-without synchronising, raises if the launch is refused, and counts its
-launches (the forward in ``launches``, the backward in ``bwd_launches``).
+then call the kernel's custom op (``torch.ops.repro_torch.
+flash_attention_fwd`` and ``flash_attention_bwd``): on CUDA tensors it
+allocates the outputs with ``torch.empty``, launches on the current
+stream without synchronising, raises if the launch is refused, and counts
+its launches (the forward in ``launches``, the backward in
+``bwd_launches``).  On CPU tensors, which only a direct call of the op
+reaches (the wrappers refuse them), the op runs the plain versions; on
+fake tensors (``launch/dryrun.py``) its fake implementation gives the
+outputs' shapes and launches nothing, and ``torch.utils.flop_counter``
+counts its operations by ``kernels/bounds.py``.
 """
 
 from __future__ import annotations
 
 import ctypes
 import threading
+from typing import Tuple
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
-from repro_torch.kernels import build
-from repro_torch.kernels.backend import LaunchCounter
+from repro_torch.kernels import bounds, build, ref
+from repro_torch.kernels.backend import LaunchCounter, is_fake
 from repro_torch.kernels.ref import check_causal
 
 HEAD_DIMS = (16, 32, 64, 128, 256)
@@ -65,6 +74,15 @@ BWD_BLOCK_M = 64
 
 launches = LaunchCounter("flash_attention")
 bwd_launches = LaunchCounter("flash_attention_bwd")
+
+#: the kernels' ops, ``torch.ops.repro_torch.flash_attention_{fwd,bwd}``:
+#: defined on ``torch.library.Library`` (a dispatch costs ~2 µs on the
+#: host, where ``torch.library.custom_op`` adds ~25)
+_LIB = torch.library.Library("repro_torch", "FRAGMENT")
+_LIB.define("flash_attention_fwd(Tensor q, Tensor k, Tensor v, bool causal, "
+            "bool with_lse) -> (Tensor, Tensor)")
+_LIB.define("flash_attention_bwd(Tensor q, Tensor k, Tensor v, Tensor o, "
+            "Tensor lse, Tensor do, bool causal) -> (Tensor, Tensor, Tensor)")
 
 _bind_lock = threading.Lock()
 _bound = {}
@@ -101,7 +119,9 @@ def _strides(t: torch.Tensor) -> tuple:
 def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  causal: bool) -> None:
     """Raise on anything the kernels do not take.  The device is checked
-    last, so each of the other checks can be seen on CPU tensors."""
+    last, so each of the other checks can be seen on CPU tensors; fake
+    tensors skip the base pointers and the device (:func:`backend.is_fake`)."""
+    fake = is_fake(q)
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("q, k and v must be [B, H, S, D]")
     B, Hq, Sq, D = q.shape
@@ -122,7 +142,7 @@ def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.dtype == torch.bfloat16:
         for name, t in (("q", q), ("k", k), ("v", v)):
             size = t.element_size()
-            if (t.data_ptr() % TMA_ALIGN
+            if ((not fake and t.data_ptr() % TMA_ALIGN)
                     or any(st <= 0 or st * size % TMA_ALIGN
                            for st in _strides(t))):
                 raise ValueError(
@@ -132,6 +152,8 @@ def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if B * Hq > MAX_BATCH_HEADS:
         raise ValueError(f"B*Hq={B * Hq} > {MAX_BATCH_HEADS}")
     check_causal(Sq, Sk, causal)
+    if fake:
+        return
     if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
         raise ValueError(f"the kernel needs q, k, v on one CUDA device, got "
                          f"{q.device}, {k.device}, {v.device}")
@@ -145,13 +167,27 @@ def _raise_on(err: int, err_string, what: str) -> None:
 
 def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
              causal: bool, with_lse: bool):
-    """Launch the forward kernel -> (out, lse or None)."""
+    """Check the inputs and run the forward op -> (out, lse or None)."""
     check_inputs(q, k, v, causal)
+    out, lse = fwd_op(q, k, v, causal, with_lse)
+    return out, (lse if with_lse else None)
+
+
+def _fwd_outputs(q: torch.Tensor, with_lse: bool):
+    B, Hq, Sq, D = q.shape
+    out = q.new_empty((B, Hq, Sq, D))
+    lse = q.new_empty((B, Hq, Sq) if with_lse else (0,), dtype=torch.float32)
+    return out, lse
+
+
+def _fwd_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                causal: bool, with_lse: bool
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The forward kernel on inputs :func:`check_inputs` took -> (out, lse;
+    an empty lse unless ``with_lse``): the op's CUDA implementation."""
     B, Hq, Sq, D = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
-    out = torch.empty((B, Hq, Sq, D), dtype=q.dtype, device=q.device)
-    lse = (torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
-           if with_lse else None)
+    out, lse = _fwd_outputs(q, with_lse)
     if out.numel() == 0:
         return out, lse
     fn, err_string = _bind("flash_attention")
@@ -165,6 +201,41 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _raise_on(err, err_string, "flash_attention")
     launches.add()
     return out, lse
+
+
+def _fwd_plain(q, k, v, causal, with_lse):
+    """The plain version (``ref.attention``) and its row log-sum-exp."""
+    out, lse = _fwd_outputs(q, with_lse)
+    out.copy_(ref.attention(q, k, v, causal=causal))
+    if with_lse:
+        lse.copy_(ref.attention_lse(q, k, causal=causal))
+    return out, lse
+
+
+def _fwd_fake(q, k, v, causal, with_lse):
+    check_inputs(q, k, v, causal)
+    return _fwd_outputs(q, with_lse)
+
+
+_LIB.impl("flash_attention_fwd", _fwd_launch, "CUDA")
+_LIB.impl("flash_attention_fwd", _fwd_plain, "CPU")
+torch.library.register_fake("repro_torch::flash_attention_fwd",
+                            lib=_LIB)(_fwd_fake)
+fwd_op = torch.ops.repro_torch.flash_attention_fwd.default
+
+
+def attention_shape(q_shape, k_shape) -> tuple:
+    """(B, Hq, Hkv, Sq, Sk, D) of q [B, Hq, Sq, D] and k [B, Hkv, Sk, D]:
+    ``bounds.flash_bound``'s shape."""
+    B, Hq, Sq, D = q_shape
+    return (B, Hq, k_shape[1], Sq, k_shape[2], D)
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention_fwd)
+def _fwd_flops(q_shape, k_shape, v_shape, causal, with_lse, *args,
+               **kwargs) -> int:
+    return bounds.flash_bound(attention_shape(q_shape, k_shape), causal,
+                              2)[1]
 
 
 def flash_attention_with_lse(q: torch.Tensor, k: torch.Tensor,
@@ -228,11 +299,24 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``dq_acc``), f32 two (dq with delta, then dk and dv), counted as one
     launch; the scratch is :func:`bwd_workspace`'s."""
     check_bwd_inputs(q, k, v, o, lse, do, causal)
+    return bwd_op(q, k, v, o, lse, do, causal)
+
+
+def _bwd_outputs(q: torch.Tensor, k: torch.Tensor):
+    dq = torch.empty_like(q, memory_format=torch.contiguous_format)
+    dk = q.new_empty(tuple(k.shape))
+    return dq, dk, torch.empty_like(dk)
+
+
+def _bwd_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                causal: bool
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The backward kernel on inputs :func:`check_bwd_inputs` took: the
+    op's CUDA implementation."""
     B, Hq, Sq, D = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
-    dq = torch.empty((B, Hq, Sq, D), dtype=q.dtype, device=q.device)
-    dk = torch.empty((B, Hkv, Sk, D), dtype=q.dtype, device=q.device)
-    dv = torch.empty_like(dk)
+    dq, dk, dv = _bwd_outputs(q, k)
     if dq.numel() == 0 or Sk == 0:
         return dq.zero_(), dk, dv
     delta, lse2, dq_acc = bwd_workspace(q)
@@ -250,6 +334,30 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _raise_on(err, err_string, "flash_attention_bwd")
     bwd_launches.add()
     return dq, dk, dv
+
+
+def _bwd_plain(q, k, v, o, lse, do, causal):
+    """The plain version, ``ref.attention_bwd``."""
+    return tuple(g.contiguous()
+                 for g in ref.attention_bwd(q, k, v, do, causal=causal))
+
+
+def _bwd_fake(q, k, v, o, lse, do, causal):
+    check_bwd_inputs(q, k, v, o, lse, do, causal)
+    return _bwd_outputs(q, k)
+
+
+_LIB.impl("flash_attention_bwd", _bwd_launch, "CUDA")
+_LIB.impl("flash_attention_bwd", _bwd_plain, "CPU")
+torch.library.register_fake("repro_torch::flash_attention_bwd",
+                            lib=_LIB)(_bwd_fake)
+bwd_op = torch.ops.repro_torch.flash_attention_bwd.default
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention_bwd)
+def _bwd_flops(q_shape, k_shape, v_shape, o_shape, lse_shape, do_shape,
+               causal, *args, **kwargs) -> int:
+    return bounds.bwd_bound(attention_shape(q_shape, k_shape), causal, 2)[1]
 
 
 class FlashAttentionFn(torch.autograd.Function):

@@ -21,6 +21,11 @@ launches the kernel for CUDA tensors and, for CPU tensors, takes
 Where autograd records (grad mode on and an input requires grad), the
 kernels run through their ``autograd.Function``: ``FlashAttentionFn`` and
 ``SsdScanFn``, whose backwards are the hand-written backward kernels.
+
+A ``FakeTensor`` (shapes and strides, no memory: ``launch/dryrun.py``)
+takes the card's route under ``"auto"`` whatever its device: the kernels'
+ops give its outputs' shapes and launch nothing, where a plain version
+would run its intermediate tensors.
 """
 
 from __future__ import annotations
@@ -32,6 +37,7 @@ from repro_torch.kernels import flash_attention as flash_kernel
 from repro_torch.kernels import grad_mag as grad_mag_kernel
 from repro_torch.kernels import ref
 from repro_torch.kernels import ssd_scan as ssd_kernel
+from repro_torch.kernels.backend import is_fake
 
 IMPLS = ("auto", "ref", "kernel")
 #: the JAX package's impl strings for attention and the SSD
@@ -64,6 +70,12 @@ def grad_mag(images: torch.Tensor, valid: torch.Tensor, impl: str = "auto"
     return grad_mag_kernel.grad_mag(images, valid)
 
 
+def _on_card(t: torch.Tensor) -> bool:
+    """Where ``"auto"`` takes the hand-written kernel: a CUDA tensor, or a
+    fake one."""
+    return t.is_cuda or is_fake(t)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True, impl: str = "auto") -> torch.Tensor:
     """GQA attention: q [B,Hq,Sq,D], k/v [B,Hkv,Sk,D] -> [B,Hq,Sq,D].
@@ -71,7 +83,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if impl not in JAX_IMPLS:
         raise ValueError(f"impl={impl!r} not in {JAX_IMPLS}")
     if impl == "auto":
-        impl = "pallas" if q.is_cuda else (
+        impl = "pallas" if _on_card(q) else (
             "chunked" if q.shape[2] >= CHUNKED_FROM else "ref")
     if impl == "ref":
         return ref.attention(q, k, v, causal=causal)
@@ -96,7 +108,7 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
         raise ValueError(f"b {tuple(b.shape)} and c {tuple(c.shape)} must "
                          f"be [B, L, H={H} or 1, N]")
     if impl == "auto":
-        impl = "pallas" if x.is_cuda else (
+        impl = "pallas" if _on_card(x) else (
             "chunked" if x.shape[1] % chunk == 0 else "ref")
     bh, ch = ssd_kernel.expand_heads(b, H), ssd_kernel.expand_heads(c, H)
     if impl == "chunked":

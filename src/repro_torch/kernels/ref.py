@@ -33,20 +33,36 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     right-aligned against the keys (query i sees keys <= i + Sk - Sq);
     causal with Sq > Sk raises.  Materialises the [Sq, Sk] scores."""
     B, Hq, Sq, D = q.shape
+    probs = torch.softmax(_scores(q, k, causal, scale), dim=-1)
+    out = torch.einsum("bhgqk,bhkd->bhgqd", probs, v.float())
+    return out.reshape(B, Hq, Sq, D).to(q.dtype)
+
+
+def _scores(q: torch.Tensor, k: torch.Tensor, causal: bool,
+            scale: float | None) -> torch.Tensor:
+    """The masked, scaled f32 scores [B, Hkv, group, Sq, Sk]."""
+    B, Hq, Sq, D = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
     if Hq % Hkv:
         raise ValueError(f"Hq={Hq} not a multiple of Hkv={Hkv}")
     check_causal(Sq, Sk, causal)
-    group = Hq // Hkv
     scale = (D ** -0.5) if scale is None else scale
-    qf = q.float().reshape(B, Hkv, group, Sq, D)
+    qf = q.float().reshape(B, Hkv, Hq // Hkv, Sq, D)
     logits = torch.einsum("bhgqd,bhkd->bhgqk", qf, k.float()) * scale
     if causal:
         logits = logits.masked_fill(_causal_hidden(Sq, Sk, 0, Sq, q.device),
                                     float("-inf"))
-    probs = torch.softmax(logits, dim=-1)
-    out = torch.einsum("bhgqk,bhkd->bhgqd", probs, v.float())
-    return out.reshape(B, Hq, Sq, D).to(q.dtype)
+    return logits
+
+
+def attention_lse(q: torch.Tensor, k: torch.Tensor, causal: bool = True,
+                  scale: float | None = None) -> torch.Tensor:
+    """Each query row's log-sum-exp of its scaled, masked scores, f32
+    [B, Hq, Sq] (natural log): what the forward kernel writes for its
+    backward."""
+    B, Hq, Sq, _ = q.shape
+    return torch.logsumexp(_scores(q, k, causal, scale),
+                           dim=-1).reshape(B, Hq, Sq)
 
 
 def _causal_hidden(seq_q: int, seq_k: int, row0: int, rows: int,

@@ -37,21 +37,29 @@ autograd would sum a per-head gradient over the heads through ``expand``'s
 backward.)
 
 The wrappers check shapes, dtypes, strides, alignment and the device, and
-raise on anything the kernels do not take, allocate outputs and scratch
-with ``torch.empty``, launch on the current stream without synchronising,
-raise if a launch is refused, and count one launch a call.
+raise on anything the kernels do not take, then call the kernel's custom
+op (``torch.ops.repro_torch.ssd_scan_fwd`` and ``ssd_scan_bwd``): on CUDA
+tensors it allocates outputs and scratch with ``torch.empty``, launches
+on the current stream without synchronising, raises if a launch is
+refused, and counts one launch a call.  On CPU tensors, which only a
+direct call of the op reaches (the wrappers refuse them), the op runs the
+plain versions; on fake tensors (``launch/dryrun.py``) its fake
+implementation gives the outputs' shapes and launches nothing, and
+``torch.utils.flop_counter`` counts its operations by
+``kernels/bounds.py`` at the kernel's chunk.
 """
 
 from __future__ import annotations
 
 import ctypes
 import threading
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
-from repro_torch.kernels import build
-from repro_torch.kernels.backend import LaunchCounter
+from repro_torch.kernels import bounds, build, ref
+from repro_torch.kernels.backend import LaunchCounter, is_fake
 
 #: P and N the kernel takes: those of tests/test_kernels.py:137-141 and of
 #: the mamba2 and jamba configs
@@ -74,6 +82,15 @@ BWD_HEAD_TILE = 8
 
 launches = LaunchCounter("ssd_scan")
 bwd_launches = LaunchCounter("ssd_scan_bwd")
+
+#: the kernels' ops, ``torch.ops.repro_torch.ssd_scan_{fwd,bwd}``, on
+#: ``torch.library.Library`` (see ``flash_attention.py``)
+_LIB = torch.library.Library("repro_torch", "FRAGMENT")
+_LIB.define("ssd_scan_fwd(Tensor x, Tensor dt, Tensor a, Tensor b, "
+            "Tensor c, Tensor? d_skip) -> Tensor")
+_LIB.define("ssd_scan_bwd(Tensor x, Tensor dt, Tensor a, Tensor b, "
+            "Tensor c, Tensor dy, Tensor? d_skip) -> (Tensor, Tensor, "
+            "Tensor, Tensor, Tensor, Tensor)")
 
 _bind_lock = threading.Lock()
 _bound = {}
@@ -102,7 +119,9 @@ def check_inputs(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
                  b: torch.Tensor, c: torch.Tensor,
                  d_skip: Optional[torch.Tensor] = None) -> None:
     """Raise on anything the kernel does not take.  The device is checked
-    last, so each of the other checks can be seen on CPU tensors."""
+    last, so each of the other checks can be seen on CPU tensors; fake
+    tensors skip the base pointers and the device (:func:`backend.is_fake`)."""
+    fake = is_fake(x)
     if x.dim() != 4 or b.dim() != 4 or c.dim() != 4:
         raise ValueError("x, b and c must be [B, L, H, P] and [B, L, H, N]")
     if dt.dim() != 3 or a.dim() != 1:
@@ -133,7 +152,7 @@ def check_inputs(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     if x.dtype == torch.bfloat16:
         for name, t in (("x", x), ("b", b), ("c", c)):
             size = t.element_size()
-            if (t.data_ptr() % CP_ASYNC_ALIGN
+            if ((not fake and t.data_ptr() % CP_ASYNC_ALIGN)
                     or any(t.stride(i) * size % CP_ASYNC_ALIGN
                            for i in range(3) if t.shape[i] > 1)):
                 raise ValueError(
@@ -143,6 +162,8 @@ def check_inputs(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
                     f"copy")
     if B > MAX_GRID_YZ or H > MAX_GRID_YZ:
         raise ValueError(f"B={B} and H={H} must be <= {MAX_GRID_YZ}")
+    if fake:
+        return
     tensors = [x, dt, a, b, c] + ([d_skip] if d_skip is not None else [])
     if x.device.type != "cuda" or any(t.device != x.device for t in tensors):
         raise ValueError(f"the kernel needs every input on one CUDA device, "
@@ -164,15 +185,31 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     [B, L, H] f32, a [H] f32, d_skip [H] f32 or None, on the card -> y
     [B, L, H, P] contiguous in x's dtype (see ``ref.ssd_scan``)."""
     check_inputs(x, dt, a, b, c, d_skip)
+    return fwd_op(x, dt, a, b, c, d_skip)
+
+
+def _cb_scratch(x: torch.Tensor, groups: int):
+    """The bf16 kernel's f32 c·b tiles, one per (batch, chunk, group);
+    None for f32."""
+    B, L = x.shape[:2]
+    if x.dtype != torch.bfloat16:
+        return None
+    return torch.empty((B, -(-L // CHUNK), groups, CB_TILE_FLOATS),
+                       dtype=torch.float32, device=x.device)
+
+
+def _fwd_launch(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+                b: torch.Tensor, c: torch.Tensor,
+                d_skip: Optional[torch.Tensor]) -> torch.Tensor:
+    """The forward kernel on inputs :func:`check_inputs` took: the op's
+    CUDA implementation."""
     B, L, H, P = x.shape
     N = b.shape[3]
     y = torch.empty((B, L, H, P), dtype=x.dtype, device=x.device)
     if y.numel() == 0:
         return y
     groups = cb_groups(b, c)
-    cb = (torch.empty((B, -(-L // CHUNK), groups, CB_TILE_FLOATS),
-                      dtype=torch.float32, device=x.device)
-          if x.dtype == torch.bfloat16 else None)
+    cb = _cb_scratch(x, groups)
     fn, err_string = _bind()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -191,6 +228,33 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
                            f"{err_string(err).decode()} (cudaError {err})")
     launches.add()
     return y
+
+
+def _fwd_plain(x, dt, a, b, c, d_skip):
+    """The plain version, ``ref.ssd_scan``."""
+    return ref.ssd_scan(x, dt, a, b, c, d_skip=d_skip).contiguous()
+
+
+def _fwd_fake(x, dt, a, b, c, d_skip):
+    check_inputs(x, dt, a, b, c, d_skip)
+    return x.new_empty(tuple(x.shape))
+
+
+_LIB.impl("ssd_scan_fwd", _fwd_launch, "CUDA")
+_LIB.impl("ssd_scan_fwd", _fwd_plain, "CPU")
+torch.library.register_fake("repro_torch::ssd_scan_fwd", lib=_LIB)(_fwd_fake)
+fwd_op = torch.ops.repro_torch.ssd_scan_fwd.default
+
+
+def scan_shape(x: torch.Tensor, b: torch.Tensor) -> tuple:
+    """(B, L, H, P, N): ``bounds.ssd_bound``'s shape."""
+    return (*x.shape, b.shape[3])
+
+
+@register_flop_formula(torch.ops.repro_torch.ssd_scan_fwd, get_raw=True)
+def _fwd_flops(x, dt, a, b, c, d_skip, *args, **kwargs) -> int:
+    return bounds.ssd_bound(scan_shape(x, b), x.element_size(),
+                            cb_groups(b, c) == 1, chunk=CHUNK)[1]
 
 
 def bwd_head_tiles(H: int) -> list:
@@ -283,27 +347,73 @@ def ssd_scan_bwd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     with one group, a fifth (the sums of db and dc over the head tiles),
     counted as one launch; the scratch is :func:`bwd_workspace`'s."""
     check_bwd_inputs(x, dt, a, b, c, dy, d_skip)
+    grads = bwd_op(x, dt, a, b, c, dy, d_skip)
+    return grads[:5] + ((grads[5] if d_skip is not None else None),)
+
+
+def _bwd_outputs(x: torch.Tensor, b: torch.Tensor, skip: bool):
+    """dx, ddt, da, db, dc and dd (empty without the D-skip)."""
     B, L, H, P = x.shape
     G, N = b.shape[2], b.shape[3]
-    dx = torch.empty((B, L, H, P), dtype=x.dtype, device=x.device)
-    ddt = torch.empty((B, L, H), dtype=torch.float32, device=x.device)
-    da = torch.empty((H,), dtype=torch.float32, device=x.device)
+    f32 = dict(dtype=torch.float32, device=x.device)
     db = torch.empty((B, L, G, N), dtype=x.dtype, device=x.device)
-    dc = torch.empty_like(db)
-    dd = torch.empty_like(da) if d_skip is not None else None
-    if dx.numel() == 0:
-        return (dx, ddt.zero_(), da.zero_(), db.zero_(), dc.zero_(),
-                None if dd is None else dd.zero_())
+    return (torch.empty((B, L, H, P), dtype=x.dtype, device=x.device),
+            torch.empty((B, L, H), **f32), torch.empty((H,), **f32), db,
+            torch.empty_like(db), torch.empty((H if skip else 0,), **f32))
+
+
+def _bwd_launch(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+                b: torch.Tensor, c: torch.Tensor, dy: torch.Tensor,
+                d_skip: Optional[torch.Tensor]
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                           torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The backward kernel on inputs :func:`check_bwd_inputs` took -> (dx,
+    ddt, da, db, dc, dd; an empty dd without ``d_skip``): the op's CUDA
+    implementation."""
+    N = b.shape[3]
+    G = b.shape[2]
+    outs = _bwd_outputs(x, b, d_skip is not None)
+    if outs[0].numel() == 0:
+        return tuple(t.zero_() for t in outs)
     fn, err_string = _bind("ssd_scan_bwd")
     with torch.cuda.device(x.device):
         err = fn(*bwd_call_args(x, dt, a, b, c, dy, d_skip,
-                                (dx, ddt, da, db, dc, dd),
+                                outs[:5] + ((outs[5] if d_skip is not None
+                                             else None),),
                                 bwd_workspace(x, N, G)))
     if err:
         raise RuntimeError(f"ssd_scan_bwd kernel launch failed: "
                            f"{err_string(err).decode()} (cudaError {err})")
     bwd_launches.add()
-    return dx, ddt, da, db, dc, dd
+    return outs
+
+
+def _bwd_plain(x, dt, a, b, c, dy, d_skip):
+    """The plain version, ``ref.ssd_scan_bwd`` at the kernel's chunk."""
+    grads = ref.ssd_scan_bwd(x, dt, a, b, c, dy, d_skip=d_skip, chunk=CHUNK)
+    outs = _bwd_outputs(x, b, d_skip is not None)
+    for out, g in zip(outs, grads):
+        if g is not None:
+            out.copy_(g)
+    return outs
+
+
+def _bwd_fake(x, dt, a, b, c, dy, d_skip):
+    check_bwd_inputs(x, dt, a, b, c, dy, d_skip)
+    return _bwd_outputs(x, b, d_skip is not None)
+
+
+_LIB.impl("ssd_scan_bwd", _bwd_launch, "CUDA")
+_LIB.impl("ssd_scan_bwd", _bwd_plain, "CPU")
+torch.library.register_fake("repro_torch::ssd_scan_bwd", lib=_LIB)(_bwd_fake)
+bwd_op = torch.ops.repro_torch.ssd_scan_bwd.default
+
+
+@register_flop_formula(torch.ops.repro_torch.ssd_scan_bwd)
+def _bwd_flops(x_shape, dt_shape, a_shape, b_shape, c_shape, dy_shape,
+               d_skip_shape, *args, **kwargs) -> int:
+    return bounds.ssd_bwd_bound((*x_shape, b_shape[3]), 2, b_shape[2] == 1,
+                                d_skip_shape is not None, CHUNK)[1]
 
 
 def expand_heads(b: torch.Tensor, heads: int) -> torch.Tensor:

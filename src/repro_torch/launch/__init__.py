@@ -2,8 +2,9 @@
 layer, device meshes (``mesh.py``) and the sharding rules on them
 (``sharding.py``), the elastic trainer (``elastic.py``), and the LM serving
 and training CLIs (``serve.py`` and ``train.py``, run as modules; the
-training CLI runs on one device or on a mesh).  The dry run is not part of
-this package yet (``ROADMAP.md`` queue 1 item 9)."""
+training CLI runs on one device or on a mesh), and the dry run
+(``dryrun.py``, run as a module: every arch x shape x mesh cell's step on
+fake tensors and torch's fake process group, no card needed)."""
 
 from repro_torch.launch.cluster import (
     ClusterConfig,

@@ -11,8 +11,10 @@ One difference by design: a mesh that is not there is refused.  The JAX
 exceeds the devices it finds; here every mesh function raises
 ``ValueError`` unless its size is the world size, and a ``cuda`` mesh
 raises unless the process group runs NCCL (no fallback to gloo or the
-CPU).  A ``cpu`` mesh takes the group it finds (gloo, or the fake group
-that builds a production-sized mesh in one process for the tests).
+CPU) or is torch's fake group (``launch/dryrun.py``'s, where nothing
+runs).  A ``cpu`` mesh takes the group it finds (gloo, or the fake group
+that builds a production-sized mesh in one process for the tests and the
+dry run).
 
 The process group is initialised on first use (:func:`init_distributed`):
 from ``torchrun``'s environment (``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``,
@@ -96,7 +98,7 @@ def _make_mesh(shape: Tuple[int, ...], axes: Tuple[str, ...],
             f"world has {world} ranks: the port refuses a mesh that is not "
             f"there (the JAX package would shrink it to ({world}, 1))")
     backend = dist.get_backend()
-    if kind == "cuda" and backend != BACKENDS[kind]:
+    if kind == "cuda" and backend not in (BACKENDS[kind], "fake"):
         raise RuntimeError(f"a {kind} mesh needs the {BACKENDS[kind]} "
                            f"backend; the process group runs {backend}")
     return init_device_mesh(kind, tuple(shape), mesh_dim_names=tuple(axes))

@@ -284,7 +284,8 @@ def make_mesh_train_step(model, opt_cfg: OptimizerConfig, mesh,
             opt_cfg, shapes, opt_mod.tree_map(shd.sharding_of, params))
 
         def rewrap(new_local, old):  # f32 moments were updated in place
-            if new_local.data_ptr() == old.to_local().data_ptr():
+            if (new_local.untyped_storage()._cdata
+                    == old.to_local().untyped_storage()._cdata):
                 return old
             return shd.from_local(new_local, shd.sharding_of(old),
                                   tuple(old.shape))
@@ -412,13 +413,16 @@ class Trainer:
         return int(step)
 
     def _batches(self, start_step: int) -> PrefetchLoader:
+        """The loader from ``start_step``.  Its thread holds the batch
+        generators, so they hold nothing of the trainer: a trainer that is
+        dropped (a pre-empted one) frees its state."""
         data = TokenDataset(self.cs, self.spec, rank=0, num_ranks=1)
         rows = ({"tokens": b["tokens"], "labels": b["labels"]}
                 for b in data.batches(self.args.batch, self.args.seq,
                                       start_step=start_step))
         if self.mesh is not None:
-            rows = (rank_rows(b, self.mesh, self.axes,
-                              self.args.microbatches) for b in rows)
+            mesh, axes, micro = self.mesh, self.axes, self.args.microbatches
+            rows = (rank_rows(b, mesh, axes, micro) for b in rows)
         return PrefetchLoader(rows, depth=2, device=self.dev)
 
     def run_step(self, step: int) -> dict:

@@ -8,8 +8,9 @@ family (jamba-v0.1-52b), the VLM family (internvl2-1b: ``forward`` takes
 ``frontend`` embeddings, put before the tokens) and the enc-dec family
 (seamless-m4t-large-v2: ``forward`` takes ``tokens`` and ``frontend``
 frames, ``init_decode`` the encoder's ``memory``).  A model runs on the
-card unless it is built with ``device="cpu"``.  The dry-run's
-``input_specs`` and ``decode_specs`` come with the dry-run slice.
+card unless it is built with ``device="cpu"``.  :func:`input_specs`
+gives a train or prefill cell's inputs, as the JAX package's, for
+``launch/dryrun.py``.
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ from typing import Callable, Optional
 
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ShapeSpec
 from repro_torch.kernels.backend import DeviceLike, resolve_device
 from repro_torch.models import encdec, transformer
 
@@ -94,3 +95,31 @@ def build(cfg: ModelConfig, device: DeviceLike = None) -> Model:
         init_decode=init_decode,
         decode_step=lambda p, s, t: transformer.decode_step(p, pcfg, s, t),
     )
+
+
+def _meta(shape, dtype):
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeSpec, leaf=_meta) -> dict:
+    """A train or prefill cell's inputs, each ``leaf(shape, dtype)`` (a
+    ``meta`` tensor by default): tokens [B, S] int32; an enc-dec model's
+    speech frames [B, max(128, S / 4), frontend_dim] and a VLM's patch
+    embeddings [B, F, frontend_dim] (its tokens then S - F) in bf16;
+    ``labels`` like the tokens for a train cell (the JAX package's
+    ``input_specs``)."""
+    B, S = shape.global_batch, shape.seq_len
+    width = cfg.frontend_dim or cfg.d_model
+    if cfg.is_encdec:
+        specs = {"frontend": leaf((B, max(128, S // 4), width),
+                                  torch.bfloat16),
+                 "tokens": leaf((B, S), torch.int32)}
+    elif cfg.frontend_tokens:
+        specs = {"tokens": leaf((B, S - cfg.frontend_tokens), torch.int32),
+                 "frontend": leaf((B, cfg.frontend_tokens, width),
+                                  torch.bfloat16)}
+    else:
+        specs = {"tokens": leaf((B, S), torch.int32)}
+    if shape.kind == "train":
+        specs["labels"] = leaf(tuple(specs["tokens"].shape), torch.int32)
+    return specs

@@ -1,7 +1,8 @@
 """Training and serving runtime of the port: the optimizer, the training
-step on autograd, checkpointing (sharded restore too), and the serving
-steps.  Gradient compression (``repro/train/grad_compression.py``) is
-not ported yet (``ROADMAP.md`` queue 1 item 8 (c))."""
+step on autograd, checkpointing (sharded restore too), int8 gradient
+compression with error feedback over a ``torch.distributed`` group
+(``grad_compression.py``; no step calls it, as in the JAX package), and
+the serving steps."""
 
 from repro_torch.train.checkpoint import CheckpointManager
 from repro_torch.train.optimizer import AdamState, OptimizerConfig

@@ -316,6 +316,7 @@ def test_mamba_train_step_through_the_chunked_ssd_matches_jax():
     ("llama4-maverick-400b-a17b", None),  # MoE with a shared expert
     ("gemma-7b", None),
     ("qwen1.5-4b", None),
+    ("qwen2-72b", None),                  # GQA with qkv biases
     ("seamless-m4t-large-v2", 24),        # enc-dec: 24 frames encoded
     ("internvl2-1b", "prefix"),           # VLM: the patch-embedding prefix
 ])

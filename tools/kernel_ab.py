@@ -81,15 +81,41 @@ def bind_flash(path: Path):
     return fn
 
 
+class _NoLibrary:
+    """Another checkout's ``torch.library.Library`` while it loads: its ops
+    are this checkout's already, so it defines and registers nothing."""
+
+    def __init__(self, *_args, **_kwargs):
+        pass
+
+    def define(self, *_args, **_kwargs):
+        pass
+
+    def impl(self, *_args, **_kwargs):
+        pass
+
+
 def wrapper_at(checkout: Path, module: str):
     """``src/repro_torch/kernels/<module>.py`` of another checkout, loaded
     by path under its own name (its imports of the package resolve to this
-    checkout's, which it uses only for building and binding)."""
+    checkout's, which it uses only for building and binding; the ops and
+    flop formulas it would register, if it has them, are this checkout's
+    already and are not registered again)."""
+    import torch
+
     path = checkout / "src" / "repro_torch" / "kernels" / f"{module}.py"
     spec = importlib.util.spec_from_file_location(f"kernel_ab_other_{module}",
                                                   path)
     mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
+    lib, flops = torch.library, torch.utils.flop_counter
+    saved = lib.Library, lib.register_fake, flops.register_flop_formula
+    lib.Library = _NoLibrary
+    lib.register_fake = flops.register_flop_formula = (
+        lambda *_args, **_kwargs: (lambda f: f))
+    try:
+        spec.loader.exec_module(mod)
+    finally:
+        lib.Library, lib.register_fake, flops.register_flop_formula = saved
     return mod
 
 
