@@ -171,7 +171,8 @@ Phases, each printing one JSON line with its seconds:
     (a): the SSD backward at N 16 and 128 heads, the first MoE training on
     the card;
 28. ``mesh_train``: llama3-8b at full width, 2 layers (int8 moments),
-    through ``launch.train``'s mesh path on a 1 x 1 NCCL mesh (world size
+    through ``launch.train``'s mesh path (the tensor-parallel step, each
+    model-axis collective over a group of one) on a 1 x 1 NCCL mesh (world size
     1, ``cuda``; the box has one card, and NCCL takes no two ranks on one
     device), driven by ``launch.elastic.ElasticTrainer`` in ranges of 2
     steps over a TaskQueue with a manual clock: trainer A completes
@@ -187,21 +188,28 @@ Phases, each printing one JSON line with its seconds:
     same arithmetic written out on one rank, the error-feedback
     invariant, its time, wire bytes against an f32 all-reduce's, and its
     rate against the copy's;
-30. ``dryrun_check``: ``python -m repro_torch.launch.dryrun`` (fake
+30. ``tp_rank_train``: rank 0 of a 1 x 8 tensor-parallel mesh in one
+    process under torch's fake process group (the collectives do no work:
+    the values are not checked): llama3-8b at full width, 8 layers, 2 x
+    4096 tokens, int8 moments, through ``make_mesh_train_step``; the step
+    time, each step's peak, and the flash launches a step at the per-rank
+    shapes (4 query heads on 1 KV head);
+31. ``dryrun_check``: ``python -m repro_torch.launch.dryrun`` (fake
     tensors, the fake process group), each cell its own process, started
     before phase 25 and read here (they use the host, beside the training
-    phases, pinned to the upper half of the cores): the cells of llama_train and mesh_train, their predicted step
+    phases, pinned to the upper half of the cores): the cells of
+    llama_train, mesh_train and tp_rank_train, their predicted step
     peaks within DRYRUN_PEAK_BAND of the step peaks those phases measured
     (``step_peak_bytes``), predicted flops and roofline step beside the
     measured step; llama3-8b, mamba2-2.7b and jamba-v0.1-52b at train_4k
     on the 16 x 16 mesh, each ``ok``;
-31. summary: the ``kernels`` line, the peak device memory, the
+32. summary: the ``kernels`` line, the peak device memory, the
     ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.
 
 Each LM is freed before the next is drawn.  The launch counts are set to
 0 just before each main-path run (phases 2-7, 10-24, llama_train's run
-and resumed step, the runs of phases 26-27, and mesh_train's elastic
-run) and read just after it; the ``kernels`` line adds those counts.  The training phases' first-step
+and resumed step, the runs of phases 26-27, mesh_train's elastic run
+and tp_rank_train's timed steps) and read just after it; the ``kernels`` line adds those counts.  The training phases' first-step
 comparisons and profiled steps verify: their launches stay in their
 lines.  The decode checks'
 prefills (phases 11, 13, 15, 18, 20, 22 and 24) verify: their launches
@@ -665,6 +673,12 @@ FLASH_CASES = [
           ("seamless_cross_decode", (4, 16, 16, 1, 512, 64), False),
           ("internvl_layer", (4, 14, 2, 2048, 2048, 64), True),
           ("gemma_layer", (4, 16, 16, 2048, 2048, 256), True)]],
+    # one rank's heads of a llama_train layer on a tensor-parallel mesh:
+    # a model axis of 8 (one KV head, its 4 query heads) and of 16 (two
+    # query heads on the one KV head the rank shares with another)
+    *[(name, shape, True, "bfloat16", TIMED_RUNS, False)
+      for name, shape in [("tp8_llama_train", (2, 4, 1, 4096, 4096, 128)),
+                          ("tp16_llama_train", (2, 2, 1, 4096, 4096, 128))]],
 ]
 
 
@@ -805,6 +819,11 @@ BWD_CASES = [
      ("float32", "bfloat16"), 0, True),
     ("sq_lt_sk_190_on_260_d128", (1, 8, 2, 190, 260, 128), True,
      ("float32", "bfloat16"), 0, True),
+    # one rank's heads of a llama_train layer at a model axis of 8 and 16
+    ("tp8_llama_train", (2, 4, 1, 4096, 4096, 128), True, ("bfloat16",),
+     TIMED_RUNS, False),
+    ("tp16_llama_train", (2, 2, 1, 4096, 4096, 128), True, ("bfloat16",),
+     TIMED_RUNS, False),
 ]
 #: the main case's backward run twice: dk and dv must be bit-identical, dq
 #: within BWD_DQ_RUN_SPREAD x max(1, max |dq|) of the other run (its f32
@@ -987,6 +1006,12 @@ SSD_CASES = [
      "model", TIMED_RUNS),
     ("strong_decay", (1, 2048, 4, 64, 128), "float32", True, True, "strong",
      TIMED_RUNS),
+    # one rank's heads of a training layer on a tensor-parallel mesh:
+    # mamba2-2.7b's 80 heads at a model axis of 8, jamba's 128 at 16
+    ("tp8_mamba_train", (2, 4096, 10, 64, 128), "bfloat16", True, True,
+     "model", TIMED_RUNS),
+    ("tp16_jamba_train", (2, 4096, 8, 64, 16), "bfloat16", True, True,
+     "model", TIMED_RUNS),
 ]
 #: the SSD kernel's output against its plain version, relative L2 over the
 #: whole case: in bf16 the output's rounding on a few elements, in f32 the
@@ -1122,6 +1147,11 @@ SSD_BWD_CASES = [
      0),
     ("strong_decay_bf16", (1, 2048, 4, 64, 128), "bfloat16", True, True,
      "strong", 0),
+    # one rank's heads of a training layer, as in SSD_CASES
+    ("tp8_mamba_train", (2, 4096, 10, 64, 128), "bfloat16", True, True,
+     "model", TIMED_RUNS),
+    ("tp16_jamba_train", (2, 4096, 8, 64, 16), "bfloat16", True, True,
+     "model", TIMED_RUNS),
 ]
 #: the backward's six gradients (dx, ddt, da, db, dc, dd) against
 #: ref.ssd_scan_bwd: max-abs error within SSD_BWD_TOL x max(1, the largest
@@ -3324,6 +3354,136 @@ def phase_grad_compression(torch, seed: int, copy_rate: float) -> dict:
             "seconds": time.perf_counter() - t0}
 
 
+#: tp_rank_train: one rank of a (1, TP_RANKS) mesh, llama3-8b at full
+#: width, TRAIN_LAYERS layers, TRAIN_BATCH x TRAIN_SEQ tokens, int8
+#: moments: a node of 8 H100s with the model axis across it
+TP_RANKS, TP_STEPS = 8, 5
+
+
+def phase_tp_rank_train(torch, seed: int, backend) -> dict:
+    """Rank 0 of a (1, TP_RANKS) tensor-parallel mesh on the card, in one
+    process under torch's fake process group (the dry run's): its shards
+    of llama3-8b (full width, TRAIN_LAYERS layers, f32 masters drawn on the
+    card, int8 moments), its heads, FFN columns and vocabulary columns,
+    through ``launch/train.py:make_mesh_train_step``.  The collectives do
+    no work, so the values are not meaningful and are not checked: the
+    phase measures what one rank's step costs.  It reports the step time
+    (median of TP_STEPS steps after one warm-up), each step's peak
+    (``step_peak_bytes``, held by dryrun_check against the dry run's
+    prediction of the same cell), a profiled step's device time by group
+    and idle share, and the flash launches a step at the per-rank shapes
+    (4 query heads on 1 KV head)."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    from repro_torch import convert
+    from repro_torch.configs import get_config
+    from repro_torch.launch import mesh as pmesh
+    from repro_torch.launch import sharding as shd
+    from repro_torch.launch import train as ptrain
+    from repro_torch.models import build
+    from repro_torch.train import optimizer as opt_mod
+    from repro_torch.train.checkpoint import _unflatten, flatten_with_path
+
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config(LLAMA), num_layers=TRAIN_LAYERS)
+    L = cfg.num_layers
+    args = train_args(seed, moments="int8")
+    opt_cfg = ptrain.optimizer_config(args)
+    check(not dist.is_initialized(), "tp_rank_train: a process group is up")
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=TP_RANKS)
+    try:
+        mesh = pmesh.make_local_mesh(1, TP_RANKS, device="cuda")
+        check(mesh.device_type == "cuda" and dist.get_backend() == "fake",
+              f"tp_rank_train: mesh {mesh}, backend {dist.get_backend()}")
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        layout = ptrain.state_layout(cfg, opt_cfg)
+        sh = ptrain.state_shardings(mesh, layout)
+
+        def shard(leaf, s, draw):
+            local = tuple(n // c for n, c in zip(leaf.shape, s.shard_counts))
+            t = (torch.randn(local, generator=g, device="cuda") * 0.02
+                 if draw else torch.zeros(local, dtype=leaf.dtype,
+                                          device="cuda"))
+            return shd.from_local(t, s, tuple(leaf.shape))
+
+        def place(tree, shardings, draw):
+            return _unflatten(tree, iter(
+                shard(leaf, s, draw) for (_, leaf), (_, s) in zip(
+                    flatten_with_path(tree), flatten_with_path(shardings))))
+
+        opt = place(layout["opt"], sh["opt"], False)
+        params = convert.split_layers(place(layout["params"], sh["params"],
+                                            True), cfg, ptrain.take_layer)
+        state = opt_mod.AdamState(
+            step=opt.step.to_local(),
+            mu=convert.split_layers(opt.mu, cfg, ptrain.take_layer),
+            nu=convert.split_layers(opt.nu, cfg, ptrain.take_layer))
+        del layout, opt
+        local_params = sum(x.to_local().numel()
+                           for x in opt_mod.tree_leaves(params))
+        axes = ptrain.rows_axes(mesh, TRAIN_BATCH)
+        tokens = torch.randint(0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ),
+                               generator=g, device="cuda")
+        batch = {"tokens": tokens, "labels": tokens}
+        model = build(cfg)
+        step = ptrain.make_mesh_train_step(model, opt_cfg, mesh, axes)
+        (params, state, _), warm_s = synced(
+            torch, lambda: step(params, state, batch))
+        peaks = StepPeaks(torch)
+        step_s, counts = [], []
+        for _ in range(TP_STEPS):
+            backend.reset_launch_counts()
+            (params, state, _), seconds = synced(torch, lambda: peaks(
+                lambda: step(params, state, batch)))
+            counts.append(backend.launch_counts())
+            step_s.append(seconds)
+
+        def one_step():
+            nonlocal params, state
+            params, state, _ = step(params, state, batch)
+
+        breakdown = profile_breakdown(torch, one_step, runs=1)
+        q_shape = [TRAIN_BATCH] + list(
+            params["blocks"][0]["attn"]["wq"].to_local().shape[1:])
+        del params, state, step, model
+    finally:
+        dist.destroy_process_group()
+        torch.cuda.empty_cache()
+    per_step = {"flash_attention": 2 * L, "flash_attention_bwd": L}
+    launches = {k: sum(c.get(k, 0) for c in counts) for k in per_step}
+    check(all(c.get(k, 0) == n for c in counts for k, n in per_step.items()),
+          f"tp_rank_train: launches a step {counts}")
+    heads = rank_heads(cfg, TP_RANKS)
+    step_ms = statistics.median(step_s) * 1e3
+    return {"phase": "tp_rank_train", "arch": cfg.arch_id, "layers": L,
+            "mesh": {"data": 1, "model": TP_RANKS}, "rank": 0,
+            "backend": "fake", "device_type": "cuda",
+            "batch": [TRAIN_BATCH, TRAIN_SEQ], "moments": args.moments,
+            "local_parameters": local_params,
+            "flash_shape": [TRAIN_BATCH, heads[0], heads[1], TRAIN_SEQ,
+                            TRAIN_SEQ, cfg.head_dim],
+            "wq_local": q_shape, "launches": launches,
+            "launches_per_step": per_step, "warmup_s": warm_s,
+            "step_s": step_s, "step_ms": step_ms,
+            "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / (step_ms * 1e-3),
+            "step_breakdown": breakdown,
+            "step_peak_bytes": max(peaks.steps),
+            "step_memory": list(zip(peaks.bases, peaks.steps)),
+            "peak_device_bytes": peaks.phase_peak(),
+            "values_checked": False,
+            "seconds": time.perf_counter() - t0}
+
+
+def rank_heads(cfg, ranks: int) -> tuple:
+    """Rank 0's query and KV heads on a model axis of ``ranks``."""
+    from repro_torch.models.common import head_ranges
+
+    q0, q1, k0, k1 = head_ranges(cfg.num_heads, cfg.num_kv_heads, ranks, 0)
+    return q1 - q0, k1 - k0
+
+
 #: the dry run's cells that chip_smoke itself trains (llama_train without a
 #: mesh, mesh_train on its 1 x 1 mesh: their shapes) and three train_4k
 #: cells on the 16 x 16 production mesh
@@ -3335,7 +3495,12 @@ DRYRUN_TRAINED = {
     "mesh_train": ["--arch", LLAMA, "--shape", "train_4k", "--mesh",
                    "local", "--layers", str(MESH_LAYERS), "--batch",
                    str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--moments",
-                   "int8"]}
+                   "int8"],
+    "tp_rank_train": ["--arch", LLAMA, "--shape", "train_4k", "--mesh",
+                      "local", "--mesh-data", "1", "--mesh-model",
+                      str(TP_RANKS), "--layers", str(TRAIN_LAYERS),
+                      "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
+                      "--moments", "int8"]}
 DRYRUN_PRODUCTION = (LLAMA, MAMBA, JAMBA)
 #: a trained cell's predicted step peak against the measured one
 DRYRUN_PEAK_BAND = (0.8, 1.25)
@@ -3384,7 +3549,8 @@ def stop(procs: dict) -> None:
 
 def phase_dryrun_check(torch, procs: dict, trained: dict) -> dict:
     """The dry-run processes of ``start_dryruns``, read: each cell must
-    end ``ok``; for llama_train and mesh_train, the predicted step peak
+    end ``ok``; for llama_train, mesh_train and tp_rank_train (one rank
+    of a 1 x 8 tensor-parallel mesh), the predicted step peak
     against the step peak the phase measured, within DRYRUN_PEAK_BAND, and
     the predicted flops and roofline step against the measured step time,
     as ratios with no gate."""
@@ -3548,8 +3714,13 @@ def main() -> int:
         compression = phase_grad_compression(torch, args.seed,
                                              device["copy_bytes_per_s"])
         emit(compression)
+        tp_rank = phase_tp_rank_train(torch, args.seed, backend)
+        emit(tp_rank)
+        lm_lines.append(tp_rank)
+        peak = max(peak, tp_rank["peak_device_bytes"])
         emit(phase_dryrun_check(torch, dryruns, {
-            "llama_train": llama_train, "mesh_train": mesh_train}))
+            "llama_train": llama_train, "mesh_train": mesh_train,
+            "tp_rank_train": tp_rank}))
     finally:
         stop(dryruns)
 

@@ -22,10 +22,16 @@ A cell's state is ``launch/train.py:state_layout`` with a fake leaf,
 placed by the rule table (``param_shardings``, ``opt_state_shardings``,
 ``batch_shardings``, ``decode_shardings``): each rank holds its shards as
 DTensors.  A train cell runs ``launch/train.py:make_mesh_train_step``
-itself; a prefill or decode cell runs the same gather-then-compute over
-the rank's rows of the batch (the parameters gathered whole, a decode
-cell's caches gathered along every axis but the batch's, bf16 parameters
-for decode as the JAX dry run casts them).  ``--mesh local`` runs a
+itself: the model tensor-parallel over ``model``, each layer gathering
+its shards (``launch/sharding.py:gather_layer``).  A prefill cell runs the
+same tensor-parallel forward under ``no_grad`` over the rank's rows.  A
+decode cell keeps the gather-whole step (the parameters gathered whole,
+the caches gathered along every axis but the batch's, bf16 parameters as
+the JAX dry run casts them): decode on a mesh needs split-K over caches
+sharded by sequence, not ported yet; the record's ``options`` say so
+(``"step": "gather-whole"``, where a train or prefill cell's reads
+``"tensor-parallel"``).  ``--seqpar`` sets
+``cfg.sequence_parallel``, as the JAX dry run does.  ``--mesh local`` runs a
 ``--mesh-data`` x ``--mesh-model`` mesh, and ``--mesh none`` the step
 without a mesh (``train.make_train_step``: one device, what
 ``chip_smoke.py``'s ``llama_train`` runs).
@@ -47,8 +53,7 @@ While the step runs it counts:
   difference, ``outputs`` what the step returns beyond its arguments.
 
 The roofline (``core/perfmodel.py:roofline_terms``) prices them with the
-H100's data sheet figures: a model, not a measurement.  Options the port
-has no counterpart for (``--seqpar``) are refused.
+H100's data sheet figures: a model, not a measurement.
 """
 
 from __future__ import annotations
@@ -106,8 +111,6 @@ _NO_TRAFFIC = {"empty", "empty_like", "new_empty", "empty_strided",
 _WRITE_ONLY = {"new_zeros", "new_ones", "new_full", "zeros_like",
                "ones_like", "full_like"}
 MESHES = {"single": [False], "multi": [True], "both": [False, True]}
-REFUSED = {"seqpar": "the port has no sequence parallelism: activations "
-                     "are local to a rank (launch/train.py)"}
 
 
 def fake_device() -> str:
@@ -304,9 +307,11 @@ def _mesh_axes(mesh, kind_policy: str, batch: int) -> tuple:
 
 
 def _cfg_for(arch: str, variant: str, layers: Optional[int],
-             remat_policy: str):
+             remat_policy: str, sequence_parallel: bool = False):
     cfg = get_config(arch, variant)
     change = {}
+    if sequence_parallel:
+        change["sequence_parallel"] = True
     if layers is not None:
         change["num_layers"] = layers
         if cfg.is_encdec:
@@ -389,7 +394,8 @@ def run_cell(cfg, shape, mesh, dev: str, *, moments: str, microbatches: int,
                     mu=split(opt.mu, ptrain.take_layer),
                     nu=split(opt.nu, ptrain.take_layer))
                 step = ptrain.make_mesh_train_step(
-                    model, opt_cfg, mesh, axes, microbatches, grads_dtype)
+                    model, opt_cfg, mesh, axes, microbatches, grads_dtype,
+                    policy)
                 batch = {k: rows_of(v) for k, v in place(
                     specs, shd.batch_shardings(mesh, specs, policy),
                     dev).items()}
@@ -421,10 +427,16 @@ def run_cell(cfg, shape, mesh, dev: str, *, moments: str, microbatches: int,
                     specs, shd.batch_shardings(mesh, specs, policy),
                     dev).items()}
 
-            @torch.no_grad()
-            def step(params, batch):
-                full = opt_mod.tree_map(shd.gather, params)
-                return model.forward(full, **batch)[0]
+            if mesh is None:
+                @torch.no_grad()
+                def step(params, batch):
+                    return model.forward(params, **batch)[0]
+            else:
+                mm = ptrain.MeshModel(model, mesh, axes, policy)
+
+                @torch.no_grad()
+                def step(params, batch):
+                    return mm.forward(params, **batch)[0]
 
             args = (params, batch)
         else:
@@ -533,8 +545,8 @@ def lower_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
                policy: str = "2d", cache_shard: str = "seq",
                grads_dtype: str = "float32", remat_policy: str = "full",
                variant: str = "full", layers: Optional[int] = None,
-               batch: Optional[int] = None,
-               seq: Optional[int] = None) -> dict:
+               batch: Optional[int] = None, seq: Optional[int] = None,
+               sequence_parallel: bool = False) -> dict:
     """Run one (arch x shape x mesh) cell on fake tensors -> its record.
     ``mesh_shape`` (data, model) runs a local mesh, ``"none"`` no mesh,
     None the production mesh (``multi_pod``); ``layers``, ``batch`` and
@@ -546,7 +558,7 @@ def lower_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
                 "status": "skip",
                 "reason": "long_500k inapplicable: pure full attention "
                           "(see DESIGN.md §Arch-applicability)"}
-    cfg = _cfg_for(arch, variant, layers, remat_policy)
+    cfg = _cfg_for(arch, variant, layers, remat_policy, sequence_parallel)
     shape = SHAPES[shape_name]
     if batch is not None or seq is not None:
         shape = dataclasses.replace(
@@ -583,12 +595,20 @@ def lower_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
     coll = price_collectives(counter.events)
     flops_dev = float(flops.get_total_flops())
     nparams = param_count(cfg)
-    # the model of one device's traffic: its rows, the whole parameters
-    # (gathered for compute)
+    # the model of one device's traffic: its rows; on a mesh rank 0's
+    # compute slices (train, prefill) or the whole parameters (decode)
+    tp_size = (1 if mesh_shape == "none" or policy == "dp_only"
+               or "model" not in names else axes[names.index("model")])
+    layout = None if mesh_shape == "none" else costs.Mesh(
+        tp=tp_size, dp_axes=tuple(n for a, n in zip(names, axes)
+                                  if tp_size == 1 or a != "model"),
+        seqpar=bool(cfg.sequence_parallel and not cfg.is_encdec
+                    and shape.seq_len % tp_size == 0),
+        shards=chips)
     traffic = costs.traffic_bytes(
         cfg, dataclasses.replace(shape, global_batch=rows), nparams,
         padded_vocab(cfg), moments=moments, shards=chips,
-        mesh_axes=len(axes))
+        mesh_axes=len(axes), mesh=layout)
     terms = perfmodel.roofline_terms(flops_dev * chips,
                                      counter.hbm_bytes * chips,
                                      coll["seconds"], chips)
@@ -640,7 +660,8 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--grads", default="float32",
                     choices=["float32", "bfloat16"])
     ap.add_argument("--seqpar", action="store_true",
-                    help="refused: " + REFUSED["seqpar"])
+                    help="sequence parallelism: the residual stream sharded "
+                         "over the sequence on `model` (train and prefill)")
     ap.add_argument("--remat-policy", default="full", choices=["full", "dots"])
     ap.add_argument("--variant", default="full", choices=["full", "smoke"])
     ap.add_argument("--layers", type=int, default=None,
@@ -655,10 +676,6 @@ def parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     args = parser().parse_args(argv)
-    if args.seqpar:
-        print(f"dryrun: --seqpar is refused: {REFUSED['seqpar']}",
-              file=sys.stderr)
-        return 2
     archs = list_archs() if args.arch == "all" else [args.arch]
     shapes = list(SHAPES) if args.shape == "all" else [args.shape]
     if args.mesh in ("local", "none"):
@@ -674,7 +691,12 @@ def main(argv=None) -> int:
                         "cache_shard": args.cache_shard,
                         "grads": args.grads, "moments": args.moments,
                         "microbatches": args.microbatches,
-                        "remat_policy": args.remat_policy}
+                        "remat_policy": args.remat_policy,
+                        "seqpar": args.seqpar,
+                        "step": ("one device" if mesh_shape == "none"
+                                 else "gather-whole"
+                                 if SHAPES[shape_name].kind == "decode"
+                                 else "tensor-parallel")}
                 try:
                     rec = lower_cell(
                         arch, shape_name, multi_pod=multi_pod,
@@ -683,7 +705,8 @@ def main(argv=None) -> int:
                         cache_shard=args.cache_shard, grads_dtype=args.grads,
                         remat_policy=args.remat_policy,
                         variant=args.variant, layers=args.layers,
-                        batch=args.batch, seq=args.seq)
+                        batch=args.batch, seq=args.seq,
+                        sequence_parallel=args.seqpar)
                     rec["options"] = opts
                 except Exception as e:  # noqa: BLE001 — report, keep going
                     rec = {"arch": arch, "shape": shape_name,

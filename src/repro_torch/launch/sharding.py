@@ -31,8 +31,48 @@ so the rank padding gives it the same placements.
 
 The runtime half, for ``launch/train.py``'s mesh path: :func:`distribute`
 (a full tensor -> its DTensor), :func:`gather` (a DTensor -> the full
-tensor, for compute) and :func:`reduce_to` (a full gradient summed over
-the data-parallel axes, back to its storage placements).
+tensor: checkpoints, the dry run's decode cells) and :func:`reduce_to` (a
+full gradient summed over mesh axes, back to its storage placements: the
+gather-whole path that :func:`gather_layer`'s backward is tested
+against).
+
+*Compute shards.*  Where GSPMD partitions the JAX package's compute by the
+rule table, the port's layers run tensor-parallel over ``model``
+(``models/common.py:TensorParallel``), each rank on its *compute slice*
+of a leaf: for most leaves its storage shard along the model axis, but
+not for three (:func:`compute_slice`):
+
+* ``w_xz`` is sharded over its concatenated [x | z] columns, so at a model
+  axis of 2 or more the low ranks store only x columns and the high ranks
+  only z; a rank computes its heads' x *and* z columns;
+* ``wk`` and ``wv`` (and their biases) where the KV heads are fewer than
+  the axis (8 on 16: llama3-8b, qwen2-72b, dbrx, jamba; internvl2-1b's 2):
+  column shards cut a head in half, and a rank needs the KV head of its
+  query heads whole (``common.head_ranges``): each KV head is computed on
+  the ranks that share it;
+* query heads the axis does not divide (qwen1.5-4b's 20, internvl2-1b's
+  14 on 16): the first ranks take one more head (``common.head_ranges``),
+  so rank 0, the rank the dry run traces, computes the most; the rest of
+  its ``wq`` columns and ``wo`` rows then lie across storage shards.
+
+Mamba's per-head vectors (``a_log``, ``d_skip``, ``dt_bias``) and
+``w_dt``'s columns are stored whole and computed on the rank's heads.
+Such a slice is had from the storage shard by an all-gather over
+``model`` of that one leaf, then a slice; its gradient goes back as the
+slice's adjoint: zeros elsewhere, summed over ``model`` (a reduce-scatter
+to the storage shard; an all-reduce for a leaf stored whole), which also
+adds the parts of a KV head that its ranks computed.  Leaves whose compute
+is whole on every rank have their whole gradient on each (the layers make
+it so, ``common.copy_to``), but for mamba's B|C path (:data:`PARTIAL_GRAD`:
+it feeds the SSD of the rank's heads only), summed over ``model``.
+
+:class:`LeafPlan` holds one leaf's storage and compute slices, and
+:func:`gather_layer` is FSDP's pattern over a layer: one
+``autograd.Function`` whose forward all-gathers the layer's shards over
+the data-parallel axes (and ``model``, where a compute slice needs it) and
+whose backward reduce-scatters the layer's gradient straight back to the
+storage placements.  The layers call it inside their remat region, so the
+backward gathers again rather than keeping the layer.
 """
 
 from __future__ import annotations
@@ -46,7 +86,9 @@ from torch.distributed.device_mesh import DeviceMesh
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.launch.mesh import axis_size, dp_axes
+from repro_torch.models import common
 from repro_torch.train.checkpoint import _Attr, _unflatten, flatten_with_path
+from repro_torch.train.optimizer import tree_leaves, tree_map
 
 MATRIX_NAMES = {"wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down", "w_in",
                 "w_out", "w_xz", "w_bc", "w_dt", "out_proj", "router",
@@ -387,3 +429,251 @@ def sharding_of(x: DTensor) -> Sharding:
         spec.append(None if not axes else axes[0] if len(axes) == 1
                     else axes)
     return Sharding(x.device_mesh, tuple(x.placements), tuple(spec))
+
+
+# ---------------------------------------------------------------------------
+# compute shards: tensor-parallel compute
+# ---------------------------------------------------------------------------
+#: leaves computed whole on every rank of the model axis whose gradient a
+#: rank holds only in part: mamba's B|C projection and conv, whose output
+#: feeds the SSD of the rank's heads
+PARTIAL_GRAD = {"w_bc", "conv_bc_w", "conv_bc_b"}
+
+Ranges = Tuple[Tuple[int, int], ...]
+
+
+def _ranges(dim: int, shape, ranges) -> Optional[Tuple[int, Ranges]]:
+    """``(dim, ranges)`` with adjacent ranges merged; None where they cover
+    the whole dimension (the compute is the whole leaf)."""
+    merged: List[List[int]] = []
+    for a, b in ranges:
+        if merged and merged[-1][1] == a:
+            merged[-1][1] = b
+        else:
+            merged.append([a, b])
+    out = tuple((a, b) for a, b in merged)
+    return None if out == ((0, shape[dim]),) else (dim, out)
+
+
+def compute_slice(names: List[str], shape: Sequence[int], cfg, size: int,
+                  rank: int) -> Optional[Tuple[int, Ranges]]:
+    """The part of a leaf (path ``names``, global ``shape``) that the rank
+    ``rank`` of a model axis of ``size`` computes with: ``(dim, ranges)``,
+    the ranges of ``dim`` concatenated in order, or None for the whole
+    leaf.  The layers read their head and channel counts off these
+    shapes."""
+    last = names[-1]
+    ndim = len(shape)
+    if last in ("wq", "wk", "wv", "wo", "bq", "bk", "bv"):
+        D = cfg.head_dim
+        q0, q1, k0, k1 = common.head_ranges(cfg.num_heads, cfg.num_kv_heads,
+                                            size, rank)
+        if last == "wo":
+            return _ranges(0, shape, [(q0 * D, q1 * D)])
+        lo, hi = (q0, q1) if last in ("wq", "bq") else (k0, k1)
+        return _ranges(ndim - 1, shape, [(lo * D, hi * D)])
+    if "mamba" in names:
+        P, di = cfg.ssm_head_dim, cfg.ssm_d_inner
+        h0, h1 = common.partition(cfg.ssm_heads, size, rank)
+        channels = [(h0 * P, h1 * P)]
+        if last == "w_xz":
+            return _ranges(1, shape, channels + [(di + h0 * P, di + h1 * P)])
+        if last in ("conv_x_w", "conv_x_b", "scale"):
+            return _ranges(ndim - 1, shape, channels)
+        if last == "out_proj":
+            return _ranges(0, shape, channels)
+        if last in ("w_dt", "a_log", "d_skip", "dt_bias"):
+            return _ranges(ndim - 1, shape, [(h0, h1)])
+        return None
+    if "moe" in names and "shared" not in names and last in (
+            "w_gate", "w_up", "w_down"):
+        return _ranges(0, shape, [common.partition(shape[0], size, rank)])
+    if last in ("w_gate", "w_up", "w_in", "b_in"):
+        return _ranges(ndim - 1, shape,
+                       [common.partition(shape[-1], size, rank)])
+    if last in ("w_down", "w_out"):
+        return _ranges(0, shape, [common.partition(shape[0], size, rank)])
+    if last in ("embed", "unembed"):
+        return _ranges(0, shape, [common.partition(shape[0], size, rank)])
+    if last == "frontend_proj" and shape[1] % size == 0:
+        return _ranges(1, shape, [common.partition(shape[1], size, rank)])
+    return None
+
+
+def _group(mesh, axis):
+    return mesh.get_group(axis), axis_size(mesh, axis)
+
+
+def _take(t: torch.Tensor, dim: int, ranges: Ranges) -> torch.Tensor:
+    parts = [t.narrow(dim, a, b - a) for a, b in ranges]
+    return parts[0].contiguous() if len(parts) == 1 else torch.cat(parts, dim)
+
+
+@dataclasses.dataclass(frozen=True)
+class LeafPlan:
+    """One leaf's storage shard -> its compute slice, and the gradient's
+    way back.  ``spec``: the storage spec (its DTensor's); ``tp_axis``:
+    the model axis where compute is tensor-parallel (None: the model axis
+    is data-parallel, ``"dp_only"``); ``sum_axes``: the data-parallel axes
+    whose ranks ran other rows; ``compute``: :func:`compute_slice`'s;
+    ``sum_model``: the gradient of a whole compute is partial over
+    ``model`` (:data:`PARTIAL_GRAD`)."""
+
+    mesh: DeviceMesh
+    spec: Tuple[Any, ...]
+    shape: Tuple[int, ...]
+    tp_axis: Optional[str]
+    sum_axes: Tuple[str, ...]
+    compute: Optional[Tuple[int, Ranges]]
+    sum_model: bool = False
+
+    def _dp(self, d: int) -> Tuple[str, ...]:
+        return tuple(a for a in _axes(self.spec[d]) if a != self.tp_axis)
+
+    @property
+    def model_dim(self) -> Optional[int]:
+        """The storage dimension sharded over the model axis, if any."""
+        for d, entry in enumerate(self.spec):
+            if self.tp_axis is not None and self.tp_axis in _axes(entry):
+                return d
+        return None
+
+    @property
+    def local(self) -> bool:
+        """The compute slice is the storage shard (along the model axis):
+        no model-axis collective either way."""
+        mdim = self.model_dim
+        if self.compute is None:
+            return mdim is None and not self.sum_model
+        dim, ranges = self.compute
+        if mdim != dim:
+            return False
+        n = axis_size(self.mesh, self.tp_axis)
+        m = self.mesh.get_local_rank(self.tp_axis)
+        size = self.shape[dim] // n
+        return ranges == ((m * size, (m + 1) * size),)
+
+    def gather(self, t: torch.Tensor) -> torch.Tensor:
+        """The storage shard -> the compute slice."""
+        for d in range(len(self.spec)):
+            for a in reversed(self._dp(d)):  # innermost axis first
+                t = common.all_gather_dim(t, d, *_group(self.mesh, a))
+        if self.local:
+            return t
+        mdim = self.model_dim
+        if mdim is not None:
+            t = common.all_gather_dim(t, mdim,
+                                      *_group(self.mesh, self.tp_axis))
+        return t if self.compute is None else _take(t, *self.compute)
+
+    def reduce(self, g: torch.Tensor) -> torch.Tensor:
+        """The compute slice's gradient -> the storage shard's, summed over
+        the ranks that ran other rows (and over ``model`` where the slice
+        is one of several)."""
+        if not self.local:
+            summed = self.sum_model
+            if self.compute is not None:
+                dim, ranges = self.compute
+                full = g.new_zeros(self.shape)
+                at = 0
+                for a, b in ranges:
+                    full.narrow(dim, a, b - a).copy_(
+                        g.narrow(dim, at, b - a))
+                    at += b - a
+                g, summed = full, True
+            group, n = _group(self.mesh, self.tp_axis)
+            mdim = self.model_dim
+            if mdim is None:
+                if summed and n > 1:
+                    g = common.all_reduce(g, group)
+            elif summed:
+                g = common.reduce_scatter_dim(g, mdim, group, n)
+            else:
+                g = common.own_chunk(g, mdim,
+                                     self.mesh.get_local_rank(self.tp_axis),
+                                     n)
+        sharded = set()
+        for d in range(len(self.spec)):
+            for a in self._dp(d):  # outermost axis first
+                sharded.add(a)
+                group, n = _group(self.mesh, a)
+                if a in self.sum_axes:
+                    g = common.reduce_scatter_dim(g, d, group, n)
+                else:
+                    g = common.own_chunk(g, d, self.mesh.get_local_rank(a),
+                                         n)
+        for a in self.sum_axes:
+            group, n = _group(self.mesh, a)
+            if a not in sharded and n > 1:
+                g = common.all_reduce(g, group)
+        return g
+
+
+def layer_plans(params, cfg, tp: common.TensorParallel,
+                sum_axes: Sequence[str], tp_axis: Optional[str] = "model"):
+    """A tree of DTensors (the parameters in their storage placements) ->
+    the same tree of :class:`LeafPlan`."""
+    plans = []
+    for path, leaf in flatten_with_path(params):
+        names = _path_names(path)
+        sh = sharding_of(leaf)
+        shape = tuple(leaf.shape)
+        compute = None if tp_axis is None else compute_slice(
+            names, shape, cfg, tp.size, tp.rank)
+        plans.append(LeafPlan(sh.mesh, sh.spec, shape, tp_axis,
+                              tuple(sum_axes), compute,
+                              tp_axis is not None
+                              and names[-1] in PARTIAL_GRAD))
+    return _unflatten(params, iter(plans))
+
+
+class _LayerGather(torch.autograd.Function):
+    """One layer's storage shards -> its compute slices; backward: each
+    slice's gradient back to its shard (:meth:`LeafPlan.reduce`)."""
+
+    @staticmethod
+    def forward(ctx, plans, *shards):
+        ctx.plans = plans
+        return tuple(p.gather(s) for p, s in zip(plans, shards))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return (None,) + tuple(p.reduce(g)
+                               for p, g in zip(ctx.plans, grads))
+
+
+def gather_layer(shards: common.Shards):
+    """A layer's :class:`common.Shards` -> its compute tensors, in the
+    tree of its local shards."""
+    outs = iter(_LayerGather.apply(tuple(tree_leaves(shards.plan)),
+                                   *tree_leaves(shards.local)))
+    return tree_map(lambda _: next(outs), shards.local)
+
+
+def model_layers(local, plans) -> dict:
+    """The tree the model takes on a mesh: each layer of a parameter tree
+    (each element of a layer list, each other top-level entry) as its
+    :class:`common.Shards`."""
+    out = {}
+    for key, value in local.items():
+        if isinstance(value, list):
+            out[key] = [common.Shards(v, p) for v, p in zip(value,
+                                                            plans[key])]
+        else:
+            out[key] = common.Shards(value, plans[key])
+    return out
+
+
+def tensor_parallel(mesh: DeviceMesh,
+                    policy: str = "2d") -> common.TensorParallel:
+    """The model axis of ``mesh`` as the layers' context: tensor-parallel
+    under the "2d" policy; a group of none under "dp_only", where the
+    model axis is data-parallel.  Sequence parallelism is off here:
+    ``transformer.forward`` turns it on where the config asks and the
+    sequence divides."""
+    if policy == "dp_only" or "model" not in mesh.mesh_dim_names:
+        return common.TensorParallel(None, 0, 1, gather=gather_layer)
+    return common.TensorParallel(mesh.get_group("model"),
+                                 mesh.get_local_rank("model"),
+                                 axis_size(mesh, "model"),
+                                 gather=gather_layer)

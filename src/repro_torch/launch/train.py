@@ -24,17 +24,23 @@ Fault tolerance is exercised with ``--preempt-at N``, as there, and with
 On a mesh (``--mesh-data`` x ``--mesh-model`` ranks, NCCL on the card,
 gloo with ``--device cpu``; ``launch/mesh.py`` refuses a mesh that is not
 the world size) storage follows the rule table (``launch/sharding.py``):
-parameters and both moments are DTensors.  Compute gathers each leaf to a
-plain tensor before the forward, as FSDP does over ``data``, so the
-kernels never see a DTensor; each rank runs its own rows of the batch
-(:func:`rank_rows`); the gradients are reduced over the dp axes back to
-the storage placements and the optimizer updates the local shards.  Over
-``model`` this shards storage and replicates compute: tensor-parallel
-compute is later work (``ROADMAP.md``).  The JAX package's activation
-constraints (``set_activation_mesh``) have no counterpart, activations
-being local to a rank.  The loss and the MoE aux loss are the global
-batch's (``train.train_step``); the global norm and the int8 moments'
-row scales are reduced over the mesh (``train.optimizer``).
+parameters and both moments are DTensors.  Compute is tensor-parallel
+over ``model``, as GSPMD partitions the JAX package's jitted step: each
+rank of a ``model`` group runs Megatron's attention, FFN and mamba layers
+on its heads and channels, its experts of an MoE, its rows of the
+vocabulary for the embedding and the logits, and (``cfg.
+sequence_parallel``) its share of the sequence between the sublayers
+(``models/common.py:TensorParallel``).  Each layer gathers its own
+shards over the data-parallel axes inside its remat region, and its
+backward reduce-scatters the layer's gradient straight back to the
+storage placements (``sharding.gather_layer``, FSDP's pattern): a rank
+holds its shards and one layer, never the whole model.  Each rank runs
+its own rows of the batch over the data-parallel axes
+(:func:`rank_rows`), and the optimizer updates the local shards.  A mesh
+whose ``model`` axis is 1 runs the same code, over a group of one.  The
+loss and the MoE aux loss are the global batch's (``train.train_step``);
+the global norm and the int8 moments' row scales are reduced over the
+mesh (``train.optimizer``).
 """
 
 from __future__ import annotations
@@ -247,31 +253,59 @@ def axes_sum(mesh, axes: tuple):
     return batch_sum
 
 
+class MeshModel:
+    """A model on a mesh, tensor-parallel over ``model`` (``policy``
+    "2d"; "dp_only" folds the model axis into the data-parallel ones):
+    its context (``tp``), and :meth:`layers`, the tree the model takes from
+    a rank's local shards, each layer's ``Shards`` with its plan (made on
+    first use from the DTensors' placements, ``sharding.layer_plans``)."""
+
+    def __init__(self, model, mesh, axes: tuple = (), policy: str = "2d"):
+        self.model, self.axes = model, tuple(axes)
+        self.tp = shd.tensor_parallel(mesh, policy)
+        self.tp_axis = None if policy == "dp_only" else "model"
+        self.plans = None
+
+    def plan(self, params) -> None:
+        """Plan the gathers of ``params`` (DTensors), once."""
+        if self.plans is None:
+            self.plans = shd.layer_plans(params, self.model.cfg, self.tp,
+                                         self.axes, self.tp_axis)
+
+    def layers(self, local) -> dict:
+        return shd.model_layers(local, self.plans)
+
+    def local(self, params):
+        """The rank's storage shards of ``params``, plain tensors."""
+        self.plan(params)
+        return opt_mod.tree_map(lambda x: x.to_local().detach(), params)
+
+    def forward(self, params, **inputs):
+        """The model's forward on ``params`` (DTensors) -> (this rank's
+        columns of the logits, aux)."""
+        return self.model.forward(self.layers(self.local(params)),
+                                  tp=self.tp, **inputs)
+
+
 def make_mesh_train_step(model, opt_cfg: OptimizerConfig, mesh,
                          axes: tuple, num_microbatches: int = 1,
-                         grads_dtype: str = "float32"):
+                         grads_dtype: str = "float32", policy: str = "2d"):
     """train_step(params, opt_state, batch) -> (params, state, metrics) on
     a mesh: ``params`` and the moments are DTensors in their storage
     placements, ``batch`` this rank's rows (:func:`rank_rows` over
-    ``axes``).  Each leaf is gathered to a plain tensor for the forward
-    and backward (so the kernels never see a DTensor); the gradients,
-    partial over ``axes``, are reduced to the storage placements; the
-    optimizer updates the local shards (its global norm and int8 row
-    scales reduced over the mesh).  ``train_step.grads(params, batch)``
-    gives the local gradient shards and the metrics without the
-    update."""
+    ``axes``).  The model runs tensor-parallel (:class:`MeshModel`), each
+    layer gathering its shards and reducing its gradient back to them
+    (``sharding.gather_layer``); the optimizer updates the local shards
+    (its global norm and int8 row scales reduced over the mesh).
+    ``train_step.grads(params, batch)`` gives the local gradient shards and
+    the metrics without the update."""
+    mm = MeshModel(model, mesh, axes, policy)
     grads_fn = make_grads_fn(model, num_microbatches, grads_dtype,
-                             axes_sum(mesh, axes))
+                             axes_sum(mesh, axes), mm.tp, mm.layers)
     shapes = convert.reference_shapes(model.cfg)
 
     def grads(params, batch):
-        full = opt_mod.tree_map(lambda x: shd.gather(x).detach(), params)
-        g, metrics = grads_fn(full, batch)
-        del full
-        local = opt_mod.tree_map(
-            lambda gi, x: shd.reduce_to(gi, shd.sharding_of(x), axes),
-            g, params)
-        return local, metrics
+        return grads_fn(mm.local(params), batch)
 
     def train_step(params, opt_state, batch):
         g, metrics = grads(params, batch)

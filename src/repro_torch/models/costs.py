@@ -136,12 +136,60 @@ statistics: under 1 % at d_model 64), per position (RoPE's tables), the
 frontends' projections, and a VLM's concatenation.
 
 All results are bytes per step of one device running the rows of the
-batch it is given.  With the state sharded over ``shards`` ranks
-(``launch/train.py``'s mesh step) each rank gathers every leaf whole and
-computes with it as above, and runs the optimizer on its own shard: per
-parameter ``PARAM`` + copies · ``GATHER_COPY`` + ``OPTIMIZER`` / shards.
+batch it is given.
+
+*On a mesh, train and prefill* (``launch/train.py``'s tensor-parallel
+step; ``tp`` ranks on ``model``, ``dp`` on the data-parallel axes) each
+rank computes with its compute slices (``launch/sharding.py:
+compute_slice``): the same passes as above over its widths, its query
+and KV heads (``common.head_ranges``: rank 0, the one the dry run
+traces, has the most), its share of d_ff, of mamba's heads, of the
+experts' buffer slots and of the vocabulary; what every rank computes
+whole stays whole (the stream's d_model, the router, mamba's B and C, the
+MoE's per-choice copies of each token).  Under sequence parallelism the
+norms and the residual adds run on the rank's share of the sequence
+(``RESIDUAL`` of each sublayer's d constant: the add 2+2+2, twice, and
+its gradient's sum, 6). The passes the model axis adds, per d_model
+element of the whole sequence and sublayer (``TP_PASSES``): without
+sequence parallelism the output's all-reduce copies its operand (2+2)
+in each forward, and the input's backward all-reduce copies the gradient
+(2+2): train 12, prefill 4; with it, the all-gather on entry copies the
+rank's share to put the sequence first (2+2 on S/tp) and the gathered
+result back (2+2 on S), the reduce-scatter on exit likewise the other
+way, each forward, and the backward the same: train 3·(8 + 8/tp),
+prefill 8 + 8/tp.  The vocab-parallel embedding's mask (2+2), in
+training its backward (2+2) (``EMBED_TP``), its all-reduce's copy (2+2)
+and in training the unembedding input's backward all-reduce copy (2+2).
+The expert-parallel MoE's masks of the rank's experts, per token and
+choice (two int64 compares 8+1 each, their and 3, the cast 1+2, keep ·
+mask 2+2+2, the shifted and clamped index 8+8 twice): 60 (``MOE_EP``,
+twice in training).  No collective's own traffic is counted: the wire
+prices it.
+
+Each rank then gathers each layer over the data-parallel axes at each use
+(``sharding.gather_layer``: twice in training, the forward and the remat
+recompute, but the head's leaves once) and reduce-scatters its gradient.
+Per parameter element the rank computes with: ``PARAM`` as on one
+device; where the leaf is gathered along a dimension other than its first
+(``wo``, ``w_down``, ``w_out``, ``out_proj``, the tables, the expert
+stacks), each axis' gather (innermost first) copies its operand to put
+that dimension first (4+4 f32) and its result back (4+4): ``8 + 8/dp`` a
+gather over one axis, more over nested ones (``Mesh.moves``), and the
+gradient's reduce-scatter the same: ``GATHER_MOVED``.  A leaf whose
+compute slice is not its storage shard (``w_xz``, KV heads split or
+shared, query heads the axis does not divide, mamba's per-head vectors)
+also gathers over ``model`` and slices (the slice copied, 4+4; along a
+dimension other than the first the same moves as above, over tp) and
+its gradient is padded with zeros (4 per element of the whole leaf),
+the slice written in (4+4) and reduce-scattered: ``GATHER_SLICED`` per
+compute element and ``GATHER_PADDED`` per element of the leaf.  Then the
+optimizer on the rank's shard: ``OPTIMIZER`` / shards.
+
+*Decode on a mesh* keeps the gather-whole step: each rank gathers every
+leaf whole and computes with it as on one device, and runs nothing of
+the optimizer: per parameter ``PARAM`` + copies · ``GATHER_COPY``.
 Gathering a leaf along a mesh axis that shards a dimension other than
-its first concatenates the chunks (4+4 an f32 element): the rule table
+its first concatenates the chunks (2+2 a bf16 element): the rule table
 shards a matrix's second dimension along the model axis only, one copy,
 and an MoE's expert stack [E, d, ff] along a dimension other than its
 first on every mesh axis, one copy an axis (2 on 16 × 16, 3 on
@@ -153,9 +201,12 @@ global figure.
 
 from __future__ import annotations
 
-from typing import Dict
+import dataclasses
+import math
+from typing import Dict, Optional, Tuple
 
 from repro_torch.configs.base import ModelConfig, ShapeSpec
+from repro_torch.models.common import head_ranges, partition
 from repro_torch.models.moe import capacity_per_group
 
 #: a norm's bytes per element of its input: train = 2·forward + backward
@@ -207,15 +258,77 @@ OPTIMIZER = {"int8": 308.0, "fp32": 184.0}
 CACHE_KV = 20.0
 CACHE_SCORES = 36.0
 STATE = 28.0
-#: on a mesh, per parameter each rank gathers whole: the gathered chunks
-#: concatenated along the dimension they shard (f32 4+4; bf16 2+2)
+#: decode on a mesh, per parameter each rank gathers whole: the gathered
+#: chunks concatenated along the dimension they shard (bf16 2+2)
 GATHER_COPY = {"train": 8.0, "prefill": 8.0, "decode": 4.0}
+#: tensor-parallel train and prefill: a sublayer's residual add and its
+#: gradient's sum, per d_model element of the stream
+RESIDUAL = {"train": 18.0, "prefill": 6.0, "decode": 6.0}
+#: a sublayer's model-axis copies without sequence parallelism, per
+#: d_model element: the output's all-reduce copy in each forward, the
+#: input's backward all-reduce copy
+TP_PASSES = {"train": 12.0, "prefill": 4.0}
+#: the embedding's vocab-parallel mask (and its backward), per d_model
+#: element of each token; its all-reduce's copy adds 4 where the model
+#: axis has more than one rank
+EMBED_TP = {"train": 8.0, "prefill": 4.0}
+#: the expert-parallel MoE's masks, per token and choice
+MOE_EP = {"train": 120.0, "prefill": 60.0}
+#: a layer's gather over the data-parallel axes along a dimension other
+#: than the first: per f32 element each axis' gather copies (and the
+#: gradient's reduce-scatter), ``Mesh.moves``
+GATHER_MOVED = 8.0
+#: a compute slice taken from a leaf gathered over ``model``: the slice's
+#: copy per compute element (and its gradient written in), and the zeros
+#: per element of the leaf the gradient is padded into
+GATHER_SLICED = 8.0
+GATHER_PADDED = 4.0
 
 
-def _attn_dims(cfg: ModelConfig):
-    hq = cfg.num_heads * cfg.head_dim
-    hkv = cfg.num_kv_heads * cfg.head_dim
-    return hq, hkv
+@dataclasses.dataclass(frozen=True)
+class Mesh:
+    """The tensor-parallel step's layout as the model prices it: ``tp``
+    ranks on ``model``, the data-parallel axes' sizes (``dp_axes``,
+    outermost first), the stream sharded over the sequence (``seqpar``);
+    ``shards`` ranks hold the state."""
+
+    tp: int = 1
+    dp_axes: Tuple[int, ...] = (1,)
+    seqpar: bool = False
+    shards: int = 1
+
+    @property
+    def dp(self) -> int:
+        return math.prod(self.dp_axes)
+
+    def moves(self) -> float:
+        """A gather over the data-parallel axes along a dimension other
+        than the first, per element of its result: each axis' gather
+        (innermost first) copies its operand and its result; the
+        gradient's reduce-scatters the same, outermost first."""
+        out, size = 0.0, 1.0 / self.dp
+        for n in reversed(self.dp_axes):
+            if n > 1:
+                out += size + size * n
+                size *= n
+        return out
+
+
+def _attn_dims(cfg: ModelConfig, mesh: Optional[Mesh] = None):
+    """Query and KV widths: rank 0's heads on a mesh (the most a rank
+    has), all of them on one device."""
+    if mesh is None or not cfg.num_heads:
+        return cfg.num_heads * cfg.head_dim, cfg.num_kv_heads * cfg.head_dim
+    q0, q1, k0, k1 = head_ranges(cfg.num_heads, cfg.num_kv_heads, mesh.tp, 0)
+    return (q1 - q0) * cfg.head_dim, (k1 - k0) * cfg.head_dim
+
+
+def _share(n: int, mesh: Optional[Mesh]) -> int:
+    """Rank 0's share of ``n`` over the model axis (all on one device)."""
+    if mesh is None:
+        return n
+    a, b = partition(n, mesh.tp, 0)
+    return b - a
 
 
 def enc_len(cfg: ModelConfig, shape: ShapeSpec) -> int:
@@ -246,14 +359,34 @@ def sublayers(cfg: ModelConfig) -> Dict[str, int]:
             "moe": n_moe}
 
 
+def _stream(kind: str, tokens: float, d: int, d_const: float,
+            mesh: Optional[Mesh]) -> float:
+    """A sublayer's d_model passes: inside it on the whole sequence, its
+    residual add on the stream's share (sequence parallelism), and the
+    model axis' own passes (``TP_PASSES``)."""
+    if mesh is None:
+        return tokens * d * d_const
+    share = tokens / mesh.tp if mesh.seqpar else tokens
+    res = RESIDUAL[kind]
+    out = tokens * d * (d_const - res) + share * d * res
+    if mesh.tp > 1:
+        if mesh.seqpar:
+            per = 8.0 * tokens + 8.0 * share
+            out += d * (3.0 * per if kind == "train" else per)
+        else:
+            out += tokens * d * TP_PASSES[kind]
+    return out
+
+
 def _attention(cfg: ModelConfig, kind: str, tokens: float,
-               kv_tokens: float, rope: bool) -> float:
+               kv_tokens: float, rope: bool,
+               mesh: Optional[Mesh] = None) -> float:
     """One attention sublayer beyond its norm: ``tokens`` queries,
     ``kv_tokens`` keys and values projected."""
-    hq, hkv = _attn_dims(cfg)
+    hq, hkv = _attn_dims(cfg, mesh)
     a = ATTN[kind]
-    out = tokens * (cfg.d_model * a["d"] + hq * a["q"]) \
-        + kv_tokens * hkv * a["kv"]
+    out = _stream(kind, tokens, cfg.d_model, a["d"], mesh) \
+        + tokens * hq * a["q"] + kv_tokens * hkv * a["kv"]
     if rope:
         out += (tokens * hq + kv_tokens * hkv) * ROPE[kind]
     if cfg.qkv_bias:
@@ -261,31 +394,42 @@ def _attention(cfg: ModelConfig, kind: str, tokens: float,
     return out
 
 
-def _ffn(cfg: ModelConfig, kind: str, tokens: float, d_ff: int) -> float:
+def _ffn(cfg: ModelConfig, kind: str, tokens: float, d_ff: int,
+         mesh: Optional[Mesh] = None) -> float:
     c = (FFN_PLAIN if cfg.act == "gelu" else FFN)[kind]
-    return tokens * (cfg.d_model * c["d"] + d_ff * c["ff"])
+    return _stream(kind, tokens, cfg.d_model, c["d"], mesh) \
+        + tokens * _share(d_ff, mesh) * c["ff"]
 
 
-def _moe(cfg: ModelConfig, shape: ShapeSpec) -> float:
+def _moe(cfg: ModelConfig, shape: ShapeSpec,
+         mesh: Optional[Mesh] = None) -> float:
     kind, B = shape.kind, shape.global_batch
     S = 1 if kind == "decode" else shape.seq_len
     T = float(B * S)
     E, K, d = cfg.num_experts, cfg.experts_per_token, cfg.d_model
-    slots = float(E * B * capacity_per_group(cfg, S))
+    slots = float(_share(E, mesh) * B * capacity_per_group(cfg, S))
     c = MOE[kind]
-    out = (T * (d * c["d"] + E * c["e"] + K * E * c["ke"] + K * c["k"]
-                + K * d * c["kd"])
+    out = (_stream(kind, T, d, c["d"], mesh)
+           + T * (E * c["e"] + K * E * c["ke"] + K * c["k"] + K * d * c["kd"])
            + slots * (d * c["slot_d"] + cfg.moe_d_ff * c["slot_ff"]))
+    if mesh is not None:
+        out += T * K * MOE_EP[kind]
     if cfg.num_shared_experts:
-        out += _ffn(cfg, kind, T, cfg.moe_d_ff * cfg.num_shared_experts)
+        f = FFN[kind]  # the shared expert's width passes; its d ones are
+        # the MoE's own (one input, one summed output)
+        out += T * _share(cfg.moe_d_ff * cfg.num_shared_experts,
+                          mesh) * f["ff"]
+        if mesh is None:
+            out += T * d * f["d"]
     return out
 
 
 def param_bytes_per_step(nparams: int, kind: str, moments: str,
                          shards: int = 1, copies: float = 1.0) -> float:
-    """Per device: ``shards`` ranks hold the state between them (1: one
-    device holds it all), each parameter gathered with ``copies``
-    concatenations on average."""
+    """Per device, one device's step or the gather-whole one (decode on a
+    mesh): ``shards`` ranks hold the state between them (1: one device
+    holds it all), each parameter gathered with ``copies`` concatenations
+    on average."""
     opt = OPTIMIZER[moments] if kind == "train" else 0.0
     if shards <= 1:
         return nparams * (PARAM[kind] + opt)
@@ -301,51 +445,150 @@ def expert_params(cfg: ModelConfig) -> int:
             * cfg.moe_d_ff)
 
 
-def activation_bytes(cfg: ModelConfig, shape: ShapeSpec) -> float:
+def _leaves(cfg: ModelConfig, vocab: int, mesh: Mesh):
+    """Rank 0's matrices on the tensor-parallel step, as (elements of its
+    compute slice, elements of the whole leaf, gathered along a dimension
+    other than its first over dp, sliced from a gather over model: 0 no,
+    1 along its first dimension, 2 along another, how many gathers: 2 in
+    a remat layer, 1 at the head)."""
+    d, tp = cfg.d_model, mesh.tp
+    hq, hkv = _attn_dims(cfg, mesh)
+    Hq, Hkv = cfg.num_heads * cfg.head_dim, cfg.num_kv_heads * cfg.head_dim
+    q_sliced = tp > 1 and hq * tp != Hq
+    kv_sliced = 2 if tp > 1 and hkv * tp != Hkv else 0
+    attn = [(d * hq, d * Hq, False, 2 if q_sliced else 0),
+            (d * hkv, d * Hkv, False, kv_sliced),
+            (d * hkv, d * Hkv, False, kv_sliced),
+            (hq * d, Hq * d, True, 1 if q_sliced else 0)]
+
+    def ffn(width):
+        w = _share(width, mesh)
+        n = 3 if cfg.act in ("swiglu", "geglu") else 2
+        return [(d * w, d * width, False, 0)] * (n - 1) \
+            + [(w * d, width * d, True, 0)]
+
+    n = sublayers(cfg)
+    out = []
+    if cfg.is_encdec:
+        out += (cfg.enc_layers + 2 * cfg.num_layers) * attn
+        out += (cfg.enc_layers + cfg.num_layers) * ffn(cfg.d_ff)
+    else:
+        out += n["attn"] * attn + n["ffn"] * ffn(cfg.d_ff)
+    if n["mamba"]:
+        di, H = cfg.ssm_d_inner, cfg.ssm_heads
+        di_r = _share(H, mesh) * cfg.ssm_head_dim
+        out += n["mamba"] * [(d * 2 * di_r, d * 2 * di, False,
+                              2 if tp > 1 else 0),
+                             (d * 2 * cfg.ssm_state, d * 2 * cfg.ssm_state,
+                              False, 0),
+                             (di_r * d, di * d, True, 0)]
+    if n["moe"]:
+        E, ff = cfg.num_experts, cfg.moe_d_ff
+        e_r = _share(E, mesh)
+        out += n["moe"] * ([(e_r * d * ff, E * d * ff, True, 0)] * 3
+                           + [(d * E, d * E, False, 0)])
+        if cfg.num_shared_experts:
+            out += n["moe"] * ffn(ff * cfg.num_shared_experts)
+    layers = [leaf + (2,) for leaf in out]
+    table = (_share(vocab, mesh) * d, vocab * d, True, 0, 1)
+    layers += [table] * (1 if cfg.tie_embeddings else 2)
+    return layers
+
+
+def sharded_param_bytes(cfg: ModelConfig, kind: str, nparams: int,
+                        vocab: int, moments: str, mesh: Mesh) -> float:
+    """Per device, the tensor-parallel step's parameter passes: each
+    matrix's compute slice cast and read, gathered over dp and (where its
+    slice needs it) over model at each use, its gradient reduced back;
+    the optimizer on the rank's shard."""
+    opt = OPTIMIZER[moments] / mesh.shards if kind == "train" else 0.0
+    train = kind == "train"
+    out = nparams * opt
+    rest = float(nparams)
+    for compute, whole, moved, sliced, gathers in _leaves(cfg, vocab, mesh):
+        rest -= whole
+        uses = gathers + 1 if train else 1  # + the gradient's reduction
+        out += compute * PARAM[kind]
+        if moved:
+            out += uses * compute * GATHER_MOVED * mesh.moves()
+        if sliced:
+            out += uses * compute * GATHER_SLICED
+            if sliced == 2:  # the gather over model moves its dimension
+                out += uses * whole / mesh.dp * GATHER_MOVED * (
+                    1.0 + 1.0 / mesh.tp)
+            if train:
+                out += whole / mesh.dp * GATHER_PADDED
+    if cfg.tie_embeddings:  # the tied table's second use
+        out += _share(vocab, mesh) * cfg.d_model * PARAM[kind]
+    # norms, biases, mamba's small leaves: whole on every rank
+    return out + max(rest, 0.0) * PARAM[kind]
+
+
+def activation_bytes(cfg: ModelConfig, shape: ShapeSpec,
+                     mesh: Optional[Mesh] = None) -> float:
     """Every layer's activation traffic (decode: one position a row),
     each sublayer's norm included; an enc-dec model's encoder runs its
-    own positions (:func:`enc_len`)."""
+    own positions (:func:`enc_len`).  ``mesh``: rank 0's share on the
+    tensor-parallel step."""
     kind = shape.kind
     T = float(shape.global_batch if kind == "decode" else shape.tokens)
     d = cfg.d_model
     norm = NORM[cfg.norm][kind]
     n = sublayers(cfg)
     rope = cfg.pos_embed == "rope"
+    stream = T / mesh.tp if mesh is not None and mesh.seqpar else T
     out = 0.0
     if cfg.is_encdec:
         Te = float(shape.global_batch * enc_len(cfg, shape))
         if kind != "decode":  # the encoder, its final norm, and the
             # memory's K and V projected in each decoder layer
             out += cfg.enc_layers * (
-                2 * Te * d * norm + _attention(cfg, kind, Te, Te, False)
-                + _ffn(cfg, kind, Te, cfg.d_ff))
+                2 * Te * d * norm + _attention(cfg, kind, Te, Te, False, mesh)
+                + _ffn(cfg, kind, Te, cfg.d_ff, mesh))
             out += Te * d * NORM_HEAD[cfg.norm][kind]
             cross_kv = Te
+            if mesh is not None and mesh.tp > 1 and kind == "train":
+                # the memory's backward all-reduce copy in each layer
+                out += cfg.num_layers * Te * d * 4.0
         else:  # a decode step's memory K and V are the cache's
             cross_kv = 0.0
         out += cfg.num_layers * (T * d * norm + _attention(
-            cfg, kind, T, cross_kv, False))
-    out += n["attn"] * (T * d * norm + _attention(cfg, kind, T, T, rope))
+            cfg, kind, T, cross_kv, False, mesh))
+    out += n["attn"] * (stream * d * norm
+                        + _attention(cfg, kind, T, T, rope, mesh))
     if n["mamba"]:
         m = MAMBA[kind]
-        out += n["mamba"] * T * (
-            d * (norm + m["d"]) + cfg.ssm_d_inner * m["di"]
-            + cfg.ssm_state * m["n"] + cfg.ssm_heads * m["h"])
-    out += n["ffn"] * (T * d * norm + _ffn(cfg, kind, T, cfg.d_ff))
+        di = _share(cfg.ssm_heads, mesh) * cfg.ssm_head_dim
+        out += n["mamba"] * (
+            stream * d * norm + _stream(kind, T, d, m["d"], mesh)
+            + T * (di * m["di"] + cfg.ssm_state * m["n"]
+                   + di // cfg.ssm_head_dim * m["h"]))
+    out += n["ffn"] * (stream * d * norm
+                       + _ffn(cfg, kind, T, cfg.d_ff, mesh))
     if n["moe"]:
-        out += n["moe"] * (T * d * norm + _moe(cfg, shape))
+        out += n["moe"] * (stream * d * norm + _moe(cfg, shape, mesh))
     return out
 
 
-def logits_bytes(cfg: ModelConfig, shape: ShapeSpec, vocab: int) -> float:
+def logits_bytes(cfg: ModelConfig, shape: ShapeSpec, vocab: int,
+                 mesh: Optional[Mesh] = None) -> float:
     """The embedding, the final norm, the unembedding and (training) the
-    cross entropy; ``vocab`` is the padded vocabulary the logits cover."""
+    cross entropy; ``vocab`` is the padded vocabulary the logits cover
+    (``mesh``: rank 0's columns, and the vocab-parallel passes)."""
     kind = shape.kind
     T = float(shape.global_batch if kind == "decode" else shape.tokens)
-    out = T * cfg.d_model * (NORM_HEAD[cfg.norm][kind] + EMBED[kind]) \
-        + T * vocab * LOGITS[kind]
+    stream = T / mesh.tp if mesh is not None and mesh.seqpar else T
+    cols = _share(vocab, mesh)
+    d = cfg.d_model
+    out = stream * d * NORM_HEAD[cfg.norm][kind] + T * d * EMBED[kind] \
+        + T * cols * LOGITS[kind]
+    if mesh is not None:
+        out += T * d * EMBED_TP[kind]
+        if mesh.tp > 1:  # the all-reduce's copy, and in training the
+            # unembedding input's backward all-reduce copy
+            out += T * d * (8.0 if kind == "train" else 4.0)
     if kind == "train":
-        out += (shape.global_batch * (shape.seq_len - 1) * vocab
+        out += (shape.global_batch * (shape.seq_len - 1) * cols
                 * CROSS_ENTROPY)
     return out
 
@@ -369,11 +612,23 @@ def cache_bytes(cfg: ModelConfig, shape: ShapeSpec) -> float:
 
 def traffic_bytes(cfg: ModelConfig, shape: ShapeSpec, nparams: int,
                   vocab: int, moments: str = "int8",
-                  shards: int = 1, mesh_axes: int = 2
-                  ) -> Dict[str, float]:
+                  shards: int = 1, mesh_axes: int = 2,
+                  mesh: Optional[Mesh] = None) -> Dict[str, float]:
     """HBM bytes per step of one device running ``shape``'s rows, by
     component; ``shards`` ranks of a mesh of ``mesh_axes`` axes hold the
-    state (1: this device alone)."""
+    state (1: this device alone).  ``mesh``: a train or prefill cell's
+    tensor-parallel step (rank 0's); without it one device's step, or
+    the gather-whole step of a decode cell on a mesh."""
+    if mesh is not None and shape.kind != "decode":
+        out = {
+            "params": sharded_param_bytes(cfg, shape.kind, nparams, vocab,
+                                          moments, mesh),
+            "activations": activation_bytes(cfg, shape, mesh),
+            "logits": logits_bytes(cfg, shape, vocab, mesh),
+            "cache": 0.0,
+        }
+        out["total"] = sum(out.values())
+        return out
     # a tied table is cast and read at both its uses, updated once
     tied = vocab * cfg.d_model * PARAM[shape.kind] if cfg.tie_embeddings \
         else 0.0

@@ -12,6 +12,12 @@ The JAX package scans stacked layers; here ``params["encoder"]`` and
 ``params["decoder"]`` are lists of per-layer dicts and the layer loops are
 Python loops, as in ``models/transformer.py``.
 
+On a mesh (``tp``) the encoder and decoder layers run their attention and
+FFNs tensor-parallel (``models/attention.py``, ``models/ffn.py``), each
+layer gathering its own shards; the frontend projection and the tied
+vocab-parallel embedding are ``models/transformer.py``'s.  The JAX
+package pins no sequence-parallel stream here, nor does the port.
+
 Decode: per-layer self-attention KV caches, and the cross-attention K/V
 computed once from the encoder memory (:class:`DecCache`).  Each step's
 cross-attention is the flash kernel with one query row.
@@ -19,6 +25,7 @@ cross-attention is the flash kernel with one query row.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import List, NamedTuple, Optional
 
 import torch
@@ -35,7 +42,9 @@ from repro_torch.models.attention import (
     init_cache,
 )
 from repro_torch.models.ffn import ffn_forward, init_ffn
-from repro_torch.models.transformer import model_dtype, remat_call, unembed
+from repro_torch.models.transformer import (embed_tokens, model_dtype,
+                                            project_frontend, remat_call,
+                                            unembed)
 
 
 def init_enc_block(generator: torch.Generator, cfg: ModelConfig,
@@ -83,55 +92,65 @@ def init_model(generator: torch.Generator, cfg: ModelConfig,
     }
 
 
-def encode(params: dict, cfg: ModelConfig,
-           frontend: torch.Tensor) -> torch.Tensor:
+def encode(params: dict, cfg: ModelConfig, frontend: torch.Tensor,
+           tp: Optional[common.TensorParallel] = None) -> torch.Tensor:
     """frontend [B, S_enc, frontend_dim] -> memory [B, S_enc, d_model]."""
     dtype = model_dtype(cfg)
-    x = frontend.to(dtype) @ params["frontend_proj"].to(dtype)
+    x = project_frontend(params, cfg, frontend, tp)
     x = x + common.sinusoidal_positions(x.shape[1], cfg.d_model,
                                         x.device).to(dtype)
     for block in params["encoder"]:
-        x = remat_call(cfg, _enc_layer, block, cfg, x)
-    return common.apply_norm(params["norm_enc"], x)
+        x = remat_call(cfg, _enc_layer, block, cfg, x, tp)
+    return common.apply_norm(common.layer(tp, params["norm_enc"]), x)
 
 
-def _enc_layer(block: dict, cfg: ModelConfig, x: torch.Tensor):
+def _enc_layer(block: dict, cfg: ModelConfig, x: torch.Tensor,
+               tp: Optional[common.TensorParallel] = None):
+    block = common.layer(tp, block)
     a = common.apply_norm(block["norm_attn"], x)
-    x = x + attn_forward(block["attn"], cfg, a, causal=False, rope=False)
+    x = x + attn_forward(block["attn"], cfg, a, causal=False, rope=False,
+                         tp=tp)
     f = common.apply_norm(block["norm_ffn"], x)
-    return x + ffn_forward(block["ffn"], cfg, f)
+    return x + ffn_forward(block["ffn"], cfg, f, tp)
 
 
 def _dec_layer(block: dict, cfg: ModelConfig, x: torch.Tensor,
-               memory: torch.Tensor):
+               memory: torch.Tensor,
+               tp: Optional[common.TensorParallel] = None):
+    block = common.layer(tp, block)
     a = common.apply_norm(block["norm_self"], x)
-    x = x + attn_forward(block["self_attn"], cfg, a, causal=True, rope=False)
+    x = x + attn_forward(block["self_attn"], cfg, a, causal=True, rope=False,
+                         tp=tp)
     c = common.apply_norm(block["norm_cross"], x)
-    mem_kv = encode_memory_kv(block["cross_attn"], cfg, memory)
-    x = x + cross_attn_forward(block["cross_attn"], cfg, c, mem_kv)
+    mem_kv = encode_memory_kv(block["cross_attn"], cfg, memory, tp)
+    x = x + cross_attn_forward(block["cross_attn"], cfg, c, mem_kv, tp)
     f = common.apply_norm(block["norm_ffn"], x)
-    return x + ffn_forward(block["ffn"], cfg, f)
+    return x + ffn_forward(block["ffn"], cfg, f, tp)
 
 
 def decode_train(params: dict, cfg: ModelConfig, memory: torch.Tensor,
-                 tokens: torch.Tensor) -> torch.Tensor:
-    """Teacher-forced decoder pass -> logits [B, S_dec, V]."""
+                 tokens: torch.Tensor,
+                 tp: Optional[common.TensorParallel] = None) -> torch.Tensor:
+    """Teacher-forced decoder pass -> logits [B, S_dec, V] (on a mesh this
+    rank's columns of V)."""
     dtype = model_dtype(cfg)
-    x = params["embed"].to(dtype)[tokens.long()]
+    x = embed_tokens(params, dataclasses.replace(cfg, embed_scale=False),
+                     tokens, dtype, tp)
     x = x + common.sinusoidal_positions(x.shape[1], cfg.d_model,
                                         x.device).to(dtype)
     for block in params["decoder"]:
-        x = remat_call(cfg, _dec_layer, block, cfg, x, memory)
-    x = common.apply_norm(params["norm_out"], x)
-    return unembed(params, cfg, x)
+        x = remat_call(cfg, _dec_layer, block, cfg, x, memory, tp)
+    x = common.apply_norm(common.layer(tp, params["norm_out"]), x)
+    return unembed(params, cfg, x, tp)
 
 
 def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
-            frontend: torch.Tensor):
+            frontend: torch.Tensor,
+            tp: Optional[common.TensorParallel] = None):
     """Prefill: tokens [B, S] and frontend [B, S_enc, frontend_dim] ->
     (logits [B, S, V], aux = 0)."""
-    memory = encode(params, cfg, frontend)
-    return (decode_train(params, cfg, memory, tokens),
+    memory = encode(params, cfg, frontend, tp)
+    return (decode_train(params, cfg, memory, tokens, tp),
             torch.zeros((), dtype=torch.float32, device=memory.device))
 
 

@@ -18,6 +18,18 @@ stride-0 views.  The decode path keeps a [B, H, N, P] f32 state plus
 (width - 1)-deep conv tails, O(1) per token whatever the context, and has
 no kernel (nor has the JAX package's).
 
+On a mesh (``tp``) a rank runs its heads (``common.partition`` of H):
+``params`` hold its heads' x and z columns of ``w_xz``, its channels of
+the x conv and of the gated norm, its heads' columns of ``w_dt`` and
+entries of ``dt_bias``, ``a_log`` and ``d_skip``, and its rows of
+``out_proj``; ``w_bc`` and the B|C conv are whole, so B and C are whole
+on every rank.  The SSD runs on the local heads; the gated norm's sum of
+squares is all-reduced over the model axis (``common.apply_norm``), and
+``out_proj``'s partial output summed (``common.tp_out``).  The input
+enters the model axis whole (``common.tp_in``: under sequence parallelism
+the conv and the SSD see the whole sequence).  The head count and
+d_inner are read off the parameters' shapes.
+
 Matmul weights and the conv weights and biases are stored in ``cfg.dtype``
 (the JAX package casts them to the activations' dtype at each use; the cast
 rounds the same either way).  ``a_log``, ``d_skip``, ``dt_bias`` and the
@@ -27,7 +39,7 @@ norm's scale stay f32, as the JAX package uses them.
 from __future__ import annotations
 
 import math
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -105,11 +117,14 @@ def _causal_conv(x: torch.Tensor, conv_w: torch.Tensor, conv_b: torch.Tensor,
 
 
 def mamba_forward(params: dict, cfg: ModelConfig, xin: torch.Tensor,
-                  ssd_impl: str = "auto") -> torch.Tensor:
+                  ssd_impl: str = "auto",
+                  tp: Optional[common.TensorParallel] = None) -> torch.Tensor:
     """Full-sequence path: xin [B, L, d_model] -> [B, L, d_model].
     ``ssd_impl`` picks the SSD's implementation (``kernels.ops.ssd``)."""
+    xin = common.tp_in(tp, xin)
     B, L, _ = xin.shape
-    di, _, h, p = _dims(cfg)
+    p = cfg.ssm_head_dim
+    h, di = params["a_log"].shape[0], params["w_xz"].shape[-1] // 2
     xz = xin @ params["w_xz"].to(xin.dtype)
     x, z = xz.chunk(2, dim=-1)
     bc = xin @ params["w_bc"].to(xin.dtype)
@@ -129,8 +144,9 @@ def mamba_forward(params: dict, cfg: ModelConfig, xin: torch.Tensor,
     y = kops.ssd(xh, dt, a, b[:, :, None, :], c[:, :, None, :],
                  d_skip=params["d_skip"], impl=ssd_impl)
     y = y.reshape(B, L, di)
-    y = common.apply_norm(params["norm"], y * F.silu(z))
-    return y @ params["out_proj"].to(xin.dtype)
+    y = common.apply_norm(params["norm"], y * F.silu(z), tp=tp,
+                          channels=cfg.ssm_d_inner)
+    return common.tp_out(tp, y @ params["out_proj"].to(xin.dtype))
 
 
 # ---------------------------------------------------------------------------

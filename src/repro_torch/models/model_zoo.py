@@ -46,7 +46,8 @@ class Model:
     # (seed, param_dtype=None) -> params on the resolved device; matmul
     # weights in param_dtype (default cfg.dtype; torch.float32: f32 masters)
     init: Callable
-    # (params, *, tokens, frontend=None, ssd_impl="auto") -> (logits, aux)
+    # (params, *, tokens, frontend=None, ssd_impl="auto", tp=None) ->
+    # (logits, aux); on a mesh (tp) params hold each layer's shards
     forward: Callable
     # (params, batch, max_len[, memory=]) -> caches (enc-dec: a DecCache)
     init_decode: Callable
@@ -64,8 +65,8 @@ def build(cfg: ModelConfig, device: DeviceLike = None) -> Model:
         return family.init_model(generator, pcfg, param_dtype)
 
     if cfg.is_encdec:
-        def forward(params, *, tokens, frontend, **_):
-            return encdec.forward(params, pcfg, tokens, frontend)
+        def forward(params, *, tokens, frontend, tp=None, **_):
+            return encdec.forward(params, pcfg, tokens, frontend, tp)
 
         def init_decode(params, batch, max_len, memory=None):
             if memory is None:
@@ -78,9 +79,10 @@ def build(cfg: ModelConfig, device: DeviceLike = None) -> Model:
             init_decode=init_decode,
             decode_step=lambda p, s, t: encdec.decode_step(p, pcfg, s, t))
 
-    def forward(params, *, tokens, frontend=None, ssd_impl="auto", **_):
+    def forward(params, *, tokens, frontend=None, ssd_impl="auto", tp=None,
+                **_):
         return transformer.forward(params, pcfg, tokens, ssd_impl,
-                                   frontend=frontend)
+                                   frontend=frontend, tp=tp)
 
     def init_decode(params, batch, max_len):
         # a mamba layer's state does not depend on max_len, as in JAX

@@ -30,6 +30,19 @@ matmuls (the JAX package's are ``einsum``s outside any kernel).
 :func:`combine` through this module, so a caller can wrap each (a
 profiler range, a record of the routing).
 
+Expert parallelism (``tp``, a mesh's model axis): ``params`` hold this
+rank's experts (``common.partition`` of E) and its columns of the shared
+expert.  The router is whole on every rank and routes the whole sequence
+of every row (under sequence parallelism the sequence is gathered first:
+routing a shard would change the capacity groups, and so the drops), so
+every rank holds the same routing and aux loss, those of one device.  Each
+rank then dispatches into a buffer of its own experts only
+(:func:`dispatch` with ``experts=``), runs them, and combines their
+outputs: its partial sum of each token's k outputs, summed over the model
+axis with the shared expert's partial output (``common.tp_out``).  The
+tokens and the routing weights enter the expert path through
+``common.copy_to``, their gradients summed over the ranks.
+
 DBRX (16 experts top-4), Llama-4 Maverick (128 top-1 + 1 shared) and Jamba
 (16 top-2, every other layer) all instantiate this module.
 """
@@ -43,7 +56,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import common
-from repro_torch.models.ffn import ffn_forward, init_ffn
+from repro_torch.models.ffn import add_b_out, ffn_partial, init_ffn
 
 
 #: set by :func:`global_batch`: sums a tensor over the data-parallel ranks
@@ -141,21 +154,31 @@ def route(params: dict, cfg: ModelConfig, x: torch.Tensor) -> Route:
 
 
 def dispatch(x: torch.Tensor, r: Route, num_experts: int,
-             capacity: int):
+             capacity: int, experts: Optional[tuple] = None):
     """x [B, S, d] -> (the expert-major buffer [E, B·C, d], each
-    assignment's flat slot [B, S·K]).  Each token is copied once per k,
-    dropped copies zeroed, and added into slot (e, b, min(pos, C-1))."""
+    assignment's flat slot [B, S·K], and its keep mask: ``r.keep``, or
+    with ``experts`` = (e0, e1) the buffer of those experts alone, [e1 -
+    e0, B·C, d], the assignments to others kept out).  Each token is
+    copied once per k, dropped copies zeroed, and added into slot (e, b,
+    min(pos, C-1))."""
     B, S, d = x.shape
     K = r.topk_idx.shape[-1]
     E, C = num_experts, capacity
     e_flat = r.topk_idx.reshape(B, S * K)
+    keep = r.keep
+    if experts is not None:
+        e0, e1 = experts
+        mine = (e_flat >= e0) & (e_flat < e1)
+        keep = keep * mine.to(keep.dtype)
+        e_flat = (e_flat - e0).clamp(0, e1 - e0 - 1)
+        E = e1 - e0
     b_idx = torch.arange(B, device=x.device)[:, None]
     slot = (e_flat * B + b_idx) * C + r.pos.clamp_max(C - 1)
     xt = x[:, :, None, :].expand(B, S, K, d).reshape(B, S * K, d)
-    xt = xt * r.keep[..., None]
+    xt = xt * keep[..., None]
     buf = torch.zeros((E * B * C, d), dtype=x.dtype, device=x.device)
     buf.index_add_(0, slot.reshape(-1), xt.reshape(B * S * K, d))
-    return buf.view(E, B * C, d), slot
+    return buf.view(E, B * C, d), slot, keep
 
 
 def experts(params: dict, cfg: ModelConfig, buf: torch.Tensor
@@ -168,26 +191,47 @@ def experts(params: dict, cfg: ModelConfig, buf: torch.Tensor
     return torch.bmm(h, params["w_down"].to(dtype))
 
 
-def combine(out_buf: torch.Tensor, r: Route, slot: torch.Tensor
-            ) -> torch.Tensor:
+def combine(out_buf: torch.Tensor, r: Route, slot: torch.Tensor,
+            keep: Optional[torch.Tensor] = None,
+            weights: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Each assignment's row, times keep and its weight, summed over k ->
-    [B, S, d] in the buffer's dtype."""
+    [B, S, d] in the buffer's dtype (``keep`` and ``weights``: the route's
+    unless given)."""
     B, S, K = r.topk_idx.shape
     d = out_buf.shape[-1]
-    y_flat = out_buf.reshape(-1, d)[slot] * r.keep[..., None]
-    return (y_flat.view(B, S, K, d) * r.topk_w[..., None]).sum(dim=2).to(
+    keep = r.keep if keep is None else keep
+    weights = r.topk_w if weights is None else weights
+    y_flat = out_buf.reshape(-1, d)[slot] * keep[..., None]
+    return (y_flat.view(B, S, K, d) * weights[..., None]).sum(dim=2).to(
         out_buf.dtype)
 
 
-def moe_forward(params: dict, cfg: ModelConfig, x: torch.Tensor):
-    """x [B, S, d] -> (y [B, S, d], aux loss, a 0-dim f32 tensor)."""
+def moe_forward(params: dict, cfg: ModelConfig, x: torch.Tensor,
+                tp: Optional[common.TensorParallel] = None):
+    """x [B, S, d] -> (y [B, S, d], aux loss, a 0-dim f32 tensor).  On a
+    mesh ``x`` is the rank's input (under sequence parallelism its share of
+    S) and ``y`` its share of the output."""
+    x = common.gather_replicated(tp, x)
     B, S, _ = x.shape
     E, K = cfg.num_experts, cfg.experts_per_token
     r = route(params, cfg, x)
-    buf, slot = dispatch(x, r, E, capacity_per_group(cfg, S))
-    y = combine(experts(params, cfg, buf), r, slot)
+    rng = None  # every expert on one device
+    if tp is not None:
+        if E < tp.size:
+            raise ValueError(f"expert parallelism needs an expert a rank: "
+                             f"{E} experts on {tp.size} ranks")
+        e0 = common.partition(E, tp.size, tp.rank)[0]
+        rng = (e0, e0 + params["w_gate"].shape[0])
+    xs = common.copy_to(tp, x)
+    buf, slot, keep = dispatch(xs, r, E, capacity_per_group(cfg, S),
+                               experts=rng)
+    y = combine(experts(params, cfg, buf), r, slot, keep,
+                common.copy_to(tp, r.topk_w))
     if cfg.num_shared_experts:
-        y = y + ffn_forward(params["shared"], cfg, x)
+        y = y + ffn_partial(params["shared"], cfg, xs)
+    y = common.tp_out(tp, y)
+    if cfg.num_shared_experts:
+        y = add_b_out(params["shared"], y, tp)
 
     # Switch aux loss: fraction dispatched x mean router prob, per expert
     n = B * S * K

@@ -27,6 +27,19 @@ every layer casts each weight to the activations' dtype where it uses it
 (``.to(x.dtype)``), so one forward serves both storages.  Norm scales stay
 f32.
 
+On a mesh (``tp``, ``common.TensorParallel``) ``params`` hold each
+layer's :class:`common.Shards`, and each layer gathers its own
+(``common.layer``) inside its remat region, so the backward gathers again
+rather than keeping the layer.  The embedding is vocab-parallel (this
+rank's rows of the table: a masked lookup, summed over the model axis),
+the unembedding gives this rank's columns of the logits (the loss takes
+them vocab-sharded, ``common.cross_entropy``), a frontend's projection
+its columns, gathered before the concatenation.  With
+``cfg.sequence_parallel`` (where the sequence divides over the axis) the
+residual stream between sublayers is this rank's share of the sequence:
+the norms run on the share, each sublayer gathers the whole sequence on
+entry and reduce-scatters its output.
+
 With ``cfg.remat`` and autograd recording, each layer runs under
 ``torch.utils.checkpoint`` (:func:`remat_call`): the layer's activations
 are recomputed in the backward, as the JAX package's ``jax.checkpoint``
@@ -36,6 +49,7 @@ outputs instead of recomputing them.
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 from typing import Callable, List, Optional, Tuple, Union
 
@@ -140,27 +154,31 @@ def _mixer_norm(block: dict) -> dict:
     return block["norm_attn"] if "norm_attn" in block else block["norm_mix"]
 
 
-def _feed_forward(block: dict, cfg: ModelConfig, x: torch.Tensor):
+def _feed_forward(block: dict, cfg: ModelConfig, x: torch.Tensor,
+                  tp: Optional[common.TensorParallel] = None):
     """The layer's FFN or MoE of its normed input -> (y, aux or None)."""
-    h = common.apply_norm(block["norm_ffn"], x)
+    h = common.apply_norm(block["norm_ffn"], x, tp=tp)
     if "moe" in block:
-        return moe_forward(block["moe"], cfg, h)
-    return ffn_forward(block["ffn"], cfg, h), None
+        return moe_forward(block["moe"], cfg, h, tp)
+    return ffn_forward(block["ffn"], cfg, h, tp), None
 
 
 def apply_block(block: dict, cfg: ModelConfig, x: torch.Tensor,
-                positions: torch.Tensor, ssd_impl: str = "auto"):
+                positions: torch.Tensor, ssd_impl: str = "auto",
+                tp: Optional[common.TensorParallel] = None):
     """Full-sequence layer application -> (x, aux); aux is the MoE's
     load-balancing loss, 0 in a layer without one.  ``ssd_impl`` picks the
-    SSD's implementation (``kernels.ops.ssd``) in a mamba layer."""
-    h = common.apply_norm(_mixer_norm(block), x)
+    SSD's implementation (``kernels.ops.ssd``) in a mamba layer.  On a
+    mesh ``block`` is the layer's shards, gathered here."""
+    block = common.layer(tp, block)
+    h = common.apply_norm(_mixer_norm(block), x, tp=tp)
     if "mamba" in block:
-        x = x + mamba_forward(block["mamba"], cfg, h, ssd_impl)
+        x = x + mamba_forward(block["mamba"], cfg, h, ssd_impl, tp)
     else:
         x = x + attn_forward(block["attn"], cfg, h, positions=positions,
-                             rope=cfg.pos_embed == "rope")
+                             rope=cfg.pos_embed == "rope", tp=tp)
     if "norm_ffn" in block:
-        y, aux = _feed_forward(block, cfg, x)
+        y, aux = _feed_forward(block, cfg, x, tp)
         x = x + y
         if aux is not None:
             return x, aux
@@ -221,8 +239,21 @@ def init_model(generator: torch.Generator, cfg: ModelConfig,
 
 
 def embed_tokens(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
-                 dtype: torch.dtype) -> torch.Tensor:
-    x = params["embed"].to(dtype)[tokens.long()]
+                 dtype: torch.dtype,
+                 tp: Optional[common.TensorParallel] = None) -> torch.Tensor:
+    """The tokens' embeddings; on a mesh this rank's rows of the table
+    (``params["embed"]`` its shards) look up the tokens they hold, the
+    others 0, summed over the model axis: the whole embedding on every
+    rank."""
+    if tp is None:
+        x = params["embed"].to(dtype)[tokens.long()]
+    else:
+        table = common.layer(tp, params["embed"]).to(dtype)
+        start = common.partition(cfg.vocab_size, tp.size, tp.rank)[0]
+        local = tokens.long() - start
+        owned = (local >= 0) & (local < table.shape[0])
+        x = table[local.clamp(0, table.shape[0] - 1)] * owned[..., None]
+        x = common.reduce_replicated(tp, x)
     if cfg.embed_scale:
         # the scale is rounded to the activations' dtype first, as in JAX
         # (a 0-dim CPU tensor: no copy to the card)
@@ -230,23 +261,40 @@ def embed_tokens(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     return x
 
 
-def unembed(params: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
-    table = params.get("unembed", params["embed"])
-    return x @ table.to(x.dtype).T
+def unembed(params: dict, cfg: ModelConfig, x: torch.Tensor,
+            tp: Optional[common.TensorParallel] = None) -> torch.Tensor:
+    """The logits of ``x``; on a mesh this rank's columns of them (its rows
+    of the table), ``x`` entering the model axis."""
+    table = common.layer(tp, params.get("unembed", params["embed"]))
+    return common.tp_in(tp, x) @ table.to(x.dtype).T
+
+
+def project_frontend(params: dict, cfg: ModelConfig, frontend: torch.Tensor,
+                     tp: Optional[common.TensorParallel] = None
+                     ) -> torch.Tensor:
+    """Frontend embeddings [B, F, frontend_dim] -> [B, F, d_model] in the
+    model's dtype; on a mesh each rank projects its columns, gathered
+    whole."""
+    dtype = model_dtype(cfg)
+    w = common.layer(tp, params["frontend_proj"]).to(dtype)
+    fx = frontend.to(dtype) @ w
+    return fx if fx.shape[-1] == cfg.d_model else common.gather_columns(
+        tp, fx)
 
 
 def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
-            ssd_impl: str = "auto", frontend: Optional[torch.Tensor] = None):
+            ssd_impl: str = "auto", frontend: Optional[torch.Tensor] = None,
+            tp: Optional[common.TensorParallel] = None):
     """tokens [B, S] (and frontend embeddings [B, F, frontend_dim]) ->
     (logits [B, F + S, V], aux): with a frontend the logits cover the
     whole sequence, as in JAX; callers slice.  ``ssd_impl`` picks the SSD's
     implementation in the mamba layers (the JAX config has no field for
-    it: there the backend decides)."""
+    it: there the backend decides).  On a mesh the logits are this rank's
+    columns of V."""
     dtype = model_dtype(cfg)
-    x = embed_tokens(params, cfg, tokens, dtype)
+    x = embed_tokens(params, cfg, tokens, dtype, tp)
     if frontend is not None:
-        fx = frontend.to(dtype) @ params["frontend_proj"].to(dtype)
-        x = torch.cat([fx, x], dim=1)
+        x = torch.cat([project_frontend(params, cfg, frontend, tp), x], dim=1)
     S = x.shape[1]
     if cfg.pos_embed == "sinusoidal":
         x = x + common.sinusoidal_positions(S, cfg.d_model,
@@ -254,13 +302,17 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
         positions = None
     else:
         positions = torch.arange(S, device=x.device)
+    if tp is not None:
+        tp = dataclasses.replace(tp, sequence_parallel=bool(
+            cfg.sequence_parallel and S % tp.size == 0))
+        x = common.split_seq(tp, x)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for block in params["blocks"]:
         x, a = remat_call(cfg, apply_block, block, cfg, x, positions,
-                          ssd_impl)
+                          ssd_impl, tp)
         aux = aux + a
-    x = common.apply_norm(params["norm_out"], x)
-    return unembed(params, cfg, x), aux
+    x = common.apply_norm(common.layer(tp, params["norm_out"]), x, tp=tp)
+    return unembed(params, cfg, x, tp), aux
 
 
 # ---------------------------------------------------------------------------

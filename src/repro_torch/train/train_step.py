@@ -13,6 +13,12 @@ then this rank's share of the global batch's mean (its token sums over
 every rank's token count), the MoE aux loss its share of the global
 batch's (``models.moe.global_batch``), so the ranks' gradients add up to
 the global batch's gradient; the metrics are the global batch's.
+
+``tp`` (a mesh's model axis, ``models.common.TensorParallel``) runs the
+model tensor-parallel: ``layers`` maps the differentiated tree (this
+rank's storage shards) to the tree the model takes (each layer's
+``Shards``), and the loss is the vocab-parallel cross entropy of this
+rank's columns of the logits, the same on every rank of the axis.
 """
 
 from __future__ import annotations
@@ -24,31 +30,40 @@ import torch
 from repro_torch.convert import reference_shapes
 from repro_torch.models import Model
 from repro_torch.models import moe as moe_mod
-from repro_torch.models.common import cross_entropy
+from repro_torch.models.common import TensorParallel, cross_entropy, partition
+from repro_torch.models.model_zoo import padded_vocab
 from repro_torch.train import optimizer as opt_mod
 
 
 BatchSum = Optional[Callable[[torch.Tensor], torch.Tensor]]
 
 
-def make_loss_fn(model: Model, batch_sum: BatchSum = None):
+def make_loss_fn(model: Model, batch_sum: BatchSum = None,
+                 tp: Optional[TensorParallel] = None,
+                 layers: Optional[Callable] = None):
     """loss_fn(params, batch) -> (loss, metrics): the next-token cross
     entropy of ``batch["labels"]`` plus the MoE's load-balancing loss; a
     VLM's frontend positions are dropped from the loss.  With
     ``batch_sum``, this rank's share of the global batch's loss (see the
-    module's docstring)."""
+    module's docstring); with ``tp``, the model tensor-parallel on
+    ``layers(params)``."""
     cfg = model.cfg
+    vocab_start = 0 if tp is None else partition(
+        padded_vocab(cfg), tp.size, tp.rank)[0]
 
     def loss_fn(params, batch: Dict[str, Any]):
         inputs = {k: v for k, v in batch.items() if k != "labels"}
+        if layers is not None:
+            params = layers(params)
         with moe_mod.global_batch(batch_sum):
-            logits, aux = model.forward(params, **inputs)
+            logits, aux = model.forward(params, tp=tp, **inputs)
         labels = batch["labels"]
         if cfg.frontend_tokens and not cfg.is_encdec:
             # drop the vision/audio prefix positions from the LM loss
             logits = logits[:, cfg.frontend_tokens:, :]
         # next-token objective: logits[t] predicts labels[t+1]
-        loss, metrics = cross_entropy(logits[:, :-1, :], labels[:, 1:])
+        loss, metrics = cross_entropy(logits[:, :-1, :], labels[:, 1:],
+                                      tp=tp, vocab_start=vocab_start)
         if batch_sum is not None:
             share = metrics["tokens"] / batch_sum(metrics["tokens"])
             loss = loss * share
@@ -78,13 +93,16 @@ def _split_microbatches(batch, num_micro: int):
 
 
 def make_grads_fn(model: Model, num_microbatches: int = 1,
-                  grads_dtype: str = "float32", batch_sum: BatchSum = None):
+                  grads_dtype: str = "float32", batch_sum: BatchSum = None,
+                  tp: Optional[TensorParallel] = None,
+                  layers: Optional[Callable] = None):
     """grads_fn(params, batch) -> (gradient tree, metrics): the train
     step's loss and autograd calls, without the update (see
     :func:`make_train_step`).  ``batch_sum``: this rank's share of a
     data-parallel batch (see the module's docstring); it stays set
-    through the backward, where remat recomputes the MoE's aux."""
-    loss_fn = make_loss_fn(model, batch_sum)
+    through the backward, where remat recomputes the MoE's aux.  ``tp``
+    and ``layers``: the model tensor-parallel (the module's docstring)."""
+    loss_fn = make_loss_fn(model, batch_sum, tp, layers)
     gdtype = getattr(torch, grads_dtype)
 
     def grads_of(params, batch):

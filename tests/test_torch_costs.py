@@ -10,7 +10,8 @@ program, against the bytes ``launch/dryrun.py`` counts.
   prefill_32k and decode_32k (one device, the cells' own shapes: fake
   tensors cost no memory), and on every arch's full widths at each kind,
   its depth cut to two layers (a jamba super-block) and its batch to a
-  few rows, and on a (2, 4) mesh, where the state is sharded.  The
+  few rows, on a (2, 4) mesh, where the state is sharded, and on a (1, 8)
+  mesh, where the step is tensor-parallel over eight ranks.  The
   constants are sums of per-op passes read off the port's code (the
   module's docstring), not taken from these cells.
 """
@@ -102,3 +103,20 @@ def test_model_within_25_percent_on_a_sharded_state(arch, layers, moments):
     counted = rec["counted_bytes_global"]
     assert model["params"] / model["total"] > 0.5
     assert abs(model["total"] / counted - 1.0) <= HOLD, (model, counted)
+
+
+@pytest.mark.parametrize("shape", ["train_4k", "prefill_32k"])
+@pytest.mark.parametrize("arch,layers,seq", [("llama3-8b", 2, 512),
+                                             ("mamba2-2.7b", 2, 256),
+                                             ("dbrx-132b", 1, 256)])
+def test_model_within_25_percent_on_a_tensor_parallel_mesh(arch, layers,
+                                                           seq, shape):
+    """One node of eight ranks on ``model`` (1 x 8): each rank computes
+    with its heads, channels, experts and vocabulary columns, gathers its
+    layers and runs the model axis's collectives (full width, 2 rows)."""
+    rec = dryrun.lower_cell(arch, shape, mesh_shape=(1, 8), layers=layers,
+                            batch=2, seq=seq)
+    assert rec["status"] == "ok"
+    model = rec["traffic_model_bytes_global"]["total"]
+    counted = rec["counted_bytes_global"]
+    assert abs(model / counted - 1.0) <= HOLD, (model, counted)

@@ -95,10 +95,54 @@ def _plan(cfg):
 
 
 def test_cli_refuses_seqpar_and_skips_long_500k():
-    proc = _cli("--arch", "llama3-8b", "--seqpar")
-    assert proc.returncode == 2 and "sequence parallelism" in proc.stderr
+    """``--seqpar`` is refused no more: it sets ``cfg.sequence_parallel``
+    and the step runs with the stream sharded over the sequence (the
+    model axis's activation all-reduces become reduce-scatters and
+    all-gathers, as many bytes on the wire: Megatron's sequence
+    parallelism saves memory, not wire); no flag is refused now.
+    ``long_500k`` still skips where the JAX dry run skips it."""
+    argv = ("--arch", "llama3-8b", "--variant", "smoke", "--shape",
+            "train_4k", "--mesh", "local", "--mesh-data", "2",
+            "--mesh-model", "4", "--batch", "8", "--seq", "128")
+    recs = {}
+    for flag in ((), ("--seqpar",)):
+        proc = _cli(*argv, *flag)
+        assert proc.returncode == 0, proc.stderr[-3000:]
+        recs[flag] = json.loads(proc.stdout.strip().splitlines()[-1])
+    on, off = recs[("--seqpar",)], recs[()]
+    assert on["status"] == "ok" and on["options"]["seqpar"] is True
+    assert off["options"]["seqpar"] is False
+    assert on["options"]["step"] == "tensor-parallel"
+    wire_on = on["collective_bytes_per_device"]
+    wire_off = off["collective_bytes_per_device"]
+    assert wire_on["all-reduce"] < wire_off["all-reduce"]
+    assert wire_on["reduce-scatter"] > wire_off["reduce-scatter"]
+    assert wire_on["all-gather"] > wire_off["all-gather"]
     rec = dryrun.lower_cell("llama3-8b", "long_500k")
     assert rec["status"] == "skip" and "long_500k" in rec["reason"]
+
+
+def test_train_4k_on_16x16_fits_an_h100_for_llama_and_mamba():
+    """The tensor-parallel step's peak per device at train_4k on the
+    16 x 16 mesh, llama3-8b and mamba2-2.7b at full width and depth (the
+    two cells run at once, a process each): under 80 GB (the gather-whole
+    step held 187.7 and 87.2 GB)."""
+    procs = {arch: subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+         "--shape", "train_4k", "--mesh", "single"], cwd=ROOT,
+        env=dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+                 OMP_NUM_THREADS="1"),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for arch in ("llama3-8b", "mamba2-2.7b")}
+    for arch, p in procs.items():
+        out, err = p.communicate(timeout=600)
+        assert p.returncode == 0, err[-3000:]
+        rec = json.loads(out.strip().splitlines()[-1])
+        assert rec["status"] == "ok" and rec["mesh"] == {"data": 16,
+                                                          "model": 16}
+        assert rec["bytes_per_device"]["peak_estimate"] < 80e9, arch
+        assert rec["hbm_ok"]
+        assert rec["options"]["step"] == "tensor-parallel"
 
 
 @pytest.mark.parametrize("arch", list_archs())

@@ -37,6 +37,7 @@ from repro_torch.kernels import backend
 from repro_torch.launch import serve as pserve
 from repro_torch.models import build
 from repro_torch.models import moe
+from repro_torch.models.ffn import ffn_forward
 from repro_torch.models.attention import KVCache
 from repro_torch.models.model_zoo import padded_vocab
 from repro_torch.models.transformer import layer_plan
@@ -235,7 +236,7 @@ def _per_token_loop(params, cfg, x):
                                          t @ params["w_up"][e])
                 out[b, s] += r.topk_w[b, s, k] * (h @ params["w_down"][e])
     if cfg.num_shared_experts:
-        out = out + moe.ffn_forward(params["shared"], cfg, x)
+        out = out + ffn_forward(params["shared"], cfg, x)
     return out
 
 
