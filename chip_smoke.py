@@ -21,7 +21,10 @@ Phases, each printing one JSON line with its seconds:
    attention layer, seamless-m4t-large-v2's encoder, decoder and
    cross-attention layers and a decode step's cross-attention, one
    internvl2-1b and one gemma-7b layer, and one jamba-v0.1-52b mamba
-   sublayer), are timed with
+   sublayer; a decode step's cross-attention also split into 8 and 16
+   shards of its 512 frames, the kernel with its log-sum-exp on each and
+   the combine, held against one launch and the plain version), are
+   timed with
    CUDA events (median of 10; the prefill_32k attention and SSD layers,
    median of 3), beside their bound and, for bf16 attention where its
    mask is the kernel's (non-causal, or Sq == Sk), PyTorch's
@@ -194,22 +197,36 @@ Phases, each printing one JSON line with its seconds:
     4096 tokens, int8 moments, through ``make_mesh_train_step``; the step
     time, each step's peak, and the flash launches a step at the per-rank
     shapes (4 query heads on 1 KV head);
-31. ``dryrun_check``: ``python -m repro_torch.launch.dryrun`` (fake
+31. ``mesh_generate`` (run between phases 29 and 30): ``greedy_generate``
+    on a ``launch/train.py:MeshModel`` over a 1 x 1 NCCL mesh, its caches
+    split by sequence (split-K) and by KV head, and mesh-less on the same
+    weights: llama3-8b at full width, 8 layers, bf16, 4 requests of 64
+    prompt tokens and 32 new ones; tokens identical, each step's logits
+    within PREFILL_REL_L2; each run's step time and a profiled step's idle
+    share;
+32. ``tp_rank_decode``: rank 0 of a 1 x 8 mesh under the fake process
+    group (as phase 30; values not checked) decoding through
+    ``make_mesh_decode_step`` on its shards of the bf16 weights and of
+    caches split by sequence: llama3-8b at full depth, decode_32k with 32
+    rows, and jamba-v0.1-52b at long_500k cut to 8 layers; the step time,
+    each step's peak and a profiled step's idle share;
+33. ``dryrun_check``: ``python -m repro_torch.launch.dryrun`` (fake
     tensors, the fake process group), each cell its own process, started
     before phase 25 and read here (they use the host, beside the training
     phases, pinned to the upper half of the cores): the cells of
-    llama_train, mesh_train and tp_rank_train, their predicted step
-    peaks within DRYRUN_PEAK_BAND of the step peaks those phases measured
-    (``step_peak_bytes``), predicted flops and roofline step beside the
-    measured step; llama3-8b, mamba2-2.7b and jamba-v0.1-52b at train_4k
-    on the 16 x 16 mesh, each ``ok``;
-32. summary: the ``kernels`` line, the peak device memory, the
+    llama_train, mesh_train, tp_rank_train and tp_rank_decode's two,
+    their predicted step peaks within DRYRUN_PEAK_BAND of the step peaks
+    those phases measured (``step_peak_bytes``), predicted flops and
+    roofline step beside the measured step; llama3-8b, mamba2-2.7b and
+    jamba-v0.1-52b at train_4k on the 16 x 16 mesh, each ``ok``;
+34. summary: the ``kernels`` line, the peak device memory, the
     ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.
 
 Each LM is freed before the next is drawn.  The launch counts are set to
 0 just before each main-path run (phases 2-7, 10-24, llama_train's run
-and resumed step, the runs of phases 26-27, mesh_train's elastic run
-and tp_rank_train's timed steps) and read just after it; the ``kernels`` line adds those counts.  The training phases' first-step
+and resumed step, the runs of phases 26-27, mesh_train's elastic run,
+each of mesh_generate's three runs, tp_rank_train's and tp_rank_decode's
+timed steps) and read just after it; the ``kernels`` line adds those counts.  The training phases' first-step
 comparisons and profiled steps verify: their launches stay in their
 lines.  The decode checks'
 prefills (phases 11, 13, 15, 18, 20, 22 and 24) verify: their launches
@@ -228,6 +245,7 @@ import contextlib
 import dataclasses
 import functools
 import json
+import math
 import os
 import re
 import statistics
@@ -783,8 +801,106 @@ def phase_flash(torch, seed: int, copy_rate: float) -> dict:
         emit({"phase": "kernels.case", "kernel": "flash_attention", **case})
         del q, k, v
         torch.cuda.empty_cache()
+    shard_cases = flash_shard_cases(torch, seed)
     return {"phase": "kernels.flash_attention", "cases": len(cases),
+            "shard_cases": shard_cases,
             "seconds": time.perf_counter() - t0, "results": cases}
+
+
+#: seamless_cross_decode's 512 frames split over a sequence-sharded
+#: decode state's ranks (launch/train.py:make_mesh_decode_step): 64 and 32
+#: keys a shard, under the kernel's 128-key tile
+FLASH_SHARDS = (8, 16)
+
+
+def flash_shard_cases(torch, seed: int) -> list:
+    """The cross-attention of a decode step on a mesh whose encoder memory
+    is split by sequence: ``seamless_cross_decode``'s inputs cut into
+    FLASH_SHARDS shards of frames, the forward kernel with its log-sum-exp
+    on each (``ops.flash_attention_lse``, ``impl="pallas"``), then the
+    combine by log-sum-exp (``ops.combine_lse``).  Held under the bf16
+    gates (TOL, FLASH_REL_L2) against one launch over the whole memory and
+    against the plain version; each shard's log-sum-exp against
+    ``ref.attention_lse`` on its keys, under TOL.  The shards and the
+    combine timed against the whole launch, against the plain version of
+    the same (``impl="ref"``) and against SDPA over the whole memory (one
+    PyTorch call computing the same attention); the bound is the whole
+    case's (the shards read the same bytes)."""
+    from repro_torch.kernels import bounds, ops, ref
+    from repro_torch.kernels import flash_attention as kflash
+
+    name, shape, causal, _, runs, _ = next(
+        c for c in FLASH_CASES if c[0] == "seamless_cross_decode")
+    B, Hq, Hkv, Sq, Sk, D = shape
+    g = torch.Generator(device="cuda").manual_seed(seed * 1000 + 850)
+
+    def draw(heads, seq):  # as the attention layer hands them over
+        return torch.randn((B, seq, heads, D), generator=g, device="cuda",
+                           dtype=torch.bfloat16).transpose(1, 2)
+
+    q, k, v = draw(Hq, Sq), draw(Hkv, Sk), draw(Hkv, Sk)
+    whole = kflash.flash_attention(q, k, v, causal=causal)
+    plain = ref.attention(q, k, v, causal=causal)
+    whole_ms = median_ms(torch, lambda: kflash.flash_attention(
+        q, k, v, causal=causal), runs=runs, warmup=1)
+    tol = TOL["bfloat16"]
+    out = []
+    for shards in FLASH_SHARDS:
+        n = Sk // shards
+        parts = [(k[:, :, r * n:(r + 1) * n], v[:, :, r * n:(r + 1) * n])
+                 for r in range(shards)]
+
+        def sharded(impl="pallas"):
+            pieces = [ops.flash_attention_lse(q, pk, pv, causal=causal,
+                                              impl=impl)
+                      for pk, pv in parts]
+            return ops.combine_lse(torch.stack([o for o, _ in pieces]),
+                                   torch.stack([lse for _, lse in pieces]))
+
+
+        before = kflash.launches.count
+        got = sharded()
+        torch.cuda.synchronize()
+        launches = kflash.launches.count - before
+        check(launches == shards, f"flash shards {shards}: {launches} "
+              f"launches")
+        lse_err = max(float((ops.flash_attention_lse(
+            q, pk, pv, causal=causal, impl="pallas")[1]
+            - ref.attention_lse(q, pk, causal=causal)).abs().max())
+            for pk, pv in parts)
+        check(lse_err < tol, f"flash shards {shards}: lse error {lse_err}")
+        held = {}
+        for against, want in (("whole_kernel", whole), ("plain", plain)):
+            torch.testing.assert_close(
+                got.float(), want.float(), rtol=tol, atol=tol,
+                msg=f"flash {name} in {shards} shards against {against}")
+            l2 = rel_l2(torch, got, want)
+            check(l2 < FLASH_REL_L2["bfloat16"],
+                  f"flash {name} in {shards} shards: relative L2 {l2} "
+                  f"against {against}")
+            held[against] = {
+                "max_abs_err": float((got.float() - want.float()).abs()
+                                     .max()), "rel_l2": l2}
+        ms = median_ms(torch, sharded, runs=runs, warmup=1)
+        plain_ms = median_ms(torch, lambda: sharded("ref"), runs=runs,
+                             warmup=1)
+        nbytes, ops_count, bound_ms, bound_by = bounds.flash_bound(
+            shape, causal, 2)
+        case = {"name": f"{name}_{shards}_shards", "shape": list(shape),
+                "shards": shards, "keys_per_shard": n, "dtype": "bfloat16",
+                "launches": launches, "lse_max_abs_err": lse_err,
+                "tol": tol, "rel_l2_limit": FLASH_REL_L2["bfloat16"],
+                "held": held, "ms": ms, "whole_ms": whole_ms,
+                "vs_whole": ms / whole_ms, "plain_ms": plain_ms,
+                "library_ms": sdpa_ms(torch, q, k, v, causal, runs),
+                "bytes": nbytes, "operations": ops_count,
+                "bound_ms": bound_ms, "bound_by": bound_by}
+        emit({"phase": "kernels.case", "kernel": "flash_attention_lse",
+              **case})
+        out.append(case)
+    del q, k, v, whole, plain
+    torch.cuda.empty_cache()
+    return out
 
 
 # name, (B, Hq, Hkv, Sq, Sk, D), causal, dtypes, timed runs (0: held, not
@@ -3476,6 +3592,267 @@ def phase_tp_rank_train(torch, seed: int, backend) -> dict:
             "seconds": time.perf_counter() - t0}
 
 
+class LoggedModel:
+    """A model (or a ``MeshModel``) whose decode steps keep their logits:
+    what ``greedy_generate`` calls, and nothing else, passed through."""
+
+    def __init__(self, model):
+        self.model, self.cfg, self.device = model, model.cfg, model.device
+        self.logits = []
+
+    def init_decode(self, *args, **kwargs):
+        return self.model.init_decode(*args, **kwargs)
+
+    def decode_step(self, params, state, token):
+        state, logits = self.model.decode_step(params, state, token)
+        self.logits.append(logits)
+        return state, logits
+
+
+#: decode on a mesh: the cache layouts of launch/train.py:MeshModel
+CACHE_SHARDS = ("seq", "heads")
+
+
+def phase_mesh_generate(torch, seed: int, backend) -> dict:
+    """``greedy_generate`` on a ``launch/train.py:MeshModel`` over a 1 x 1
+    NCCL mesh (no fallback: NCCL failing to start fails the phase), for
+    each cache layout (CACHE_SHARDS: split-K over sequence shards, KV
+    heads over ``model``), and mesh-less on the same weights: llama3-8b at
+    full width, TRAIN_LAYERS layers, bf16 weights, GEN_BATCH requests of
+    GEN_PROMPT prompt tokens and GEN_NEW new ones.  The tokens must be
+    identical, and each step's logits within PREFILL_REL_L2 (relative L2
+    over the run) of the mesh-less run's; the launches counted from zero
+    over each run (the decode path launches no kernel); each run's step
+    time, and a profiled step's device time and idle share."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import mesh as pmesh
+    from repro_torch.launch import sharding as shd
+    from repro_torch.launch import train as ptrain
+    from repro_torch.models import build
+    from repro_torch.train import greedy_generate
+    from repro_torch.train import optimizer as opt_mod
+
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config(LLAMA), num_layers=TRAIN_LAYERS)
+    model = build(cfg)
+    params = model.init(seed)
+    g = torch.Generator(device="cuda").manual_seed(seed + 5)
+    prompt = torch.randint(0, cfg.vocab_size, (GEN_BATCH, GEN_PROMPT),
+                           generator=g, device="cuda", dtype=torch.int32)
+    max_len = GEN_PROMPT + GEN_NEW + 1
+    steps = GEN_PROMPT + GEN_NEW
+
+    def run(m, p):
+        logged = LoggedModel(m)
+        backend.reset_launch_counts()
+        tokens, seconds = synced(torch, lambda: greedy_generate(
+            logged, p, prompt, GEN_NEW, max_len=max_len))
+        return tokens, torch.cat(logged.logits, 1), seconds, \
+            backend.launch_counts()
+
+    def step_profile(m, p):
+        state = m.init_decode(p, GEN_BATCH, max_len)
+        for t in range(GEN_PROMPT):
+            state, _ = m.decode_step(p, state, prompt[:, t:t + 1])
+        token = prompt[:, -1:]
+        with torch.no_grad():
+            return profile_breakdown(torch, lambda: m.decode_step(
+                p, state, token))
+
+    want, want_logits, plain_s, plain_launches = run(model, params)
+    runs = {"mesh_less": {"step_ms": plain_s / steps * 1e3,
+                          "launches": plain_launches,
+                          "step_breakdown": step_profile(model, params)}}
+    check(not dist.is_initialized(), "mesh_generate: a process group is up")
+    try:
+        mesh = pmesh.make_local_mesh(1, 1, device="cuda")
+        check(mesh.device_type == "cuda" and dist.get_backend() == "nccl"
+              and dist.get_world_size() == 1,
+              f"mesh_generate: mesh {mesh}, backend {dist.get_backend()}")
+        dparams = opt_mod.tree_map(shd.distribute, params,
+                                   shd.param_shardings(mesh, params))
+        axes = ptrain.rows_axes(mesh, GEN_BATCH)
+        for layout in CACHE_SHARDS:
+            mm = ptrain.MeshModel(model, mesh, axes, cache_shard=layout)
+            got, logits, seconds, launches = run(mm, dparams)
+            check(torch.equal(got, want), f"mesh_generate {layout}: tokens "
+                  f"differ from the mesh-less run's")
+            l2 = rel_l2(torch, logits, want_logits)
+            check(l2 < PREFILL_REL_L2, f"mesh_generate {layout}: logits "
+                  f"relative L2 {l2} >= {PREFILL_REL_L2}")
+            state = mm.init_decode(dparams, GEN_BATCH, max_len)
+            placements = [str(p) for p in state[0].k.placements]
+            runs[layout] = {"step_ms": seconds / steps * 1e3,
+                            "launches": launches,
+                            "max_abs_logit_diff": float(
+                                (logits.float() - want_logits.float()).abs()
+                                .max()),
+                            "logits_rel_l2": l2, "tokens_identical": True,
+                            "k_placements": placements,
+                            "step_breakdown": step_profile(mm, dparams)}
+            del state, logits
+    finally:
+        pmesh.shutdown()
+    del params, model
+    torch.cuda.empty_cache()
+    launches = {k: sum(r["launches"].get(k, 0) for r in runs.values())
+                for k in plain_launches}
+    return {"phase": "mesh_generate", "arch": cfg.arch_id,
+            "layers": cfg.num_layers, "dtype": cfg.dtype,
+            "backend": "nccl", "mesh": {"data": 1, "model": 1},
+            "requests": GEN_BATCH, "prompt_tokens": GEN_PROMPT,
+            "new_tokens": GEN_NEW, "decode_steps": steps,
+            "rel_l2_limit": PREFILL_REL_L2, "generated": want[0].tolist(),
+            "runs": runs, "launches": launches,
+            "peak_device_bytes": torch.cuda.max_memory_allocated(),
+            "seconds": time.perf_counter() - t0}
+
+
+#: tp_rank_decode's cells: rank 0 of a (1, TP_RANKS) mesh; (arch, shape,
+#: layers (None: all), rows of the global batch)
+TP_DECODE = {"llama": (LLAMA, "decode_32k", None, 32),
+             "jamba": (JAMBA, "long_500k", 8, 1)}
+TP_DECODE_STEPS = 5
+
+
+def phase_tp_rank_decode(torch, seed: int, backend) -> dict:
+    """Rank 0 of a (1, TP_RANKS) mesh decoding on the card, in one process
+    under torch's fake process group (as tp_rank_train): its shards of the
+    bf16 weights and of the caches (``decode_shardings``, split-K by
+    sequence), through ``launch/train.py:make_mesh_decode_step``, every KV
+    cache seq_len - 1 long (the dry run's cell).  The collectives do no
+    work, so the values are not checked: the phase measures one rank's
+    step.  Cells (TP_DECODE): llama3-8b at full depth, decode_32k with 32
+    rows (the cache split over 8 ranks: 17.2 GB), and jamba-v0.1-52b at
+    long_500k cut to 8 layers (one attention layer; batch 1, the positions
+    over every rank).  Each reports the step time (median of
+    TP_DECODE_STEPS after one warm-up), each step's peak (held by
+    dryrun_check against the dry run's prediction of the same cell), a
+    profiled step's device time and idle share, and the launches; one
+    more step runs under ``torch.cuda.set_sync_debug_mode("error")``, so
+    a synchronisation with the host inside the step fails the phase."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    from repro_torch import convert
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.launch import mesh as pmesh
+    from repro_torch.launch import sharding as shd
+    from repro_torch.launch import train as ptrain
+    from repro_torch.launch.dryrun import at_length
+    from repro_torch.models import build
+    from repro_torch.train.checkpoint import _unflatten, flatten_with_path
+
+    cells = {}
+    for which, (arch, shape_name, layers, rows) in TP_DECODE.items():
+        t0 = time.perf_counter()
+        cfg = get_config(arch)
+        if layers is not None:
+            cfg = dataclasses.replace(cfg, num_layers=layers)
+        S = SHAPES[shape_name].seq_len
+        check(not dist.is_initialized(),
+              "tp_rank_decode: a process group is up")
+        dist.init_process_group("fake", store=FakeStore(), rank=0,
+                                world_size=TP_RANKS)
+        try:
+            mesh = pmesh.make_local_mesh(1, TP_RANKS, device="cuda")
+            check(mesh.device_type == "cuda"
+                  and dist.get_backend() == "fake",
+                  f"tp_rank_decode: mesh {mesh}, backend "
+                  f"{dist.get_backend()}")
+            g = torch.Generator(device="cuda").manual_seed(seed)
+            layout = convert.jax_layout(cfg)
+            meta = ptrain._map_layout(lambda s: torch.empty(
+                s, device="meta"), layout)
+            sh = shd.param_shardings(mesh, meta)
+
+            def shard(leaf, s):
+                local = tuple(n // c for n, c in zip(leaf.shape,
+                                                     s.shard_counts))
+                t = torch.randn(local, generator=g, device="cuda",
+                                dtype=torch.bfloat16) * 0.02
+                return shd.from_local(t, s, tuple(leaf.shape))
+
+            params = convert.split_layers(_unflatten(meta, iter(
+                shard(leaf, s) for (_, leaf), (_, s) in zip(
+                    flatten_with_path(meta), flatten_with_path(sh)))),
+                cfg, ptrain.take_layer)
+            axes = ptrain.rows_axes(mesh, rows)
+            local_rows = rows // max(1, math.prod(
+                mesh.size(mesh.mesh_dim_names.index(a)) for a in axes))
+            model = build(cfg)
+            step = ptrain.make_mesh_decode_step(model, mesh, axes)
+            with torch.no_grad():
+                state = at_length(step.model.init_decode(
+                    params, local_rows, S), S - 1)
+            token = torch.randint(0, cfg.vocab_size, (local_rows, 1),
+                                  generator=g, device="cuda",
+                                  dtype=torch.int32)
+            local_bytes = sum(x.to_local().numel() * x.element_size()
+                              for x in tensor_leaves(params))
+            (state, _), warm_s = synced(torch, lambda: step(params, state,
+                                                            token))
+            peaks = StepPeaks(torch)
+            step_s, counts = [], []
+            for _ in range(TP_DECODE_STEPS):
+                state = at_length(state, S - 1)
+                backend.reset_launch_counts()
+                (state, _), seconds = synced(torch, lambda: peaks(
+                    lambda: step(params, state, token)))
+                counts.append(backend.launch_counts())
+                step_s.append(seconds)
+            # one more step with any synchronisation with the host raising
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                state, _ = step(params, at_length(state, S - 1), token)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            breakdown = profile_breakdown(
+                torch, lambda: step(params, at_length(state, S - 1), token),
+                runs=1)
+            cache_bytes = sum(
+                t.to_local().numel() * t.element_size()
+                for t in tensor_leaves(state))
+            del params, state, step, model
+        finally:
+            dist.destroy_process_group()
+            torch.cuda.empty_cache()
+        launches = {k: sum(c.get(k, 0) for c in counts) for k in counts[0]}
+        check(all(n == 0 for n in launches.values()),
+              f"tp_rank_decode {which}: the decode path launched {launches}")
+        step_ms = statistics.median(step_s) * 1e3
+        cells[which] = {
+            "phase": f"tp_rank_decode_{which}", "arch": cfg.arch_id,
+            "shape": shape_name, "layers": cfg.num_layers,
+            "mesh": {"data": 1, "model": TP_RANKS}, "rank": 0,
+            "backend": "fake", "device_type": "cuda",
+            "cache_shard": "seq", "rows": rows, "rank_rows": local_rows,
+            "seq_len": S, "local_param_bytes": local_bytes,
+            "local_cache_bytes": cache_bytes, "launches": launches,
+            "host_syncs_in_a_step": 0,
+            "warmup_s": warm_s, "step_s": step_s, "step_ms": step_ms,
+            "tokens_per_s": rows / (step_ms * 1e-3),
+            "step_breakdown": breakdown,
+            "step_peak_bytes": max(peaks.steps),
+            "step_memory": list(zip(peaks.bases, peaks.steps)),
+            "peak_device_bytes": peaks.phase_peak(),
+            "values_checked": False,
+            "seconds": time.perf_counter() - t0}
+    return cells
+
+
+def tensor_leaves(tree) -> list:
+    """The tensors of a parameter tree or a decode state (lists, dicts and
+    NamedTuples)."""
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in tensor_leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [t for v in tree for t in tensor_leaves(v)]
+    return [tree] if hasattr(tree, "to_local") else []
+
+
 def rank_heads(cfg, ranks: int) -> tuple:
     """Rank 0's query and KV heads on a model axis of ``ranks``."""
     from repro_torch.models.common import head_ranges
@@ -3484,8 +3861,9 @@ def rank_heads(cfg, ranks: int) -> tuple:
     return q1 - q0, k1 - k0
 
 
-#: the dry run's cells that chip_smoke itself trains (llama_train without a
-#: mesh, mesh_train on its 1 x 1 mesh: their shapes) and three train_4k
+#: the dry run's cells that chip_smoke itself runs (llama_train without a
+#: mesh, mesh_train on its 1 x 1 mesh, tp_rank_train's and
+#: tp_rank_decode's rank of a 1 x 8 mesh: their shapes) and three train_4k
 #: cells on the 16 x 16 production mesh
 DRYRUN_TRAINED = {
     "llama_train": ["--arch", LLAMA, "--shape", "train_4k", "--mesh", "none",
@@ -3500,7 +3878,12 @@ DRYRUN_TRAINED = {
                       "local", "--mesh-data", "1", "--mesh-model",
                       str(TP_RANKS), "--layers", str(TRAIN_LAYERS),
                       "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
-                      "--moments", "int8"]}
+                      "--moments", "int8"],
+    **{f"tp_rank_decode_{which}": [
+        "--arch", arch, "--shape", shape, "--mesh", "local", "--mesh-data",
+        "1", "--mesh-model", str(TP_RANKS), "--batch", str(rows),
+        *(["--layers", str(layers)] if layers else [])]
+       for which, (arch, shape, layers, rows) in TP_DECODE.items()}}
 DRYRUN_PRODUCTION = (LLAMA, MAMBA, JAMBA)
 #: a trained cell's predicted step peak against the measured one
 DRYRUN_PEAK_BAND = (0.8, 1.25)
@@ -3714,13 +4097,23 @@ def main() -> int:
         compression = phase_grad_compression(torch, args.seed,
                                              device["copy_bytes_per_s"])
         emit(compression)
+        mesh_generate = phase_mesh_generate(torch, args.seed, backend)
+        emit(mesh_generate)
+        lm_lines.append(mesh_generate)
+        peak = max(peak, mesh_generate["peak_device_bytes"])
         tp_rank = phase_tp_rank_train(torch, args.seed, backend)
         emit(tp_rank)
         lm_lines.append(tp_rank)
         peak = max(peak, tp_rank["peak_device_bytes"])
+        tp_decode = phase_tp_rank_decode(torch, args.seed, backend)
+        for line in tp_decode.values():
+            emit(line)
+            lm_lines.append(line)
+            peak = max(peak, line["peak_device_bytes"])
         emit(phase_dryrun_check(torch, dryruns, {
             "llama_train": llama_train, "mesh_train": mesh_train,
-            "tp_rank_train": tp_rank}))
+            "tp_rank_train": tp_rank,
+            **{f"tp_rank_decode_{k}": v for k, v in tp_decode.items()}}))
     finally:
         stop(dryruns)
 

@@ -58,7 +58,8 @@ import torch
 from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import bounds, build, ref
-from repro_torch.kernels.backend import LaunchCounter, is_fake
+from repro_torch.kernels.backend import (LaunchCounter, is_fake,
+                                         refuse_autograd)
 from repro_torch.kernels.ref import check_causal
 
 HEAD_DIMS = (16, 32, 64, 128, 256)
@@ -242,7 +243,14 @@ def flash_attention_with_lse(q: torch.Tensor, k: torch.Tensor,
                              v: torch.Tensor, causal: bool = True):
     """The forward kernel, also writing each row's log-sum-exp of its
     scaled scores: -> (out [B, Hq, Sq, D], lse [B, Hq, Sq] f32, natural
-    log), the backward's inputs."""
+    log): the backward's inputs (:class:`FlashAttentionFn`), and what
+    combines the attention of several shards of the keys
+    (``models/attention.py``'s cross-attention over sequence-sharded
+    memory; ``kernels.ops.flash_attention_lse``).  No autograd: raises
+    where autograd records (:class:`FlashAttentionFn` calls it inside its
+    forward, where it does not)."""
+    refuse_autograd("flash_attention (with its log-sum-exp)", (q, k, v),
+                    "FlashAttentionFn is the differentiable forward")
     return _forward(q, k, v, causal, with_lse=True)
 
 

@@ -92,6 +92,41 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return flash_kernel.flash_attention(q, k, v, causal=causal)
 
 
+def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool = True, impl: str = "auto"):
+    """GQA attention and each query row's log-sum-exp of its scaled scores:
+    -> (out [B,Hq,Sq,D] in q's dtype, lse [B,Hq,Sq] f32, natural log), what
+    :func:`combine_lse` merges over shards of the keys.  ``"pallas"`` (and
+    ``"auto"`` on a CUDA or fake tensor) is the forward kernel writing its
+    log-sum-exp (``flash_attention.flash_attention_with_lse``); ``"ref"``
+    and ``"chunked"`` (and ``"auto"`` on a CPU tensor) the plain
+    ``ref.attention`` and ``ref.attention_lse``.  No autograd: the kernel
+    raises where it records."""
+    if impl not in JAX_IMPLS:
+        raise ValueError(f"impl={impl!r} not in {JAX_IMPLS}")
+    if impl == "pallas" or (impl == "auto" and _on_card(q)):
+        return flash_kernel.flash_attention_with_lse(q, k, v, causal=causal)
+    return (ref.attention(q, k, v, causal=causal),
+            ref.attention_lse(q, k, causal=causal))
+
+
+def combine_lse(outs: torch.Tensor, lses: torch.Tensor,
+                max_over=None, sum_over=None) -> torch.Tensor:
+    """Attention over the union of shards of the keys from each shard's
+    output [.., D] and log-sum-exp [..] (f32) -> [.., D] in the outputs'
+    dtype: each output weighted by exp(its lse - the total's), summed in
+    f32.  ``max_over`` and ``sum_over`` reduce over the shards: by default
+    the shards are stacked along the first dimension; on a mesh they are
+    the reductions over the ranks that hold them (``common.seq_max``,
+    ``common.seq_sum``)."""
+    max_over = max_over or (lambda t: t.amax(dim=0))
+    sum_over = sum_over or (lambda t: t.sum(dim=0))
+    m = max_over(lses)
+    total = m + torch.log(sum_over(torch.exp(lses - m)))
+    w = torch.exp(lses - total)
+    return sum_over(outs.float() * w[..., None]).to(outs.dtype)
+
+
 def ssd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
         c: torch.Tensor, *, d_skip: torch.Tensor | None = None,
         impl: str = "auto", chunk: int = 128) -> torch.Tensor:

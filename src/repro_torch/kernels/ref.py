@@ -159,26 +159,66 @@ def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             dv.to(v.dtype))
 
 
+def decode_scores(q: torch.Tensor, k_cache: torch.Tensor,
+                  cache_len: int) -> torch.Tensor:
+    """The f32 scaled scores of one-token decode against the first
+    ``cache_len`` positions of a cache: q [B, Hq, 1, D], k_cache [B, Hkv,
+    S, D] -> [B, Hkv, Hq / Hkv, cache_len].  q is cast to the cache's
+    dtype, and the product accumulates in f32: the JAX oracle's
+    ``preferred_element_type``, which upcasting the valid prefix
+    reproduces exactly, because a product of two bf16 values is exact in
+    f32.  The upcast is one layer's prefix, not a copy of the whole
+    cache."""
+    B, Hq, _, D = q.shape
+    Hkv = k_cache.shape[1]
+    qf = q.reshape(B, Hkv, Hq // Hkv, D).to(k_cache.dtype).float()
+    kf = k_cache[:, :, :cache_len].float()
+    return torch.einsum("bhgd,bhkd->bhgk", qf, kf) * (D ** -0.5)
+
+
+def decode_max(scores: torch.Tensor) -> torch.Tensor:
+    """A shard's row maximum of its scores [.., n] -> [..] (-inf where it
+    holds no position)."""
+    if scores.shape[-1] == 0:
+        return scores.new_full(scores.shape[:-1], float("-inf"))
+    return scores.amax(dim=-1)
+
+
+def decode_exp(scores: torch.Tensor, row_max: torch.Tensor) -> torch.Tensor:
+    """exp(scores - the global row max): the softmax's numerators."""
+    return torch.exp(scores - row_max[..., None])
+
+
+def decode_pv(numerators: torch.Tensor, row_sum: torch.Tensor,
+              v_cache: torch.Tensor) -> torch.Tensor:
+    """A shard's part of P·V: its numerators over the global row sum of
+    exponentials (the normalised probabilities), cast to the cache's dtype
+    as the JAX oracle casts them, times the first ``n`` values, summed in
+    f32 -> [B, Hkv, group, D] f32.  The quotient is written straight into
+    the cache's dtype (computed in f32, rounded on the store: the same
+    numbers as a division and a cast, one op fewer)."""
+    n = numerators.shape[-1]
+    probs = numerators.new_empty(numerators.shape, dtype=v_cache.dtype)
+    torch.div(numerators, row_sum[..., None], out=probs)
+    return torch.einsum("bhgk,bhkd->bhgd", probs.float(),
+                        v_cache[:, :, :n].float())
+
+
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, cache_len: int) -> torch.Tensor:
     """One-token decode: q [B, Hq, 1, D], caches [B, Hkv, S, D] ->
     [B, Hq, 1, D] in q's dtype.  Only the first ``cache_len`` positions are
-    read (the tail may be uninitialised).  q is cast to the cache's dtype
-    and the probabilities too before the weighted sum, both products
-    accumulate in f32: the JAX oracle's ``preferred_element_type``, which
-    upcasting the valid prefix reproduces exactly, because a product of two
-    bf16 values is exact in f32.  The upcast is one layer's prefix, not a
-    copy of the whole cache."""
+    read (the tail may be uninitialised).  The softmax is the JAX oracle's
+    (``jax.nn.softmax``: exp(x - max) over its sum), written as the
+    split-K pieces a sequence-sharded cache combines over its shards
+    (:func:`decode_scores`, :func:`decode_max`, :func:`decode_exp`,
+    :func:`decode_pv`; ``models/attention.py``): with one shard they are
+    this function, bit for bit.  The probabilities are cast to the
+    cache's dtype before the weighted sum, which accumulates in f32."""
     B, Hq, _, D = q.shape
-    Hkv = k_cache.shape[1]
-    group = Hq // Hkv
-    qf = q.reshape(B, Hkv, group, D).to(k_cache.dtype).float()
-    kf = k_cache[:, :, :cache_len].float()
-    logits = torch.einsum("bhgd,bhkd->bhgk", qf, kf) * (D ** -0.5)
-    probs = torch.softmax(logits, dim=-1)
-    vf = v_cache[:, :, :cache_len].float()
-    out = torch.einsum("bhgk,bhkd->bhgd",
-                       probs.to(v_cache.dtype).float(), vf)
+    scores = decode_scores(q, k_cache, cache_len)
+    e = decode_exp(scores, decode_max(scores))
+    out = decode_pv(e, e.sum(dim=-1), v_cache)
     return out.reshape(B, Hq, 1, D).to(q.dtype)
 
 

@@ -25,12 +25,16 @@ DTensors.  A train cell runs ``launch/train.py:make_mesh_train_step``
 itself: the model tensor-parallel over ``model``, each layer gathering
 its shards (``launch/sharding.py:gather_layer``).  A prefill cell runs the
 same tensor-parallel forward under ``no_grad`` over the rank's rows.  A
-decode cell keeps the gather-whole step (the parameters gathered whole,
-the caches gathered along every axis but the batch's, bf16 parameters as
-the JAX dry run casts them): decode on a mesh needs split-K over caches
-sharded by sequence, not ported yet; the record's ``options`` say so
-(``"step": "gather-whole"``, where a train or prefill cell's reads
-``"tensor-parallel"``).  ``--seqpar`` sets
+decode cell runs ``launch/train.py:make_mesh_decode_step`` on bf16
+parameters (as the JAX dry run casts them) and on the rank's shards of
+the caches (``decode_shardings``, the JAX cell's ``in_shardings``):
+each layer gathered over the data axes and run tensor-parallel over
+``model``, attention split-K over the cache's sequence shards (the
+softmax's max and sum and the P·V partials reduced over the sequence's
+axes) or, with ``--cache-shard heads``, local to the rank's KV heads; the
+new position is written into the shard that holds it (the JAX cell's
+``out_shardings``), the logits gathered whole for the rank's rows.  Every
+mesh cell's ``options`` read ``"step": "tensor-parallel"``.  ``--seqpar`` sets
 ``cfg.sequence_parallel``, as the JAX dry run does.  ``--mesh local`` runs a
 ``--mesh-data`` x ``--mesh-model`` mesh, and ``--mesh none`` the step
 without a mesh (``train.make_train_step``: one device, what
@@ -325,13 +329,13 @@ def _cfg_for(arch: str, variant: str, layers: Optional[int],
     return dataclasses.replace(cfg, **change)
 
 
-def _kv_full(caches, length: int):
+def at_length(caches, length: int):
     """The port's decode caches with every KV cache ``length`` long (the
     cell decodes the token after ``length`` cached ones)."""
     from repro_torch.models.attention import KVCache
     from repro_torch.models.encdec import DecCache
     if isinstance(caches, DecCache):
-        return caches._replace(self_kv=_kv_full(caches.self_kv, length))
+        return caches._replace(self_kv=at_length(caches.self_kv, length))
     return [c._replace(length=length) if isinstance(c, KVCache) else c
             for c in caches]
 
@@ -440,20 +444,9 @@ def run_cell(cfg, shape, mesh, dev: str, *, moments: str, microbatches: int,
 
             args = (params, batch)
         else:
-            state, token = decode_state(cfg, model, params, shape, dev,
-                                        mesh, policy, cache_shard)
-
-            @torch.no_grad()
-            def step(params, state, token):
-                full = opt_mod.tree_map(shd.gather, params)
-                if mesh is None:
-                    return model.decode_step(full, state, token)
-                # the rows' caches gathered whole; the step's one new
-                # position is not written back to the shards
-                _, logits = model.decode_step(
-                    full, _map_tensors(rows_of, state), token)
-                return state, logits
-
+            step, state, token = decode_state(cfg, model, params, shape, dev,
+                                              mesh, axes, rows, policy,
+                                              cache_shard)
             args = (params, state, token)
         arguments = counter.hold(args)
         with flops, counter:
@@ -462,67 +455,43 @@ def run_cell(cfg, shape, mesh, dev: str, *, moments: str, microbatches: int,
         return counter, flops, arguments, outputs, rows
 
 
-def _map_leaves(fn, tree):
-    """``fn`` over the leaves of a tree of lists and NamedTuples (the
-    decode caches)."""
-    if isinstance(tree, list):
-        return [_map_leaves(fn, v) for v in tree]
-    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
-        return type(tree)(*(_map_leaves(fn, v) for v in tree))
-    return fn(tree)
-
-
-def _map_tensors(fn, tree):
-    return _map_leaves(lambda x: fn(x) if isinstance(x, torch.Tensor)
-                       else x, tree)
-
-
-def decode_state(cfg, model, params, shape, dev, mesh, policy, cache_shard):
-    """A decode cell's caches (every KV cache seq_len - 1 long) and token:
-    the rank's shards of ``decode_shardings`` on a mesh."""
+def decode_state(cfg, model, params, shape, dev, mesh, axes, rows, policy,
+                 cache_shard):
+    """A decode cell's step, caches (every KV cache seq_len - 1 long) and
+    token: on a mesh ``launch/train.py:make_mesh_decode_step``, its state
+    the rank's shards of ``decode_shardings`` (``MeshModel.init_decode``)
+    and its token the rank's rows."""
     B, S = shape.global_batch, shape.seq_len
-    full = opt_mod.tree_map(shd.gather, params)
-    if cfg.is_encdec:
-        from repro_torch.models import encdec
-        memory = torch.empty((B, max(128, min(8192, S // 4)), cfg.d_model),
-                             dtype=torch.bfloat16, device=dev)
-        caches = encdec.init_decode_state(full, _padded_cfg(cfg), memory, B,
-                                          S)
-    else:
-        caches = model.init_decode(full, B, S)
-    del full
-    caches = _kv_full(caches, S - 1)
-    token = torch.empty((B, 1), dtype=torch.int32, device=dev)
+    frames = max(128, min(8192, S // 4))
+    extra = {} if not cfg.is_encdec else {"memory": torch.empty(
+        (rows, frames, cfg.d_model), dtype=torch.bfloat16, device=dev)}
     if mesh is None:
-        return caches, token
-    # the rules read a cache leaf's own name (k, v, conv_x, ssm, cross_k,
-    # ...): the port's per-layer lists put an index after it, so each
-    # tensor is handed over as {i: {name: tensor}}
-    leaves = flatten_with_path(caches)
-    probe = {}
-    for i, (path, t) in enumerate(leaves):
-        if isinstance(t, torch.Tensor):
-            names = [n for n in shd._path_names(path) if not n.startswith("[")]
-            probe[str(i)] = {names[-1]: t}
-    sh = shd.decode_shardings(mesh, {"state": probe, "token": token}, B,
-                              policy, cache_shard)
-
-    def one(t, s):
-        return shd.from_local(torch.empty(_local_shape(t.shape, s),
-                                          dtype=t.dtype, device=dev),
-                              s, tuple(t.shape))
-
-    flat = [one(t, next(iter(sh["state"][str(i)].values())))
-            if isinstance(t, torch.Tensor) else t
-            for i, (_, t) in enumerate(leaves)]
-    state = _unflatten(caches, iter(flat))
-    token = rows_of(one(token, sh["token"]))
-    return state, token
+        step = torch.no_grad()(model.decode_step)
+        caches = model.init_decode(params, B, S, **extra)
+    else:
+        step = ptrain.make_mesh_decode_step(model, mesh, axes, policy,
+                                            cache_shard)
+        with torch.no_grad():
+            caches = step.model.init_decode(params, rows, S, **extra)
+    del extra
+    token = torch.empty((rows, 1), dtype=torch.int32, device=dev)
+    return step, at_length(caches, S - 1), token
 
 
 # ---------------------------------------------------------------------------
 # one cell
 # ---------------------------------------------------------------------------
+def seq_shards(shape, cache_shard: str, tp: int, chips: int) -> int:
+    """Into how many shards a decode cell's KV caches split their
+    positions (``decode_shardings``): over ``model`` (``tp`` ranks), or
+    every rank where the batch is 1; none under ``"heads"`` or where the
+    guard keeps them whole."""
+    if shape.kind != "decode" or cache_shard != "seq":
+        return 1
+    n = chips if shape.global_batch == 1 else tp
+    return n if shape.seq_len % n == 0 else 1
+
+
 def model_flops(cfg, arch_cfg, shape, nparams: int) -> int:
     """6·N·tokens to train, 2·N·tokens to prefill, 2·N·batch a decode
     step; an MoE's scaled by its active share (repro/launch/dryrun.py:
@@ -596,7 +565,7 @@ def lower_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
     flops_dev = float(flops.get_total_flops())
     nparams = param_count(cfg)
     # the model of one device's traffic: its rows; on a mesh rank 0's
-    # compute slices (train, prefill) or the whole parameters (decode)
+    # compute slices and shards
     tp_size = (1 if mesh_shape == "none" or policy == "dp_only"
                or "model" not in names else axes[names.index("model")])
     layout = None if mesh_shape == "none" else costs.Mesh(
@@ -604,11 +573,11 @@ def lower_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
                                   if tp_size == 1 or a != "model"),
         seqpar=bool(cfg.sequence_parallel and not cfg.is_encdec
                     and shape.seq_len % tp_size == 0),
-        shards=chips)
+        shards=chips, seq_shards=seq_shards(shape, cache_shard, tp_size,
+                                            chips))
     traffic = costs.traffic_bytes(
         cfg, dataclasses.replace(shape, global_batch=rows), nparams,
-        padded_vocab(cfg), moments=moments, shards=chips,
-        mesh_axes=len(axes), mesh=layout)
+        padded_vocab(cfg), moments=moments, mesh=layout)
     terms = perfmodel.roofline_terms(flops_dev * chips,
                                      counter.hbm_bytes * chips,
                                      coll["seconds"], chips)
@@ -694,8 +663,6 @@ def main(argv=None) -> int:
                         "remat_policy": args.remat_policy,
                         "seqpar": args.seqpar,
                         "step": ("one device" if mesh_shape == "none"
-                                 else "gather-whole"
-                                 if SHAPES[shape_name].kind == "decode"
                                  else "tensor-parallel")}
                 try:
                     rec = lower_cell(

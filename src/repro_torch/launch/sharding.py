@@ -31,7 +31,7 @@ so the rank padding gives it the same placements.
 
 The runtime half, for ``launch/train.py``'s mesh path: :func:`distribute`
 (a full tensor -> its DTensor), :func:`gather` (a DTensor -> the full
-tensor: checkpoints, the dry run's decode cells) and :func:`reduce_to` (a
+tensor: checkpoints) and :func:`reduce_to` (a
 full gradient summed over mesh axes, back to its storage placements: the
 gather-whole path that :func:`gather_layer`'s backward is tested
 against).
@@ -73,6 +73,13 @@ the data-parallel axes (and ``model``, where a compute slice needs it) and
 whose backward reduce-scatters the layer's gradient straight back to the
 storage placements.  The layers call it inside their remat region, so the
 backward gathers again rather than keeping the layer.
+
+*Decode caches.*  :func:`cache_sharding` places one decode-cache leaf
+as ``decode_shardings`` does (``launch/train.py:MeshModel.init_decode``
+allocates each rank's shards only), and :func:`kv_shard` reads a KV
+cache's geometry on this rank off its placement: the positions it holds,
+the groups of the mesh axes that split them (the reductions of split-K
+attention), the KV heads it holds under ``cache_shard="heads"``.
 """
 
 from __future__ import annotations
@@ -312,6 +319,16 @@ def batch_shardings(mesh: DeviceMesh, batch_specs: Dict[str, Any],
     return out
 
 
+def decode_cache_spec(names: List[str], batch_is_one: bool,
+                      cache_shard: str = "seq") -> Tuple[Optional[str], ...]:
+    """A decode-cache leaf's logical spec: :func:`cache_logical_spec`, or
+    under ``cache_shard="heads"`` the KV caches' heads over ``model``."""
+    if cache_shard == "heads" and names and names[-1] in (
+            "k", "v", "cross_k", "cross_v"):
+        return (None if batch_is_one else "dp", "tp", None, None)
+    return cache_logical_spec(names, batch_is_one)
+
+
 def decode_shardings(mesh: DeviceMesh, decode_specs: Dict[str, Any],
                      batch: int, policy: str = "2d",
                      cache_shard: str = "seq") -> Dict:
@@ -325,16 +342,39 @@ def decode_shardings(mesh: DeviceMesh, decode_specs: Dict[str, Any],
     b1 = batch == 1
 
     def spec_fn(names):
-        s = cache_logical_spec(names, b1)
-        if cache_shard == "heads" and names and names[-1] in (
-                "k", "v", "cross_k", "cross_v"):
-            return (None if b1 else "dp", "tp", None, None)
-        return s
+        return decode_cache_spec(names, b1, cache_shard)
 
     state_sh = tree_shardings(mesh, decode_specs["state"], spec_fn, policy)
     token_sh = to_named_sharding(mesh, ("dp", None),
                                  tuple(decode_specs["token"].shape), policy)
     return {"state": state_sh, "token": token_sh}
+
+
+def cache_sharding(mesh: DeviceMesh, name: str, shape: Sequence[int],
+                   batch: int, policy: str = "2d",
+                   cache_shard: str = "seq") -> Sharding:
+    """One decode-cache leaf's :class:`Sharding` in ``decode_shardings``'
+    placements, by its own name (``k``, ``v``, ``cross_k``, ``cross_v``,
+    ``conv_x``, ``conv_bc``, ``ssm``, ``length``) and global ``shape``;
+    ``batch`` is the global batch."""
+    return to_named_sharding(
+        mesh, decode_cache_spec([name], batch == 1, cache_shard),
+        tuple(shape), policy)
+
+
+def kv_shard(sh: Sharding, shape: Sequence[int]) -> common.CacheShard:
+    """A KV cache leaf's geometry on this rank (``common.CacheShard``), from
+    its :class:`Sharding` and global shape [B, Hkv, S, D]: the first
+    position it holds, the groups of the mesh axes that split the
+    positions (the reductions of split-K attention; one a mesh axis of
+    more than one rank, none where the guard left them whole) and the KV
+    heads it holds where they are split over ``model``."""
+    cut = shard_slices(sh, shape)
+    heads = None if sh.spec[1] is None else (cut[1].start, cut[1].stop)
+    groups = tuple(sh.mesh.get_group(a) for a in _axes(sh.spec[2])
+                   if axis_size(sh.mesh, a) > 1)
+    return common.CacheShard(start=cut[2].start, total=shape[2],
+                             groups=groups, heads=heads)
 
 
 def explain(shardings, tree, max_rows: int = 0) -> List[str]:

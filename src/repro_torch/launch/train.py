@@ -41,6 +41,12 @@ whose ``model`` axis is 1 runs the same code, over a group of one.  The
 loss and the MoE aux loss are the global batch's (``train.train_step``);
 the global norm and the int8 moments' row scales are reduced over the
 mesh (``train.optimizer``).
+
+Decode on the mesh is :class:`MeshModel`'s ``init_decode`` and
+``decode_step`` (``make_mesh_decode_step``): bf16 weights in their
+storage placements, each layer gathered and run tensor-parallel, the
+caches the rank's shards of ``sharding.decode_shardings`` (split-K over
+the sequence, or KV heads over ``model``: ``cache_shard``).
 """
 
 from __future__ import annotations
@@ -54,7 +60,7 @@ from typing import Optional
 import numpy as np
 import torch
 import torch.distributed as dist
-from torch.distributed.tensor import Shard
+from torch.distributed.tensor import DTensor, Shard
 
 from repro_torch import convert
 from repro_torch.configs.base import ModelConfig, get_config
@@ -65,7 +71,10 @@ from repro_torch.data import (PrefetchLoader, TokenDataset, TokenDatasetSpec,
 from repro_torch.kernels.backend import resolve_device
 from repro_torch.launch import sharding as shd
 from repro_torch.launch.mesh import make_local_mesh, shutdown
-from repro_torch.models import build
+from repro_torch.models import build, encdec
+from repro_torch.models.attention import KVCache
+from repro_torch.models.encdec import DecCache
+from repro_torch.models.model_zoo import _padded_cfg
 from repro_torch.train import CheckpointManager, OptimizerConfig, make_train_step
 from repro_torch.train import optimizer as opt_mod
 from repro_torch.train.train_step import make_grads_fn
@@ -258,13 +267,40 @@ class MeshModel:
     "2d"; "dp_only" folds the model axis into the data-parallel ones):
     its context (``tp``), and :meth:`layers`, the tree the model takes from
     a rank's local shards, each layer's ``Shards`` with its plan (made on
-    first use from the DTensors' placements, ``sharding.layer_plans``)."""
+    first use from the DTensors' placements, ``sharding.layer_plans``).
 
-    def __init__(self, model, mesh, axes: tuple = (), policy: str = "2d"):
+    Serving on the mesh has ``Model``'s decode signatures, so
+    ``train.serve_step.greedy_generate`` runs on a ``MeshModel`` as it is:
+    :meth:`init_decode` hands the decode state over as DTensors in their
+    ``sharding.decode_shardings`` placements, and :meth:`decode_step` runs
+    the model tensor-parallel on the rank's shards of them, writing the
+    new position into the shard that holds it (in the DTensors' local
+    tensors).  ``batch``, the prompt and the tokens are this rank's rows
+    (:func:`rank_rows` over ``axes``)."""
+
+    def __init__(self, model, mesh, axes: tuple = (), policy: str = "2d",
+                 cache_shard: str = "seq"):
         self.model, self.axes = model, tuple(axes)
+        self.mesh, self.policy = mesh, policy
+        self.cache_shard = cache_shard
         self.tp = shd.tensor_parallel(mesh, policy)
         self.tp_axis = None if policy == "dp_only" else "model"
         self.plans = None
+        names = mesh.mesh_dim_names
+        self.row_ranks = 1
+        for a in self.axes:
+            self.row_ranks *= mesh.size(names.index(a))
+
+    @property
+    def cfg(self) -> ModelConfig:
+        return self.model.cfg
+
+    @property
+    def device(self) -> torch.device:
+        """The device of the rank's shards."""
+        if self.mesh.device_type == "cuda":
+            return torch.device("cuda", torch.cuda.current_device())
+        return torch.device(self.mesh.device_type)
 
     def plan(self, params) -> None:
         """Plan the gathers of ``params`` (DTensors), once."""
@@ -285,6 +321,100 @@ class MeshModel:
         columns of the logits, aux)."""
         return self.model.forward(self.layers(self.local(params)),
                                   tp=self.tp, **inputs)
+
+    def encode(self, params, frontend: torch.Tensor) -> torch.Tensor:
+        """An enc-dec model's encoder memory of the rank's rows of
+        ``frontend``, tensor-parallel (whole on every rank of the model
+        axis)."""
+        return encdec.encode(self.layers(self.local(params)),
+                             _padded_cfg(self.model.cfg), frontend, self.tp)
+
+    def init_decode(self, params, batch: int, max_len: int, memory=None,
+                    cache_shard: Optional[str] = None):
+        """The empty decode state of the rank's ``batch`` rows (an enc-dec
+        model's cross K/V projected from ``memory``, its rows' encoder
+        output) as DTensors placed by ``decode_shardings`` for the global
+        batch (``cache_shard`` "seq": KV caches split by sequence; "heads":
+        by KV head over ``model`` where they divide it; default the
+        model's own): each rank allocates its shards only."""
+        cache_shard = cache_shard or self.cache_shard
+        rows = batch * self.row_ranks
+        dev = self.device
+
+        def place(name, shape, dtype, value):
+            whole = (rows,) + tuple(shape[1:]) if shape else ()
+            sh = shd.cache_sharding(self.mesh, name, whole, rows, self.policy,
+                                    cache_shard)
+            cut = shd.shard_slices(sh, whole)
+            if value is None:
+                local = torch.zeros(tuple(c.stop - c.start for c in cut),
+                                    dtype=dtype, device=dev)
+            else:
+                if cut[0].stop - cut[0].start != value.shape[0]:
+                    raise ValueError(f"{name}: {value.shape[0]} rows, the "
+                                     f"cache's shard has {cut[0]}")
+                local = value[(slice(None),) + cut[1:]].contiguous()
+            return shd.from_local(local, sh, whole)
+
+        extra = {} if memory is None else {"memory": memory}
+        tree = (self.layers(self.local(params)) if self.model.cfg.is_encdec
+                else params)
+        return self.model.init_decode(tree, batch, max_len, tp=self.tp,
+                                      place=place, **extra)
+
+    def decode_step(self, params, state, token: torch.Tensor):
+        """One decode step of the rank's rows: ``state`` as
+        :meth:`init_decode` made it (DTensors), ``token`` [rows, 1] ->
+        (the new state, logits [rows, 1, V] gathered whole)."""
+        local = _map_cache(lambda t: t.to_local() if isinstance(t, DTensor)
+                           else t, state)
+        new, logits = self.model.decode_step(
+            self.layers(self.local(params)), local, token, tp=self.tp,
+            shards=_cache_shards(state))
+        return _rewrap(new, state), logits
+
+
+def _map_cache(fn, tree):
+    """``fn`` over the leaves of a decode state (lists and NamedTuples)."""
+    if isinstance(tree, list):
+        return [_map_cache(fn, v) for v in tree]
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_map_cache(fn, v) for v in tree))
+    return fn(tree)
+
+
+def _rewrap(new, old):
+    """A decode step's new local state as DTensors: an old DTensor where
+    the step wrote its local tensor in place, a new one in its placements
+    where it made a new tensor; host ints (a KV cache's length) as
+    returned."""
+    if isinstance(old, list):
+        return [_rewrap(n, o) for n, o in zip(new, old)]
+    if isinstance(old, tuple) and hasattr(old, "_fields"):
+        return type(old)(*(_rewrap(n, o) for n, o in zip(new, old)))
+    if not isinstance(old, DTensor):
+        return new
+    if (new.untyped_storage()._cdata
+            == old.to_local().untyped_storage()._cdata):
+        return old
+    return shd.from_local(new, shd.sharding_of(old), tuple(old.shape))
+
+
+def _cache_shards(state) -> dict:
+    """The geometry of a decode state's KV caches on this rank
+    (``sharding.kv_shard``): ``"k"`` for the self-attention caches (every
+    layer's alike), ``"cross_k"`` for an enc-dec model's cross K/V."""
+    out = {}
+    if isinstance(state, DecCache):
+        first, cross = state.self_kv[0], state.cross_k[0]
+        out["cross_k"] = shd.kv_shard(shd.sharding_of(cross),
+                                      tuple(cross.shape))
+    else:
+        first = next((c for c in state if isinstance(c, KVCache)), None)
+    if first is not None and isinstance(first.k, DTensor):
+        out["k"] = shd.kv_shard(shd.sharding_of(first.k),
+                                tuple(first.k.shape))
+    return out
 
 
 def make_mesh_train_step(model, opt_cfg: OptimizerConfig, mesh,
@@ -331,6 +461,26 @@ def make_mesh_train_step(model, opt_cfg: OptimizerConfig, mesh,
 
     train_step.grads = grads
     return train_step
+
+
+def make_mesh_decode_step(model, mesh, axes: tuple, policy: str = "2d",
+                          cache_shard: str = "seq"):
+    """decode_step(params, state, token) -> (state, logits) on a mesh, under
+    ``no_grad``: ``params`` DTensors in their storage placements (bf16 to
+    serve), ``state`` from ``decode_step.model.init_decode`` (the
+    :class:`MeshModel`), ``token`` this rank's rows (:func:`rank_rows` over
+    ``axes``).  Each layer gathers its shards over the data-parallel axes
+    and runs tensor-parallel over ``model``; attention is split-K over
+    caches sharded by sequence, or local to the rank's KV heads
+    (``cache_shard="heads"``)."""
+    mm = MeshModel(model, mesh, axes, policy, cache_shard)
+
+    @torch.no_grad()
+    def decode_step(params, state, token):
+        return mm.decode_step(params, state, token)
+
+    decode_step.model = mm
+    return decode_step
 
 
 class Trainer:

@@ -19,6 +19,14 @@ shards for compute (``launch/sharding.py``).  Every rank of the model axis
 computes the same loss: a value the ranks hold alike has the same
 gradient on each, and a rank-local one its own.  Without a context
 (``tp=None``, one device) every helper returns its input.
+
+Decode on a mesh adds a :class:`CacheShard` (where a rank's share of a
+KV cache lies), the reductions over the cache's sequence axes
+(:func:`seq_max`, :func:`seq_sum`), the gathers of a projection's heads
+and of the vocab-parallel logits over the model axis
+(:func:`gather_ranges`: uneven or shared parts, each index once) and the
+cut back to a rank's heads (:func:`own_heads`); they run under
+``no_grad`` and carry no gradient.
 """
 
 from __future__ import annotations
@@ -497,3 +505,116 @@ def split_seq(tp: Optional[TensorParallel], x: torch.Tensor,
     if _no_op(tp) or not tp.sequence_parallel:
         return x
     return _SplitSeq.apply(x, tp, dim)
+
+
+# ---------------------------------------------------------------------------
+# decode on a mesh: caches sharded by sequence or by KV head
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class CacheShard:
+    """Where a rank's share of a layer's KV cache lies
+    (``launch/sharding.py:kv_shard`` reads it off the cache's placement):
+    the first position it holds (``start``) of the whole cache's
+    ``total``; the process groups its positions are split over, one a
+    mesh axis of more than one rank (``groups``: the reductions of
+    split-K attention; none where the rank holds every position); and
+    under ``cache_shard="heads"`` the KV heads [c0, c1) it holds
+    (``heads``; None: every KV head).  One device holds the whole cache:
+    ``CacheShard(total=S)``."""
+
+    start: int = 0
+    total: int = 0
+    groups: Tuple[Any, ...] = ()
+    heads: Optional[Tuple[int, int]] = None
+
+
+def seq_max(shard: CacheShard, t: torch.Tensor) -> torch.Tensor:
+    """``t`` (a shard's partial) as its maximum over the ranks that split
+    the cache's positions (no gradient)."""
+    for group in shard.groups:
+        t = all_reduce(t, group, dist.ReduceOp.MAX)
+    return t
+
+
+def seq_sum(shard: CacheShard, t: torch.Tensor) -> torch.Tensor:
+    """``t`` (a shard's partial) summed over the ranks that split the
+    cache's positions (no gradient)."""
+    for group in shard.groups:
+        t = all_reduce(t, group)
+    return t
+
+
+def rank_heads(cfg, tp: Optional[TensorParallel]) -> Tuple[int, int, int,
+                                                           int]:
+    """This rank's query heads [q0, q1) and the KV heads [k0, k1) they read
+    (:func:`head_ranges`; every head on one device)."""
+    if tp is None:
+        return 0, cfg.num_heads, 0, cfg.num_kv_heads
+    return head_ranges(cfg.num_heads, cfg.num_kv_heads, tp.size, tp.rank)
+
+
+def gather_ranges(tp: Optional[TensorParallel], x: torch.Tensor, dim: int,
+                  ranges) -> torch.Tensor:
+    """Every rank's ``x``, its part [a, b) of a dimension (``ranges``: each
+    rank's of the model axis, in rank order, neither bound decreasing from
+    one rank to the next, together covering [0, n): uneven, shared or
+    empty parts), gathered whole along ``dim``, each index taken from the
+    first rank that holds it: one all-gather of the parts padded to the
+    widest, then slices (no index tensor: nothing is copied from the
+    host).  No gradient."""
+    if _no_op(tp):
+        return x
+    width = max(b - a for a, b in ranges)
+    if x.shape[dim] < width:
+        pad = list(x.shape)
+        pad[dim] = width - x.shape[dim]
+        x = torch.cat([x, x.new_zeros(pad)], dim=dim)
+    whole = all_gather_dim(x, dim, tp.group, tp.size)
+    runs, done = [], 0  # [offset into the gather, length]; indices taken
+    for r, (a, b) in enumerate(ranges):
+        if b <= done:
+            continue
+        if a > done:
+            raise ValueError(f"ranges {ranges} leave [{done}, {a}) out")
+        at = r * width + done - a
+        if runs and runs[-1][0] + runs[-1][1] == at:
+            runs[-1][1] += b - done
+        else:
+            runs.append([at, b - done])
+        done = b
+    parts = [whole.narrow(dim, at, n) for at, n in runs]
+    return parts[0].contiguous() if len(parts) == 1 else torch.cat(parts,
+                                                                   dim)
+
+
+def gather_heads(tp: Optional[TensorParallel], cfg, x: torch.Tensor,
+                 kv: bool = False) -> torch.Tensor:
+    """A projection of this rank's heads, [B, heads, S, D], gathered over
+    the model axis into every head (``kv``: the KV heads, each taken once
+    where several ranks compute it)."""
+    if _no_op(tp):
+        return x
+    lo = 2 if kv else 0
+    ranges = [head_ranges(cfg.num_heads, cfg.num_kv_heads, tp.size,
+                          r)[lo:lo + 2] for r in range(tp.size)]
+    return gather_ranges(tp, x, 1, ranges)
+
+
+def own_heads(tp: Optional[TensorParallel], cfg,
+              x: torch.Tensor) -> torch.Tensor:
+    """Every query head's [B, Hq, ...] cut back to this rank's heads."""
+    if _no_op(tp):
+        return x
+    q0, q1, _, _ = rank_heads(cfg, tp)
+    return x[:, q0:q1]
+
+
+def gather_vocab(tp: Optional[TensorParallel], logits: torch.Tensor,
+                 vocab: int) -> torch.Tensor:
+    """The vocab-parallel logits (this rank's columns of the ``vocab``
+    entries, :func:`partition`'s share) gathered whole along their last
+    dimension (no gradient)."""
+    if _no_op(tp):
+        return logits
+    ranges = [partition(vocab, tp.size, r) for r in range(tp.size)]
+    return gather_ranges(tp, logits, logits.dim() - 1, ranges)

@@ -125,9 +125,11 @@ back to f32) and its SSD the f32 state update and product: 258 per
 d_inner, 308 per N, 48 per head.  The MoE's capacity is one slot an
 expert a row.  Beside them the caches: ``ref.decode_attention``
 casts the valid K and V to f32 (2+4 each) and its two products read them
-(4 each): 20 per cached position and KV width; the f32 scores are written
-(4), scaled (4+4), softmaxed (4+4), cast to bf16 and back (4+2, 2+4) and
-read (4): 36 per cached position and query head.  A mamba layer updates
+(4 each): 20 per cached position and KV width; its split-K pieces write
+the f32 scores (4), scale them (4+4), read them for the row max (4),
+subtract it (4+4), exponentiate (4+4), read them for the row sum (4),
+divide by it into bf16 (4+2), back to f32 (2+4) and read them (4): 52
+per cached position and query head.  A mamba layer updates
 its f32 state in place (·decay 4+4, the new term 4, the add 4+4+4, the
 read by the output product 4): 28 per element of [H, N, P].
 
@@ -185,17 +187,20 @@ the slice written in (4+4) and reduce-scattered: ``GATHER_SLICED`` per
 compute element and ``GATHER_PADDED`` per element of the leaf.  Then the
 optimizer on the rank's shard: ``OPTIMIZER`` / shards.
 
-*Decode on a mesh* keeps the gather-whole step: each rank gathers every
-leaf whole and computes with it as on one device, and runs nothing of
-the optimizer: per parameter ``PARAM`` + copies · ``GATHER_COPY``.
-Gathering a leaf along a mesh axis that shards a dimension other than
-its first concatenates the chunks (2+2 a bf16 element): the rule table
-shards a matrix's second dimension along the model axis only, one copy,
-and an MoE's expert stack [E, d, ff] along a dimension other than its
-first on every mesh axis, one copy an axis (2 on 16 × 16, 3 on
-2 × 16 × 16).  A matrix sharded along its first dimension alone needs
-none, so one copy a matrix is an upper bound.  The collectives are
-priced apart, on the wire.  The dry run multiplies by the devices for the
+*Decode on a mesh* is the same tensor-parallel step on one position a
+row (``launch/train.py:make_mesh_decode_step``): the rank's widths and
+compute slices, its layers gathered over the data-parallel axes (bf16
+parameters: each move, slice and gather copy half the f32 bytes above),
+the model axis's passes as prefill's (``TP_PASSES``, ``EMBED_TP``,
+``MOE_EP``), and the logits' gather over ``model`` (the rank's columns
+moved to the front and the whole row back, ``GATHER_MOVED`` in bf16).
+Its cache terms are the rank's part: split by sequence (into
+``Mesh.seq_shards``), its positions of every KV head, scored for every
+query head; else (by KV head, or positions the guard left whole) every
+position of its own KV heads, scored for its query heads.  The
+reductions of split-K attention are [rows, heads] and [rows, heads,
+head_dim] tensors, left out.  The collectives are priced apart, on the
+wire.  The dry run multiplies by the devices for the
 global figure.
 """
 
@@ -256,24 +261,21 @@ OPTIMIZER = {"int8": 308.0, "fp32": 184.0}
 #: decode: per cached position and KV width, per cached position and
 #: query head, per SSM state element
 CACHE_KV = 20.0
-CACHE_SCORES = 36.0
+CACHE_SCORES = 52.0
 STATE = 28.0
-#: decode on a mesh, per parameter each rank gathers whole: the gathered
-#: chunks concatenated along the dimension they shard (bf16 2+2)
-GATHER_COPY = {"train": 8.0, "prefill": 8.0, "decode": 4.0}
 #: tensor-parallel train and prefill: a sublayer's residual add and its
 #: gradient's sum, per d_model element of the stream
 RESIDUAL = {"train": 18.0, "prefill": 6.0, "decode": 6.0}
 #: a sublayer's model-axis copies without sequence parallelism, per
 #: d_model element: the output's all-reduce copy in each forward, the
 #: input's backward all-reduce copy
-TP_PASSES = {"train": 12.0, "prefill": 4.0}
+TP_PASSES = {"train": 12.0, "prefill": 4.0, "decode": 4.0}
 #: the embedding's vocab-parallel mask (and its backward), per d_model
 #: element of each token; its all-reduce's copy adds 4 where the model
 #: axis has more than one rank
-EMBED_TP = {"train": 8.0, "prefill": 4.0}
+EMBED_TP = {"train": 8.0, "prefill": 4.0, "decode": 4.0}
 #: the expert-parallel MoE's masks, per token and choice
-MOE_EP = {"train": 120.0, "prefill": 60.0}
+MOE_EP = {"train": 120.0, "prefill": 60.0, "decode": 60.0}
 #: a layer's gather over the data-parallel axes along a dimension other
 #: than the first: per f32 element each axis' gather copies (and the
 #: gradient's reduce-scatter), ``Mesh.moves``
@@ -290,12 +292,15 @@ class Mesh:
     """The tensor-parallel step's layout as the model prices it: ``tp``
     ranks on ``model``, the data-parallel axes' sizes (``dp_axes``,
     outermost first), the stream sharded over the sequence (``seqpar``);
-    ``shards`` ranks hold the state."""
+    ``shards`` ranks hold the state; a decode cell's KV caches split into
+    ``seq_shards`` along their positions (``sharding.decode_shardings``,
+    after its guard)."""
 
     tp: int = 1
     dp_axes: Tuple[int, ...] = (1,)
     seqpar: bool = False
     shards: int = 1
+    seq_shards: int = 1
 
     @property
     def dp(self) -> int:
@@ -424,25 +429,11 @@ def _moe(cfg: ModelConfig, shape: ShapeSpec,
     return out
 
 
-def param_bytes_per_step(nparams: int, kind: str, moments: str,
-                         shards: int = 1, copies: float = 1.0) -> float:
-    """Per device, one device's step or the gather-whole one (decode on a
-    mesh): ``shards`` ranks hold the state between them (1: one device
-    holds it all), each parameter gathered with ``copies`` concatenations
-    on average."""
+def param_bytes_per_step(nparams: int, kind: str, moments: str) -> float:
+    """Per device, one device's step: the compute's passes and, to train,
+    the optimizer's."""
     opt = OPTIMIZER[moments] if kind == "train" else 0.0
-    if shards <= 1:
-        return nparams * (PARAM[kind] + opt)
-    return nparams * (PARAM[kind] + copies * GATHER_COPY[kind]
-                      + opt / shards)
-
-
-def expert_params(cfg: ModelConfig) -> int:
-    """The parameters of the MoE layers' expert stacks."""
-    if not cfg.is_moe:
-        return 0
-    return (sublayers(cfg)["moe"] * cfg.num_experts * 3 * cfg.d_model
-            * cfg.moe_d_ff)
+    return nparams * (PARAM[kind] + opt)
 
 
 def _leaves(cfg: ModelConfig, vocab: int, mesh: Mesh):
@@ -485,8 +476,12 @@ def _leaves(cfg: ModelConfig, vocab: int, mesh: Mesh):
     if n["moe"]:
         E, ff = cfg.num_experts, cfg.moe_d_ff
         e_r = _share(E, mesh)
-        out += n["moe"] * ([(e_r * d * ff, E * d * ff, True, 0)] * 3
-                           + [(d * E, d * E, False, 0)])
+        # w_gate and w_up [e, d, ff] are gathered along d: with one expert
+        # a rank, d leads the storage already and nothing moves; w_down
+        # [e, ff, d] always moves
+        out += n["moe"] * ([(e_r * d * ff, E * d * ff, e_r > 1, 0)] * 2
+                           + [(e_r * d * ff, E * d * ff, True, 0),
+                              (d * E, d * E, False, 0)])
         if cfg.num_shared_experts:
             out += n["moe"] * ffn(ff * cfg.num_shared_experts)
     layers = [leaf + (2,) for leaf in out]
@@ -503,6 +498,8 @@ def sharded_param_bytes(cfg: ModelConfig, kind: str, nparams: int,
     the optimizer on the rank's shard."""
     opt = OPTIMIZER[moments] / mesh.shards if kind == "train" else 0.0
     train = kind == "train"
+    # the f32 masters' moves; a decode cell's bf16 parameters move half
+    half = 0.5 if kind == "decode" else 1.0
     out = nparams * opt
     rest = float(nparams)
     for compute, whole, moved, sliced, gathers in _leaves(cfg, vocab, mesh):
@@ -510,14 +507,15 @@ def sharded_param_bytes(cfg: ModelConfig, kind: str, nparams: int,
         uses = gathers + 1 if train else 1  # + the gradient's reduction
         out += compute * PARAM[kind]
         if moved:
-            out += uses * compute * GATHER_MOVED * mesh.moves()
+            out += uses * compute * GATHER_MOVED * half * mesh.moves()
         if sliced:
-            out += uses * compute * GATHER_SLICED
-            if sliced == 2:  # the gather over model moves its dimension
-                out += uses * whole / mesh.dp * GATHER_MOVED * (
+            out += uses * compute * GATHER_SLICED * half
+            if sliced == 2:  # the gather over model, after those over
+                # dp, moves its dimension: the whole leaf comes out
+                out += uses * whole * GATHER_MOVED * half * (
                     1.0 + 1.0 / mesh.tp)
-            if train:
-                out += whole / mesh.dp * GATHER_PADDED
+            if train:  # the gradient padded to the whole leaf
+                out += whole * GATHER_PADDED
     if cfg.tie_embeddings:  # the tied table's second use
         out += _share(vocab, mesh) * cfg.d_model * PARAM[kind]
     # norms, biases, mamba's small leaves: whole on every rank
@@ -587,56 +585,62 @@ def logits_bytes(cfg: ModelConfig, shape: ShapeSpec, vocab: int,
         if mesh.tp > 1:  # the all-reduce's copy, and in training the
             # unembedding input's backward all-reduce copy
             out += T * d * (8.0 if kind == "train" else 4.0)
+        if mesh.tp > 1 and kind == "decode":  # the logits gathered whole
+            out += T * (cols + vocab) * GATHER_MOVED / 2
     if kind == "train":
         out += (shape.global_batch * (shape.seq_len - 1) * cols
                 * CROSS_ENTROPY)
     return out
 
 
-def cache_bytes(cfg: ModelConfig, shape: ShapeSpec) -> float:
+def cache_bytes(cfg: ModelConfig, shape: ShapeSpec,
+                mesh: Optional[Mesh] = None) -> float:
     """Decode: the KV caches read (with the f32 scores), an enc-dec
     model's cross K and V read by the kernel, and the SSM states
-    updated."""
+    updated; ``mesh``: rank 0's part (split by sequence: its positions
+    of every KV head, scored for every query head; else every position of
+    its own KV heads, scored for its query heads)."""
     if shape.kind != "decode":
         return 0.0
     B, S = float(shape.global_batch), float(shape.seq_len)
-    _, hkv = _attn_dims(cfg)
+    hq, hkv = cfg.num_heads, cfg.num_kv_heads * cfg.head_dim
+    pos, frames = S, float(enc_len(cfg, shape))
+    if mesh is not None and mesh.seq_shards > 1:
+        pos, frames = pos / mesh.seq_shards, frames / mesh.seq_shards
+    elif mesh is not None:
+        q_width, hkv = _attn_dims(cfg, mesh)
+        hq = q_width // max(1, cfg.head_dim)
     n = sublayers(cfg)
-    out = n["attn"] * B * S * (hkv * CACHE_KV + cfg.num_heads * CACHE_SCORES)
+    out = n["attn"] * B * pos * (hkv * CACHE_KV + hq * CACHE_SCORES)
     if cfg.is_encdec:  # the kernel reads the cross K and V (2 + 2)
-        out += cfg.num_layers * B * enc_len(cfg, shape) * hkv * 4.0
+        out += cfg.num_layers * B * frames * hkv * 4.0
     if n["mamba"]:
-        out += n["mamba"] * B * cfg.ssm_d_inner * cfg.ssm_state * STATE
+        di = _share(cfg.ssm_heads, mesh) * cfg.ssm_head_dim
+        out += n["mamba"] * B * di * cfg.ssm_state * STATE
     return out
 
 
 def traffic_bytes(cfg: ModelConfig, shape: ShapeSpec, nparams: int,
                   vocab: int, moments: str = "int8",
-                  shards: int = 1, mesh_axes: int = 2,
                   mesh: Optional[Mesh] = None) -> Dict[str, float]:
     """HBM bytes per step of one device running ``shape``'s rows, by
-    component; ``shards`` ranks of a mesh of ``mesh_axes`` axes hold the
-    state (1: this device alone).  ``mesh``: a train or prefill cell's
-    tensor-parallel step (rank 0's); without it one device's step, or
-    the gather-whole step of a decode cell on a mesh."""
-    if mesh is not None and shape.kind != "decode":
+    component.  ``mesh``: the tensor-parallel step on a mesh (rank 0's);
+    without it one device's step."""
+    if mesh is not None:
         out = {
             "params": sharded_param_bytes(cfg, shape.kind, nparams, vocab,
                                           moments, mesh),
             "activations": activation_bytes(cfg, shape, mesh),
             "logits": logits_bytes(cfg, shape, vocab, mesh),
-            "cache": 0.0,
+            "cache": cache_bytes(cfg, shape, mesh),
         }
         out["total"] = sum(out.values())
         return out
     # a tied table is cast and read at both its uses, updated once
     tied = vocab * cfg.d_model * PARAM[shape.kind] if cfg.tie_embeddings \
         else 0.0
-    # one gather copy a matrix, one a mesh axis for an expert stack
-    copies = 1.0 + (mesh_axes - 1) * expert_params(cfg) / max(1, nparams)
     out = {
-        "params": param_bytes_per_step(nparams, shape.kind, moments,
-                                       shards, copies) + tied,
+        "params": param_bytes_per_step(nparams, shape.kind, moments) + tied,
         "activations": activation_bytes(cfg, shape),
         "logits": logits_bytes(cfg, shape, vocab),
         "cache": cache_bytes(cfg, shape),

@@ -163,39 +163,80 @@ class DecCache(NamedTuple):
     cross_v: List[torch.Tensor]
 
 
+def _cross_kv(block, cfg: ModelConfig, memory: torch.Tensor,
+              tp: Optional[common.TensorParallel] = None):
+    """A decoder layer's cross K and V of ``memory``, every KV head; on a
+    mesh the rank projects its heads' (the layer gathered here) and the
+    KV heads are gathered over the model axis."""
+    block = common.layer(tp, block)
+    k, v = encode_memory_kv(block["cross_attn"], cfg, memory, tp)
+    return (common.gather_heads(tp, cfg, k, kv=True),
+            common.gather_heads(tp, cfg, v, kv=True))
+
+
 def init_decode_state(params: dict, cfg: ModelConfig, memory: torch.Tensor,
                       batch: int, max_len: int,
-                      dtype: torch.dtype = torch.bfloat16) -> DecCache:
+                      dtype: torch.dtype = torch.bfloat16,
+                      tp: Optional[common.TensorParallel] = None,
+                      place=None) -> DecCache:
     """Project the memory into each layer's cross K/V once; allocate the
-    self-attention caches (``dtype``, bf16 by default, as in JAX)."""
-    cross = [encode_memory_kv(block["cross_attn"], cfg, memory)
-             for block in params["decoder"]]
+    self-attention caches (``dtype``, bf16 by default, as in JAX).
+
+    On a mesh (``tp``, ``memory`` the rank's rows) each rank projects its
+    heads' cross K/V over all frames, the KV heads are gathered over the
+    model axis, and ``place(name, shape, dtype, value)`` lays each one out
+    as the rank's shard (by sequence, or by KV head); the self caches are
+    allocated as the rank's shards."""
+    cross_k, cross_v = [], []
+    for block in params["decoder"]:
+        k, v = _cross_kv(block, cfg, memory, tp)
+        if place is not None:
+            k = place("cross_k", tuple(k.shape), k.dtype, k)
+            v = place("cross_v", tuple(v.shape), v.dtype, v)
+        cross_k.append(k)
+        cross_v.append(v)
     return DecCache(
-        self_kv=[init_cache(cfg, batch, max_len, memory.device, dtype)
+        self_kv=[init_cache(cfg, batch, max_len, memory.device, dtype, place)
                  for _ in params["decoder"]],
-        cross_k=[k for k, _ in cross], cross_v=[v for _, v in cross])
+        cross_k=cross_k, cross_v=cross_v)
+
+
+def _dec_layer_decode(block, cfg: ModelConfig, cache: KVCache, ck, cv,
+                      x: torch.Tensor, tp, shards: dict):
+    block = common.layer(tp, block)
+    a = common.apply_norm(block["norm_self"], x)
+    cache, y = attn_decode_step(block["self_attn"], cfg, cache, a,
+                                rope=False, tp=tp, shard=shards.get("k"))
+    x = x + y
+    c = common.apply_norm(block["norm_cross"], x)
+    x = x + cross_attn_forward(block["cross_attn"], cfg, c, (ck, cv), tp,
+                               shards.get("cross_k"))
+    f = common.apply_norm(block["norm_ffn"], x)
+    return cache, x + ffn_forward(block["ffn"], cfg, f, tp)
 
 
 def decode_step(params: dict, cfg: ModelConfig, state: DecCache,
-                token: torch.Tensor):
+                token: torch.Tensor,
+                tp: Optional[common.TensorParallel] = None,
+                shards: Optional[dict] = None):
     """token [B, 1] -> (state, logits [B, 1, V]).  The self-attention
-    caches are written in place (see ``attention.attn_decode_step``)."""
+    caches are written in place (see ``attention.attn_decode_step``).  On
+    a mesh each layer gathers its shards and runs tensor-parallel on the
+    rank's shards of the caches (``shards``: their geometry, ``"k"`` and
+    ``"cross_k"``), and the logits are gathered whole for its rows."""
     dtype = model_dtype(cfg)
-    x = params["embed"].to(dtype)[token.long()]
+    x = embed_tokens(params, dataclasses.replace(cfg, embed_scale=False),
+                     token, dtype, tp)
     # the incoming token's position: the caches' length, a host int
     pos = state.self_kv[0].length
     x = x + common.sinusoidal_at(pos, cfg.d_model, x.device).to(dtype)
     new_self = []
     for block, cache, ck, cv in zip(params["decoder"], state.self_kv,
                                     state.cross_k, state.cross_v):
-        a = common.apply_norm(block["norm_self"], x)
-        cache, y = attn_decode_step(block["self_attn"], cfg, cache, a,
-                                    rope=False)
-        x = x + y
-        c = common.apply_norm(block["norm_cross"], x)
-        x = x + cross_attn_forward(block["cross_attn"], cfg, c, (ck, cv))
-        f = common.apply_norm(block["norm_ffn"], x)
-        x = x + ffn_forward(block["ffn"], cfg, f)
+        cache, x = _dec_layer_decode(block, cfg, cache, ck, cv, x, tp,
+                                     shards or {})
         new_self.append(cache)
-    x = common.apply_norm(params["norm_out"], x)
-    return state._replace(self_kv=new_self), unembed(params, cfg, x)
+    x = common.apply_norm(common.layer(tp, params["norm_out"]), x)
+    logits = common.gather_vocab(tp, unembed(params, cfg, x, tp),
+                                 cfg.vocab_size)
+    return state._replace(self_kv=new_self), logits

@@ -152,18 +152,25 @@ def mamba_forward(params: dict, cfg: ModelConfig, xin: torch.Tensor,
 # ---------------------------------------------------------------------------
 # decode path
 # ---------------------------------------------------------------------------
-def init_mamba_cache(cfg: ModelConfig, batch: int, device) -> MambaCache:
+def init_mamba_cache(cfg: ModelConfig, batch: int, device,
+                     place=None) -> MambaCache:
     """Zero state, all f32: the JAX package's default, which its block
-    caches keep (they pass no dtype for this family)."""
+    caches keep (they pass no dtype for this family).  ``place(name,
+    shape, dtype, value)`` (on a mesh) allocates each tensor as the
+    rank's shard of it."""
     di, n, h, p = _dims(cfg)
     w = cfg.ssm_conv_width
-    f32 = dict(dtype=torch.float32, device=device)
-    return MambaCache(
-        conv_x=torch.zeros((batch, w - 1, di), **f32),
-        conv_bc=torch.zeros((batch, w - 1, 2 * n), **f32),
-        ssm=torch.zeros((batch, h, n, p), **f32),
-        length=torch.zeros((), dtype=torch.int32, device=device),
-    )
+    shapes = {"conv_x": (batch, w - 1, di), "conv_bc": (batch, w - 1, 2 * n),
+              "ssm": (batch, h, n, p)}
+    f32 = torch.float32
+    if place is None:
+        made = {k: torch.zeros(v, dtype=f32, device=device)
+                for k, v in shapes.items()}
+        length = torch.zeros((), dtype=torch.int32, device=device)
+    else:
+        made = {k: place(k, v, f32, None) for k, v in shapes.items()}
+        length = place("length", (), torch.int32, None)
+    return MambaCache(length=length, **made)
 
 
 def _conv_step(tail: torch.Tensor, cur: torch.Tensor, conv_w: torch.Tensor,
@@ -176,42 +183,82 @@ def _conv_step(tail: torch.Tensor, cur: torch.Tensor, conv_w: torch.Tensor,
     return window[:, 1:], F.silu(out.to(cur.dtype) + conv_b.to(cur.dtype))
 
 
+def _compute_slice(tp: Optional[common.TensorParallel], t: torch.Tensor,
+                   dim: int, whole: int, unit: int):
+    """A cache leaf's part that this rank computes with, its heads' (each
+    ``unit`` wide along ``dim``, ``whole`` wide in all) -> (that part, a
+    function taking a new part to the leaf's local tensor).  The leaf's
+    local tensor is the part itself (its shard over the model axis, the
+    case wherever the heads divide the axis), or the whole leaf (the
+    guard replicated it), or an even shard of other channels; then the
+    part is cut from the whole and the new parts gathered whole again."""
+    if tp is None:
+        return t, lambda new: new
+    ranges = [tuple(unit * i for i in common.partition(whole // unit,
+                                                       tp.size, r))
+              for r in range(tp.size)]
+    lo, hi = ranges[tp.rank]
+    width = t.shape[dim]
+    start = 0 if width == whole else tp.rank * width
+    if (start, start + width) == (lo, hi):
+        return t, lambda new: new
+    full = t if width == whole else common.all_gather_dim(
+        t, dim, tp.group, tp.size)
+    return full.narrow(dim, lo, hi - lo), lambda new: common.gather_ranges(
+        tp, new, dim, ranges).narrow(dim, start, width)
+
+
 def mamba_decode_step(params: dict, cfg: ModelConfig, cache: MambaCache,
-                      xin: torch.Tensor):
+                      xin: torch.Tensor,
+                      tp: Optional[common.TensorParallel] = None):
     """One-token step: xin [B, 1, d_model] -> (cache, y [B, 1, d_model]).
 
     The SSM state and the length are updated in place (the returned cache
-    shares them with ``cache``); the conv tails are new tensors."""
+    shares them with ``cache``); the conv tails are new tensors.
+
+    On a mesh (``tp``) the rank runs its heads as ``mamba_forward`` does:
+    its x channels' conv tail and its heads' SSM state (the shards
+    ``decode_shardings`` gives it: ``conv_x`` by channel and ``ssm`` by
+    head over the model axis), the B|C path and its conv tail whole, the
+    gated norm reduced over the model axis, ``out_proj`` row-parallel and
+    summed."""
+    xin = common.tp_in(tp, xin)
     B = xin.shape[0]
-    di, n, h, p = _dims(cfg)
+    _, n, H, p = _dims(cfg)
+    h, di = params["a_log"].shape[0], params["w_xz"].shape[-1] // 2
     x1 = xin[:, 0]
     xz = x1 @ params["w_xz"].to(xin.dtype)
     x, z = xz.chunk(2, dim=-1)
     bc = x1 @ params["w_bc"].to(xin.dtype)
     dt_raw = x1 @ params["w_dt"].to(xin.dtype)
 
-    new_conv_x, x = _conv_step(cache.conv_x, x, params["conv_x_w"],
+    tail_x, conv_x_back = _compute_slice(tp, cache.conv_x, 2, H * p, p)
+    new_conv_x, x = _conv_step(tail_x, x, params["conv_x_w"],
                                params["conv_x_b"])
     new_conv_bc, bc = _conv_step(cache.conv_bc, bc, params["conv_bc_w"],
                                  params["conv_bc_b"])
     b, c = bc.chunk(2, dim=-1)
 
-    dt = _softplus(dt_raw.float() + params["dt_bias"])  # [B, H]
-    a = -torch.exp(params["a_log"])  # [H]
-    decay = torch.exp(a[None] * dt)  # [B, H]
+    dt = _softplus(dt_raw.float() + params["dt_bias"])  # [B, h]
+    a = -torch.exp(params["a_log"])  # [h]
+    decay = torch.exp(a[None] * dt)  # [B, h]
     xh = x.reshape(B, h, p).float()
     bh = b.float()[:, None, :].expand(B, h, n)
     ch = c.float()[:, None, :].expand(B, h, n)
 
-    ssm = cache.ssm
+    ssm, ssm_back = _compute_slice(tp, cache.ssm, 1, H, 1)
     ssm.mul_(decay[..., None, None]).add_(
         dt[..., None, None] * bh[..., :, None] * xh[..., None, :])
-    y = torch.einsum("bhn,bhnp->bhp", ch, ssm)  # [B, H, P]
+    if ssm is not cache.ssm:
+        cache.ssm.copy_(ssm_back(ssm))
+    y = torch.einsum("bhn,bhnp->bhp", ch, ssm)  # [B, h, P]
     y = y + params["d_skip"][None, :, None] * xh
     y = y.reshape(B, di).to(xin.dtype)
-    y = common.apply_norm(params["norm"], y * F.silu(z))
-    y = (y @ params["out_proj"].to(xin.dtype))[:, None, :]
+    y = common.apply_norm(params["norm"], y * F.silu(z), tp=tp,
+                          channels=cfg.ssm_d_inner)
+    y = common.tp_out(tp, (y @ params["out_proj"].to(xin.dtype))[:, None, :])
     cache.length.add_(1)
-    return MambaCache(conv_x=new_conv_x.to(cache.conv_x.dtype),
-                      conv_bc=new_conv_bc.to(cache.conv_bc.dtype),
-                      ssm=ssm, length=cache.length), y
+    return MambaCache(
+        conv_x=conv_x_back(new_conv_x.to(cache.conv_x.dtype)),
+        conv_bc=new_conv_bc.to(cache.conv_bc.dtype),
+        ssm=cache.ssm, length=cache.length), y

@@ -8,7 +8,9 @@ family (jamba-v0.1-52b), the VLM family (internvl2-1b: ``forward`` takes
 ``frontend`` embeddings, put before the tokens) and the enc-dec family
 (seamless-m4t-large-v2: ``forward`` takes ``tokens`` and ``frontend``
 frames, ``init_decode`` the encoder's ``memory``).  A model runs on the
-card unless it is built with ``device="cpu"``.  :func:`input_specs`
+card unless it is built with ``device="cpu"``; on a mesh its
+``forward``, ``init_decode`` and ``decode_step`` take the layers' shards
+and the mesh's context (``launch/train.py:MeshModel``).  :func:`input_specs`
 gives a train or prefill cell's inputs, as the JAX package's, for
 ``launch/dryrun.py``.
 """
@@ -49,9 +51,14 @@ class Model:
     # (params, *, tokens, frontend=None, ssd_impl="auto", tp=None) ->
     # (logits, aux); on a mesh (tp) params hold each layer's shards
     forward: Callable
-    # (params, batch, max_len[, memory=]) -> caches (enc-dec: a DecCache)
+    # (params, batch, max_len[, memory=], tp=None, place=None) -> caches
+    # (enc-dec: a DecCache); on a mesh (``launch/train.py:MeshModel``)
+    # ``place`` allocates each cache tensor as the rank's shard of it
     init_decode: Callable
-    decode_step: Callable  # (params, caches, token) -> (caches, logits)
+    # (params, caches, token, tp=None, shards=None) -> (caches, logits); on
+    # a mesh params hold each layer's shards and ``shards`` the caches'
+    # geometry ({"k" or "cross_k": common.CacheShard})
+    decode_step: Callable
 
 
 def build(cfg: ModelConfig, device: DeviceLike = None) -> Model:
@@ -68,26 +75,34 @@ def build(cfg: ModelConfig, device: DeviceLike = None) -> Model:
         def forward(params, *, tokens, frontend, tp=None, **_):
             return encdec.forward(params, pcfg, tokens, frontend, tp)
 
-        def init_decode(params, batch, max_len, memory=None):
+        def init_decode(params, batch, max_len, memory=None, tp=None,
+                        place=None):
             if memory is None:
                 raise ValueError("enc-dec decode needs encoder memory")
             return encdec.init_decode_state(params, pcfg, memory, batch,
-                                            max_len)
+                                            max_len, tp=tp, place=place)
+
+        def decode_step(p, s, t, tp=None, shards=None):
+            return encdec.decode_step(p, pcfg, s, t, tp, shards)
 
         return Model(
             cfg=cfg, device=device, init=init, forward=forward,
-            init_decode=init_decode,
-            decode_step=lambda p, s, t: encdec.decode_step(p, pcfg, s, t))
+            init_decode=init_decode, decode_step=decode_step)
 
     def forward(params, *, tokens, frontend=None, ssd_impl="auto", tp=None,
                 **_):
         return transformer.forward(params, pcfg, tokens, ssd_impl,
                                    frontend=frontend, tp=tp)
 
-    def init_decode(params, batch, max_len):
-        # a mamba layer's state does not depend on max_len, as in JAX
-        return transformer.init_block_caches(pcfg, batch, max_len,
-                                             params["embed"].device)
+    def init_decode(params, batch, max_len, tp=None, place=None):
+        # a mamba layer's state does not depend on max_len, as in JAX; the
+        # caches hold no parameter, so ``tp`` changes nothing here
+        device = None if place is not None else params["embed"].device
+        return transformer.init_block_caches(pcfg, batch, max_len, device,
+                                             place=place)
+
+    def decode_step(p, s, t, tp=None, shards=None):
+        return transformer.decode_step(p, pcfg, s, t, tp, shards)
 
     return Model(
         cfg=cfg,
@@ -95,7 +110,7 @@ def build(cfg: ModelConfig, device: DeviceLike = None) -> Model:
         init=init,
         forward=forward,
         init_decode=init_decode,
-        decode_step=lambda p, s, t: transformer.decode_step(p, pcfg, s, t),
+        decode_step=decode_step,
     )
 
 

@@ -319,40 +319,58 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
 # decode path (serve_step)
 # ---------------------------------------------------------------------------
 def init_block_caches(cfg: ModelConfig, batch: int, max_len: int, device,
-                      dtype: torch.dtype = torch.bfloat16
+                      dtype: torch.dtype = torch.bfloat16, place=None
                       ) -> List[Union[KVCache, MambaCache]]:
     """One cache per layer: a KV cache for an attention layer, bf16 by
     default whatever ``cfg.dtype``; a Mamba state for a mamba layer (f32
     conv tails and state, ``max_len`` and ``dtype`` unused, as in the JAX
-    package)."""
-    return [init_cache(cfg, batch, max_len, device, dtype) if mixer == "attn"
-            else init_mamba_cache(cfg, batch, device)
+    package).  ``place`` (on a mesh) allocates each tensor as the rank's
+    shard of it (``attention.init_cache``)."""
+    return [init_cache(cfg, batch, max_len, device, dtype, place)
+            if mixer == "attn"
+            else init_mamba_cache(cfg, batch, device, place)
             for mixer, _ in layer_plan(cfg)]
 
 
 def apply_block_decode(block: dict, cfg: ModelConfig, cache,
-                       x: torch.Tensor):
-    """One-token decode through one layer -> (cache, x)."""
+                       x: torch.Tensor,
+                       tp: Optional[common.TensorParallel] = None,
+                       shards: Optional[dict] = None):
+    """One-token decode through one layer -> (cache, x).  On a mesh
+    ``block`` is the layer's shards, gathered here (and freed when this
+    returns), ``cache`` the rank's shards of the layer's cache and
+    ``shards`` their geometry (``{"k": common.CacheShard}``)."""
+    block = common.layer(tp, block)
     h = common.apply_norm(_mixer_norm(block), x)
     if "mamba" in block:
-        cache, y = mamba_decode_step(block["mamba"], cfg, cache, h)
+        cache, y = mamba_decode_step(block["mamba"], cfg, cache, h, tp)
     else:
-        cache, y = attn_decode_step(block["attn"], cfg, cache, h)
+        cache, y = attn_decode_step(block["attn"], cfg, cache, h, tp=tp,
+                                    shard=(shards or {}).get("k"))
     x = x + y
     if "norm_ffn" in block:
-        x = x + _feed_forward(block, cfg, x)[0]
+        x = x + _feed_forward(block, cfg, x, tp)[0]
     return cache, x
 
 
 def decode_step(params: dict, cfg: ModelConfig, caches: list,
-                token: torch.Tensor):
+                token: torch.Tensor,
+                tp: Optional[common.TensorParallel] = None,
+                shards: Optional[dict] = None):
     """token [B, 1] -> (new_caches, logits [B, 1, V]).  The caches' tensors
     are updated in place (the KV caches and the SSM states); the returned
-    list holds the KV caches' new lengths and the new conv tails."""
-    x = embed_tokens(params, cfg, token, model_dtype(cfg))
+    list holds the KV caches' new lengths and the new conv tails.
+
+    On a mesh (``tp``) each layer gathers its shards and runs
+    tensor-parallel (:func:`apply_block_decode`), the embedding and the
+    unembedding are vocab-parallel, and the logits are gathered whole for
+    the rank's rows (the JAX cell's ``out_shardings=(state, None)``)."""
+    x = embed_tokens(params, cfg, token, model_dtype(cfg), tp)
     new_caches = []
     for block, cache in zip(params["blocks"], caches):
-        cache, x = apply_block_decode(block, cfg, cache, x)
+        cache, x = apply_block_decode(block, cfg, cache, x, tp, shards)
         new_caches.append(cache)
-    x = common.apply_norm(params["norm_out"], x)
-    return new_caches, unembed(params, cfg, x)
+    x = common.apply_norm(common.layer(tp, params["norm_out"]), x)
+    logits = common.gather_vocab(tp, unembed(params, cfg, x, tp),
+                                 cfg.vocab_size)
+    return new_caches, logits

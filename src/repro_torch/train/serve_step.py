@@ -7,6 +7,9 @@ token by token through the decode path and then decodes greedily, exactly
 as the JAX package does (an MoE layer routes each step's one token per row
 at the config's own capacity factor; an enc-dec model encodes its frontend
 once and cross-attends to it in every step, through the flash kernel).
+``greedy_generate`` also runs on a ``launch/train.py:MeshModel`` (the
+same ``init_decode`` and ``decode_step``, and ``encode`` for enc-dec),
+the prompt being the rank's rows.
 """
 
 from __future__ import annotations
@@ -64,8 +67,10 @@ def greedy_generate(model: Model, params, prompt_tokens: torch.Tensor,
     if cfg.is_encdec:
         if frontend is None:
             raise ValueError("enc-dec generation needs frontend frames")
-        memory = encdec.encode(params, _padded_cfg(cfg),
-                               torch.as_tensor(frontend).to(dev))
+        frontend = torch.as_tensor(frontend).to(dev)
+        # a MeshModel encodes tensor-parallel on the rank's shards
+        memory = (model.encode(params, frontend) if hasattr(model, "encode")
+                  else encdec.encode(params, _padded_cfg(cfg), frontend))
         state = model.init_decode(params, B, max_len, memory=memory)
     else:
         state = model.init_decode(params, B, max_len)

@@ -105,7 +105,7 @@ def test_model_within_25_percent_on_a_sharded_state(arch, layers, moments):
     assert abs(model["total"] / counted - 1.0) <= HOLD, (model, counted)
 
 
-@pytest.mark.parametrize("shape", ["train_4k", "prefill_32k"])
+@pytest.mark.parametrize("shape", ["train_4k", "prefill_32k", "decode_32k"])
 @pytest.mark.parametrize("arch,layers,seq", [("llama3-8b", 2, 512),
                                              ("mamba2-2.7b", 2, 256),
                                              ("dbrx-132b", 1, 256)])
@@ -113,7 +113,8 @@ def test_model_within_25_percent_on_a_tensor_parallel_mesh(arch, layers,
                                                            seq, shape):
     """One node of eight ranks on ``model`` (1 x 8): each rank computes
     with its heads, channels, experts and vocabulary columns, gathers its
-    layers and runs the model axis's collectives (full width, 2 rows)."""
+    layers and runs the model axis's collectives (full width, 2 rows; a
+    decode cell's caches split by sequence over the eight ranks)."""
     rec = dryrun.lower_cell(arch, shape, mesh_shape=(1, 8), layers=layers,
                             batch=2, seq=seq)
     assert rec["status"] == "ok"

@@ -248,6 +248,35 @@ def test_flash_attention_kernel_refuses_what_it_does_not_take(card):
         ops.flash_attention(q, k, v)
 
 
+@pytest.mark.parametrize("shards", [8, 16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_lse_kernel_on_shards_of_a_decode_memory(card, shards, dtype):
+    """A decode step's cross-attention over 512 frames split into shards of
+    64 or 32 keys (under the kernel's key tile): the kernel with its
+    log-sum-exp on each shard (one launch each, the tail masked), merged
+    by ``ops.combine_lse``, against the plain version over the whole
+    memory; each shard's log-sum-exp against ``ref.attention_lse``."""
+    g = torch.Generator(device=card).manual_seed(shards)
+    q = torch.randn((4, 16, 1, 64), generator=g, device=card, dtype=dtype)
+    k = torch.randn((4, 16, 512, 64), generator=g, device=card, dtype=dtype)
+    v = torch.randn((4, 16, 512, 64), generator=g, device=card, dtype=dtype)
+    n = 512 // shards
+    before = kflash.launches.count
+    pieces = [ops.flash_attention_lse(q, k[:, :, i:i + n], v[:, :, i:i + n],
+                                      causal=False)
+              for i in range(0, 512, n)]
+    torch.cuda.synchronize()
+    assert kflash.launches.count == before + shards
+    for i, (_, lse) in zip(range(0, 512, n), pieces):
+        torch.testing.assert_close(
+            lse, ref.attention_lse(q, k[:, :, i:i + n], causal=False),
+            rtol=TOL[dtype], atol=TOL[dtype])
+    got = ops.combine_lse(torch.stack([o for o, _ in pieces]),
+                          torch.stack([lse for _, lse in pieces]))
+    torch.testing.assert_close(got.float(), ref.attention(
+        q, k, v, causal=False).float(), rtol=TOL[dtype], atol=TOL[dtype])
+
+
 def test_prefill_on_the_card_launches_the_kernel_once_per_layer(card):
     from repro_torch.configs import get_config
     from repro_torch.models import build

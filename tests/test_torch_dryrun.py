@@ -145,6 +145,49 @@ def test_train_4k_on_16x16_fits_an_h100_for_llama_and_mamba():
         assert rec["options"]["step"] == "tensor-parallel"
 
 
+def test_decode_on_16x16_fits_an_h100_for_qwen2_dbrx_and_jamba():
+    """The tensor-parallel decode step's peak per device on the 16 x 16
+    mesh, caches split by sequence: qwen2-72b and dbrx-132b at decode_32k
+    and jamba-v0.1-52b at long_500k (batch 1: the positions over all 256
+    ranks), full width and depth, a process each, run at once: under 80 GB
+    (the gather-whole step held 239.6, 312.2 and 116.5 GB)."""
+    cells = {"qwen2-72b": "decode_32k", "dbrx-132b": "decode_32k",
+             "jamba-v0.1-52b": "long_500k"}
+    procs = {arch: subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+         "--shape", shape, "--mesh", "single"], cwd=ROOT,
+        env=dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+                 OMP_NUM_THREADS="1"),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for arch, shape in cells.items()}
+    for arch, p in procs.items():
+        out, err = p.communicate(timeout=600)
+        assert p.returncode == 0, err[-3000:]
+        rec = json.loads(out.strip().splitlines()[-1])
+        assert rec["status"] == "ok" and rec["shape"] == cells[arch]
+        assert rec["mesh"] == {"data": 16, "model": 16}
+        assert rec["options"]["step"] == "tensor-parallel"
+        assert rec["bytes_per_device"]["peak_estimate"] < 80e9, arch
+        assert rec["hbm_ok"]
+
+
+def test_decode_cache_shard_changes_the_step():
+    """``--cache-shard`` picks the decode step's layout: split by sequence
+    over a (1, 4) mesh each rank holds a quarter of the positions and
+    reduces the softmax's statistics and P·V over ``model``; by KV head
+    (two on four ranks: the guard keeps them whole) each rank holds every
+    position of every KV head and reduces nothing of the attention."""
+    recs = {shard: dryrun.lower_cell(
+        "llama3-8b", "decode_32k", mesh_shape=(1, 4), variant="smoke",
+        batch=4, seq=256, cache_shard=shard) for shard in ("seq", "heads")}
+    seq, heads = recs["seq"], recs["heads"]
+    assert seq["status"] == heads["status"] == "ok"
+    assert heads["bytes_per_device"]["arguments"] \
+        > seq["bytes_per_device"]["arguments"]
+    assert seq["collective_bytes_per_device"]["all-reduce"] \
+        > heads["collective_bytes_per_device"]["all-reduce"]
+
+
 @pytest.mark.parametrize("arch", list_archs())
 def test_params_equal_the_jax_count(arch):
     jparams = jbuild(jget_config(arch)).abstract_params()

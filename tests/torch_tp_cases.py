@@ -77,10 +77,13 @@ def key(case):
                               if k != "sequence_parallel")), frames
 
 
-def run_ranks(tmp, cases: dict, others: dict = None) -> dict:
+def run_ranks(tmp, cases: dict, others: dict = None, options: dict = None,
+              while_running=None) -> dict:
     """Every case run once on its mesh (``others``: name -> (kind, case),
-    a prefill or gather case) -> {case: [each rank's result]}."""
-    others = others or {}
+    a prefill, gather or decode case; ``options``: name -> more of its
+    spec's keys) -> {case: [each rank's result]}.  ``while_running()`` is
+    called while the ranks run (the references of ``others``)."""
+    others, options = others or {}, options or {}
     specs = []
     kinds = {name: kind for name, (kind, _) in others.items()}
     for name, case in {**cases, **{n: c for n, (_, c) in
@@ -92,7 +95,8 @@ def run_ranks(tmp, cases: dict, others: dict = None) -> dict:
                       "kind": kinds.get(name, "step"),
                       "arch": arch, "change": change, "data": d, "model": m,
                       "lr": LR, "tokens": tokens, "frontend": front,
-                      "params": jax.tree.map(np.asarray, jparams)})
+                      "params": jax.tree.map(np.asarray, jparams),
+                      **options.get(name, {})})
     env = dict(os.environ, OMP_NUM_THREADS="1")
     procs = []
     for shape in sorted({(c["data"], c["model"]) for c in specs}):
@@ -110,6 +114,8 @@ def run_ranks(tmp, cases: dict, others: dict = None) -> dict:
     try:
         for case in cases.values():  # the references, while the ranks run
             single(*key(case))
+        if while_running is not None:
+            while_running()
         for p in procs:
             p.wait(timeout=JOIN_TIMEOUT_S)
     finally:

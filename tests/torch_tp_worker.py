@@ -6,7 +6,8 @@ module: it imports no JAX, so that a rank starts in a few seconds).
 Joins a gloo process group of WORLD ranks through the file store
 INIT_FILE, runs each case of the pickled CASES list whose mesh fits the
 world, and writes what it measured as ``OUT_DIR/<case>.<rank>.pkl``.  A
-case is a dict: ``name``, ``kind`` ("step", "prefill" or "gather"), the mesh
+case is a dict: ``name``, ``kind`` ("step", "prefill", "gather" or
+"decode"), the mesh
 (``data``, ``model``), the config (``arch``, ``change``), ``lr``, the
 initial parameters in the JAX layout (``params``, numpy), the ``tokens``
 and a ``frontend`` (or None).  A step case records the first step's
@@ -15,7 +16,10 @@ step; a prefill case the logits, this rank's vocabulary columns gathered
 over the model axis; a gather case, for every layer, the largest
 difference between ``sharding.gather_layer`` and the gather-whole path
 (``sharding.gather`` and the compute slice; in the backward, the
-gradient padded to the whole leaf and ``sharding.reduce_to``).
+gradient padded to the whole leaf and ``sharding.reduce_to``); a decode
+case (also ``batch``, ``prompt``, ``steps``, ``max_len``,
+``cache_shard``) each step's logits of this rank's rows, the greedy
+tokens, and the decode state gathered whole.
 """
 
 import datetime
@@ -24,6 +28,7 @@ import sys
 import zlib
 from pathlib import Path
 
+import numpy as np
 import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
@@ -36,6 +41,7 @@ from repro_torch.models import build, common  # noqa: E402
 from repro_torch.train import OptimizerConfig  # noqa: E402
 from repro_torch.train import optimizer as opt  # noqa: E402
 from repro_torch.train.checkpoint import flatten_with_path  # noqa: E402
+from repro_torch.train.serve_step import greedy_generate  # noqa: E402
 from torch_mesh_worker import _config, _full  # noqa: E402
 
 TIMEOUT = datetime.timedelta(seconds=120)
@@ -158,6 +164,63 @@ def run_gather_case(case, mesh):
     return worst
 
 
+def _cache_leaves(state):
+    """A decode state's tensors gathered whole, by path (lists and
+    NamedTuples), as numpy."""
+    out = {}
+    for path, t in flatten_with_path(state):
+        if isinstance(t, torch.Tensor):
+            key = "/".join(str(k) for k in path)
+            out[key] = shd.gather(t).float().numpy().copy()
+    return out
+
+
+def run_decode_case(case, mesh):
+    """The case's prompt fed token by token through ``make_mesh_decode_step``
+    on its cache layout, then ``steps`` greedy tokens: this rank's rows,
+    each step's logits, the tokens, and the state gathered whole."""
+    cfg = _config(case)
+    model = build(cfg, device="cpu")
+    params, _, _, _ = _placed(case, cfg, mesh)
+    prompt = case["tokens"][:case["batch"], :case["prompt"]]
+    axes = ptrain.rows_axes(mesh, len(prompt))
+    index = ptrain.rank_rows({"i": np.arange(len(prompt))}, mesh,
+                             axes)["i"]
+    step = ptrain.make_mesh_decode_step(model, mesh, axes,
+                                        cache_shard=case["cache_shard"])
+    mm = step.model
+    memory = None
+    if cfg.is_encdec:
+        front = torch.from_numpy(case["frontend"][index])
+        with torch.no_grad():
+            memory = mm.encode(params, front)
+    state = mm.init_decode(params, len(index), case["max_len"],
+                           memory=memory)
+    tokens = torch.from_numpy(prompt[index])
+    logits, generated = [], []
+    token = tokens[:, :1]
+    for t in range(case["prompt"] + case["steps"]):
+        if t < case["prompt"]:
+            token = tokens[:, t:t + 1]
+        else:
+            generated.append(token)
+        state, out = step(params, state, token)
+        logits.append(out.numpy().copy())
+        token = out[:, -1:, :cfg.vocab_size].argmax(dim=-1).to(torch.int32)
+    with torch.no_grad():
+        greedy = greedy_generate(mm, params, tokens, case["steps"],
+                                 case["max_len"],
+                                 frontend=None if memory is None
+                                 else torch.from_numpy(
+                                     case["frontend"][index]))
+    return {"rows": index, "logits": np.stack(logits, axis=1),
+            "tokens": torch.cat(generated, dim=1).numpy(),
+            "greedy": greedy.numpy(), "state": _cache_leaves(state),
+            "lengths": [c.length for c in (
+                state.self_kv if cfg.is_encdec else state)
+                if hasattr(c, "length") and isinstance(c.length, int)]}
+
+
 def main():
     rank, world = int(sys.argv[1]), int(sys.argv[2])
     init_file, cases_file, out_dir = sys.argv[3], sys.argv[4], Path(
@@ -172,7 +235,8 @@ def main():
             mesh = pmesh.make_local_mesh(case["data"], case["model"],
                                          device="cpu")
             run = {"prefill": run_prefill_case, "gather": run_gather_case,
-                   "step": run_step_case}[case["kind"]]
+                   "step": run_step_case,
+                   "decode": run_decode_case}[case["kind"]]
             out = run(case, mesh)
             (out_dir / f"{case['name']}.{rank}.pkl").write_bytes(
                 pickle.dumps(out))
