@@ -20,7 +20,8 @@ Phases, each printing one JSON line with its seconds:
    cases, and every attention and SSD case (among them one dbrx-132b
    attention layer, seamless-m4t-large-v2's encoder, decoder and
    cross-attention layers and a decode step's cross-attention, one
-   internvl2-1b and one gemma-7b layer, and one jamba-v0.1-52b mamba
+   internvl2-1b, one gemma-7b, one qwen1.5-4b and one qwen2-72b layer, and
+   one jamba-v0.1-52b mamba
    sublayer; a decode step's cross-attention also split into 8 and 16
    shards of its 512 frames, the kernel with its log-sum-exp on each and
    the combine, held against one launch and the plain version), are
@@ -119,43 +120,52 @@ Phases, each printing one JSON line with its seconds:
    one position of a router near-tie allowed (tests/test_models.py:117-124);
 16. llama4-maverick prefill at full width, 1 of its 48 layers (128 experts
    top-1 and a shared one; one layer holds 32 GB), as phase 14;
-17. jamba-v0.1-52b prefill at full width, 16 of its 32 layers (two
+17. llama4-maverick generation, as phase 15 (each decode step reads all
+   128 experts of its layer);
+18. jamba-v0.1-52b prefill at full width, 16 of its 32 layers (two
    super-blocks: 2 attention and 14 mamba sublayers, an MoE of 16 experts
    top-2 every other sublayer), as phase 14: 2 ``flash_attention`` and 14
    ``ssd_scan`` launches, each layer's kernels held;
-18. jamba-v0.1-52b generation, as phase 15;
-19. gemma-7b prefill at full width and depth (28 layers, head_dim 256:
+19. jamba-v0.1-52b generation, as phase 15;
+20. gemma-7b prefill at full width and depth (28 layers, head_dim 256:
    the flash kernel's D = 256 instantiation), as phase 10;
-20. gemma-7b generation, as phase 11;
-21. seamless-m4t-large-v2 prefill at full width and depth (24 encoder and
+21. gemma-7b generation, as phase 11;
+22. seamless-m4t-large-v2 prefill at full width and depth (24 encoder and
    24 decoder layers): 4 requests of 2048 decoder tokens on 512 frames of
    1024 features; 72 ``flash_attention`` launches (the encoder's
    bidirectional attention, the decoder's causal self-attention and its
    cross-attention, 2048 queries on 512 frames), each held, the logits
    against the plain run, as phase 10;
-22. seamless-m4t-large-v2 generation, as phase 13 (the check in f32): the
+23. seamless-m4t-large-v2 generation, as phase 13 (the check in f32): the
    encoder once and the cross-attention in every decoder layer of every
    step launch the kernel (24 + 96 × 24 launches a run, one query row
    each);
-23. internvl2-1b prefill at full width and depth (24 layers, 14 query
+24. internvl2-1b prefill at full width and depth (24 layers, 14 query
    heads on 2): 256 patch embeddings of 1024 features before 1792 tokens,
    24 launches, as phase 10;
-24. internvl2-1b generation, as phase 13 (the check in f32), without the
+25. internvl2-1b generation, as phase 13 (the check in f32), without the
    image prefix, as the JAX package's greedy_generate and its tests;
-25. ``llama_train``: llama3-8b at full width, 8 of its 32 layers (f32
-    masters and fp32 AdamW moments, 44.7 GB; bf16 activations; remat
+26. qwen1.5-4b prefill at full width and depth (40 layers, QKV biases, 20
+   query heads on 20, a 151,936-row vocabulary), as phase 10;
+27. qwen1.5-4b generation, as phase 11;
+28. qwen2-72b prefill at full width, 16 of its 80 layers (64 query heads
+   on 8, QKV biases, two 152,064-row vocabulary matrices; 33.1 GB), as
+   phase 10;
+29. qwen2-72b generation, as phase 11;
+30. ``llama_train``: llama3-8b at full width, 2 of its 32 layers (f32
+    masters and fp32 AdamW moments, 23.8 GB; bf16 activations; remat
     "full"), trained through ``launch.train.run`` on 2 x 4096 tokens a step
     from the token store over ``PrefetchLoader``, 10 steps at lr 3e-4:
     (a) the first step's loss and every gradient against the same step
     with ``attention_impl="chunked"`` (plain attention under autograd), and
-    with SDPA in the kernel's place as a yardstick; (b) per step 16
-    ``flash_attention`` launches (8 forward + 8 remat recomputes) and 8
+    with SDPA in the kernel's place as a yardstick; (b) per step 4
+    ``flash_attention`` launches (2 forward + 2 remat recomputes) and 2
     ``flash_attention_bwd``; (c) a falling nll; (d) the last step's
     checkpoint restored bit-identical, then ``--resume`` one step from it;
     (e) step time, tokens/s, peak memory, a profiler breakdown of one step
     and the optimizer's device time;
-26. ``mamba_train``: mamba2-2.7b at full width and depth (64 layers,
-    2.70e9 parameters, 43.2 GB of f32 masters, gradients and moments;
+31. ``mamba_train``: mamba2-2.7b at full width, 32 of its 64 layers
+    (1.42e9 parameters, 22.6 GB of f32 masters, gradients and moments;
     bf16 activations; remat "full"), trained through ``launch.train.run``
     on 2 x 4096 tokens a step, 10 steps at lr 3e-4, no checkpoint: (a) the
     first step's loss and every gradient in bf16 against the same step with
@@ -164,16 +174,32 @@ Phases, each printing one JSON line with its seconds:
     128 agrees with it within those gates at this depth, else within
     SPREAD_MULTIPLE times that spread and, in f32, where the plain versions
     agree, within the gates (the line gives each reading, spread and
-    limit); (b) per step 128 ``ssd_scan`` launches (64
-    forward + 64 remat recomputes) and 64 ``ssd_scan_bwd``, no flash; (c)
-    a falling nll; (d) step time, tokens/s, peak memory and a profiler
-    breakdown of one step, with the SSD backward's share;
-27. ``jamba_train``: jamba-v0.1-52b at full width, its first 2 layers
+    limit); (b) per step 64 ``ssd_scan`` launches (32
+    forward + 32 remat recomputes) and 32 ``ssd_scan_bwd``, no flash; (c)
+    a falling nll; (d) step time, tokens/s, each step's peak memory and a
+    profiler breakdown of one step, with the SSD backward's share;
+32. ``jamba_train``: jamba-v0.1-52b at full width, its first 2 layers
     ((mamba, FFN) and (mamba, MoE of 16 experts top-2), 3.73e9 parameters,
-    59.7 GB), as phase 26, the MoE's routes held to the plain run's in
+    59.7 GB), as phase 31, the MoE's routes held to the plain run's in
     (a): the SSD backward at N 16 and 128 heads, the first MoE training on
     the card;
-28. ``mesh_train``: llama3-8b at full width, 2 layers (int8 moments),
+33-38. the other families of ``TRAIN``, as phase 31 with every kernel of
+    the path in (a) replaced by its plain version (attention by
+    ``ref.attention_chunked``; the SSD's two chunkings give the spread
+    only where the model has mamba layers, elsewhere the gates hold
+    directly), the flash launches a step twice the attention calls and
+    the backward's once: ``seamless_train`` (full depth; 1024 frames under
+    4096 decoder tokens a row, the frontend drawn from ``--seed``, through
+    ``run_with_frontend``: 144 + 72 flash launches a step, the full-mask
+    cross-attention's backward at 4096 queries on 1024 frames),
+    ``gemma_train`` (4 of 28 layers: D = 256 forward and backward),
+    ``internvl_train`` (full depth; 256 patch embeddings before 3840
+    tokens, the prefix dropped from the loss; 14 query heads on 2),
+    ``dbrx_train`` (1 of 40 layers, int8 moments, routes held; the plain
+    step's gradients wait on the host), ``jamba_attn_train`` (jamba's first
+    super-block as (mamba, FFN), (attention, MoE): period 2, offset 1) and
+    ``qwen_train`` (16 of 40 layers: the QKV biases' backward);
+39. ``mesh_train``: llama3-8b at full width, 2 layers (int8 moments),
     through ``launch.train``'s mesh path (the tensor-parallel step, each
     model-axis collective over a group of one) on a 1 x 1 NCCL mesh (world size
     1, ``cuda``; the box has one card, and NCCL takes no two ranks on one
@@ -182,56 +208,65 @@ Phases, each printing one JSON line with its seconds:
     [0, 2) and dies at step 3, the lease passes, trainer B restores step 2
     through ``restore(shardings=)`` and finishes [2, 4); (a) the first
     step's loss and gradients against the mesh-less step, (b) the restore
-    bit-identical, (c) the flash launches per step as in phase 25, (d)
+    bit-identical, (c) the flash launches per step as in phase 30, (d)
     each range completed once, (e) the step time against the mesh-less
     step's (the DTensor path's cost) and the save and restore seconds;
-29. ``grad_compression``: ``train/grad_compression.py``'s
+40. ``grad_compression``: ``train/grad_compression.py``'s
     ``compressed_psum_mean`` over a 1-rank NCCL group on mesh_train's
     first-step gradients (1.487·10⁹ f32 elements), bit-identical to the
     same arithmetic written out on one rank, the error-feedback
     invariant, its time, wire bytes against an f32 all-reduce's, and its
     rate against the copy's;
-30. ``tp_rank_train``: rank 0 of a 1 x 8 tensor-parallel mesh in one
+41. ``tp_rank_train``: rank 0 of a 1 x 8 tensor-parallel mesh in one
     process under torch's fake process group (the collectives do no work:
     the values are not checked): llama3-8b at full width, 8 layers, 2 x
     4096 tokens, int8 moments, through ``make_mesh_train_step``; the step
     time, each step's peak, and the flash launches a step at the per-rank
     shapes (4 query heads on 1 KV head);
-31. ``mesh_generate`` (run between phases 29 and 30): ``greedy_generate``
+42. ``mesh_generate`` (run between phases 40 and 41): ``greedy_generate``
     on a ``launch/train.py:MeshModel`` over a 1 x 1 NCCL mesh, its caches
     split by sequence (split-K) and by KV head, and mesh-less on the same
     weights: llama3-8b at full width, 8 layers, bf16, 4 requests of 64
     prompt tokens and 32 new ones; tokens identical, each step's logits
     within PREFILL_REL_L2; each run's step time and a profiled step's idle
     share;
-32. ``tp_rank_decode``: rank 0 of a 1 x 8 mesh under the fake process
-    group (as phase 30; values not checked) decoding through
+43. ``tp_rank_decode``: rank 0 of a 1 x 8 mesh under the fake process
+    group (as phase 41; values not checked) decoding through
     ``make_mesh_decode_step`` on its shards of the bf16 weights and of
     caches split by sequence: llama3-8b at full depth, decode_32k with 32
     rows, and jamba-v0.1-52b at long_500k cut to 8 layers; the step time,
     each step's peak and a profiled step's idle share;
-33. ``dryrun_check``: ``python -m repro_torch.launch.dryrun`` (fake
+44. ``dryrun_check``: ``python -m repro_torch.launch.dryrun`` (fake
     tensors, the fake process group), each cell its own process, started
-    before phase 25 and read here (they use the host, beside the training
+    before phase 30 and read here (they use the host, beside the training
     phases, pinned to the upper half of the cores): the cells of
-    llama_train, mesh_train, tp_rank_train and tp_rank_decode's two,
-    their predicted step peaks within DRYRUN_PEAK_BAND of the step peaks
-    those phases measured (``step_peak_bytes``), predicted flops and
-    roofline step beside the measured step; llama3-8b, mamba2-2.7b and
-    jamba-v0.1-52b at train_4k on the 16 x 16 mesh, each ``ok``;
-34. summary: the ``kernels`` line, the peak device memory, the
+    llama_train, mesh_train, tp_rank_train, tp_rank_decode's two and the
+    training phases of TRAIN whose cut is a depth (mamba, seamless, gemma,
+    internvl, dbrx and qwen), their predicted step peaks within
+    DRYRUN_PEAK_BAND of the step peaks those phases measured
+    (``step_peak_bytes``), predicted flops and roofline step beside the
+    measured step; llama3-8b, mamba2-2.7b and jamba-v0.1-52b at train_4k on
+    the 16 x 16 mesh, each ``ok``;
+45. summary: the ``kernels`` line, the peak device memory, the
     ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.
 
 Each LM is freed before the next is drawn.  The launch counts are set to
-0 just before each main-path run (phases 2-7, 10-24, llama_train's run
-and resumed step, the runs of phases 26-27, mesh_train's elastic run,
+0 just before each main-path run (phases 2-7, 10-29, llama_train's run
+and resumed step, the runs of phases 31-38, mesh_train's elastic run,
 each of mesh_generate's three runs, tp_rank_train's and tp_rank_decode's
-timed steps) and read just after it; the ``kernels`` line adds those counts.  The training phases' first-step
-comparisons and profiled steps verify: their launches stay in their
-lines.  The decode checks'
-prefills (phases 11, 13, 15, 18, 20, 22 and 24) verify: their launches
+timed steps) and read just after it; the ``kernels`` line adds those
+counts.  The training phases' first-step comparisons and profiled steps
+verify: their launches stay in their lines.  The decode checks' prefills
+(phases 11, 13, 15, 17, 19, 21, 23, 25, 27 and 29) verify: their launches
 stay in their phase's line (``prefill_check_launches``).  Each example
 process counts its own from 0, and phase 8 runs no device work.
+
+``--only NAME[,NAME...]`` runs the named phases alone after phase 0
+(``flash``, an LM of LM_PHASES by its key, ``llama_train`` or a training
+phase of TRAIN by its line's name, e.g. ``--only qwen,gemma_train``), with
+the dry-run cells
+of those training phases, and prints no ``kernels`` line and no last
+line: a check of one path, not the run above.
 
 Any mismatch raises and the script exits nonzero.  Without CUDA, or run
 from a directory that holds nothing else of the repository, it exits
@@ -287,6 +322,8 @@ JAMBA = "jamba-v0.1-52b"
 GEMMA = "gemma-7b"
 SEAMLESS = "seamless-m4t-large-v2"
 INTERNVL = "internvl2-1b"
+QWEN = "qwen1.5-4b"
+QWEN72 = "qwen2-72b"
 PREFILL_BATCH, PREFILL_LEN = 4, 2048
 GEN_BATCH, GEN_PROMPT, GEN_NEW = 4, 64, 32
 #: the kernel's logits against the plain run's, relative L2 over [4, 2048, V]
@@ -308,19 +345,26 @@ MOE_NEAR_TIE_POSITIONS = 1
 #: from the plain version in its order of sums and in expf
 BWD_TOL = {"float32": 3e-5, "bfloat16": 2e-2}
 BWD_REL_L2 = {"float32": 1e-5, "bfloat16": 1e-2}
-#: llama_train: llama3-8b at full width cut to 8 of 32 layers, f32 masters
-#: and fp32 AdamW (44.7 GB) with remat "full", 2 x 4096 tokens a step
-#: (train_4k's length, configs/base.py:31), the corpus' vocabulary as
-#: launch/train.py sizes it.  lr 3e-4, Llama 3 8B's published peak; at
-#: 3e-3 the run diverged on the card (nll 12.15 -> 6.59 at step 4, then up
-#: to 18.67 at step 9: PERF.md §6), each step moving the
-#: 1/sqrt(4096)-scaled weights by a fifth of their spread
+#: llama_train: llama3-8b at full width cut to LLAMA_TRAIN_LAYERS of 32
+#: layers, f32 masters and fp32 AdamW (1.49e9 parameters, 23.8 GB) with
+#: remat "full", 2 x 4096 tokens a step (train_4k's length,
+#: configs/base.py:31), the corpus' vocabulary as launch/train.py sizes it.
+#: It ran 8 layers (44.7 GB) until the phases of the other families came:
+#: its checkpoint's save and restore through the chunk store's Python
+#: copies (~0.3 GB/s) took 130 s of its 142.5 (at 4 layers 113 of 126),
+#: and 2 layers keep the script inside its time.  lr 3e-4,
+#: Llama 3 8B's published peak; at 3e-3 the run diverged on the card (nll
+#: 12.15 -> 6.59 at step 4, then up to 18.67 at step 9: PERF.md §6), each
+#: step moving the 1/sqrt(4096)-scaled weights by a fifth of their spread.
+#: TRAIN_LAYERS: llama3-8b's depth on tp_rank_train's rank and in
+#: mesh_generate
+LLAMA_TRAIN_LAYERS = 2
 TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ = 8, 2, 4096
 TRAIN_STEPS, TRAIN_LR, TRAIN_WARMUP = 10, 3e-4, 5
 #: the kernel step's first loss and gradients against the same step with
 #: attention_impl="chunked" (plain attention under autograd): loss within
 #: TRAIN_LOSS_RTOL relative, each leaf's gradient within TRAIN_GRAD_REL_L2
-#: relative L2.  Both runs are bf16 through 8 layers; the kernel rounds P
+#: relative L2.  Both runs are bf16 through 2 layers; the kernel rounds P
 #: to bf16 in its forward and P and dS in its backward, where the plain
 #: version keeps f32, as the serving prefill's 2e-2 logits gate allows at
 #: 32 layers (PREFILL_REL_L2).  The same step with PyTorch's SDPA in the
@@ -657,8 +701,9 @@ def phase_grad_mag(torch, seed: int, copy_rate: float) -> dict:
 # seamless-m4t-large-v2 layers: its encoder (512 frames, full attention),
 # decoder self-attention, cross-attention (2048 queries on 512 frames) and
 # one decode step's cross-attention (one query row), q, k and v as the
-# layers hand them over; one internvl2-1b layer (14 query heads on 2) and
-# one gemma-7b layer (head_dim 256).
+# layers hand them over; one internvl2-1b layer (14 query heads on 2), one
+# gemma-7b layer (head_dim 256), one qwen1.5-4b layer (20 query heads on 20)
+# and one qwen2-72b layer (64 on 8).
 FLASH_CASES = [
     ("main_path", (4, 32, 8, 2048, 2048, 128), True, "bfloat16", TIMED_RUNS,
      False),
@@ -690,7 +735,9 @@ FLASH_CASES = [
           ("seamless_cross", (4, 16, 16, 2048, 512, 64), False),
           ("seamless_cross_decode", (4, 16, 16, 1, 512, 64), False),
           ("internvl_layer", (4, 14, 2, 2048, 2048, 64), True),
-          ("gemma_layer", (4, 16, 16, 2048, 2048, 256), True)]],
+          ("gemma_layer", (4, 16, 16, 2048, 2048, 256), True),
+          ("qwen4b_layer", (4, 20, 20, 2048, 2048, 128), True),
+          ("qwen72b_layer", (4, 64, 8, 2048, 2048, 128), True)]],
     # one rank's heads of a llama_train layer on a tensor-parallel mesh:
     # a model axis of 8 (one KV head, its 4 query heads) and of 16 (two
     # query heads on the one KV head the rank shares with another)
@@ -2172,15 +2219,18 @@ class LMPhase(NamedTuple):
 # E, as tests/test_models.py:84-85 does, in f32 activations and an f32 KV
 # cache: with the bf16 cache (the JAX package's whatever the activations'
 # dtype), its rounding alone flips routes between decode and prefill
-# (tools/moe_spread.py's decode_vs_prefill).
+# (tools/moe_spread.py's decode_vs_prefill).  qwen2-72b is cut to 16 of its
+# 80 layers: 8.78e8 parameters a layer (attention 1.51e8, the FFN 7.27e8)
+# and two untied vocabulary matrices of 1.25e9, 16.5e9 parameters, 33.1 GB
+# in bf16.
 LM_PHASES = {
     "llama": LMPhase(LLAMA, None, PREFILL_REL_L2, None, None, True),
     "mamba": LMPhase(MAMBA, None, MAMBA_PREFILL_REL_L2, None, "float32",
                      True),
     "dbrx": LMPhase(DBRX, 8, MOE_PREFILL_REL_L2, PREFILL_REL_L2, "float32",
                     True),
-    "maverick": LMPhase(MAVERICK, 1, MOE_PREFILL_REL_L2, PREFILL_REL_L2, None,
-                        False),
+    "maverick": LMPhase(MAVERICK, 1, MOE_PREFILL_REL_L2, PREFILL_REL_L2,
+                        "float32", True),
     "jamba": LMPhase(JAMBA, 16, MOE_PREFILL_REL_L2, MAMBA_PREFILL_REL_L2,
                      "float32", True),
     "gemma": LMPhase(GEMMA, None, PREFILL_REL_L2, None, None, True),
@@ -2188,6 +2238,8 @@ LM_PHASES = {
                         True),
     "internvl": LMPhase(INTERNVL, None, PREFILL_REL_L2, None, "float32",
                         True),
+    "qwen": LMPhase(QWEN, None, PREFILL_REL_L2, None, None, True),
+    "qwen72": LMPhase(QWEN72, 16, PREFILL_REL_L2, None, None, True),
 }
 
 
@@ -2665,9 +2717,10 @@ def first_step_grads(torch, model, params, batch):
 
 
 def grads_diff(torch, got, want, names) -> dict:
-    """Each gradient leaf's relative L2 distance; the largest, and its
-    leaf."""
-    l2 = [rel_l2(torch, a, b) for a, b in zip(got, want)]
+    """Each gradient leaf's relative L2 distance (``want`` may wait on the
+    host: each leaf is copied to ``got``'s device in turn); the largest,
+    and its leaf."""
+    l2 = [rel_l2(torch, a, b.to(a.device)) for a, b in zip(got, want)]
     worst = max(range(len(l2)), key=l2.__getitem__)
     return {"max_rel_l2": l2[worst], "worst_leaf": names[worst],
             "median_rel_l2": statistics.median(l2)}
@@ -2685,7 +2738,7 @@ def leaf_names(params) -> list:
 
 
 def phase_llama_train(torch, seed: int, backend) -> dict:
-    """llama3-8b at full width, 8 of 32 layers, trained through
+    """llama3-8b at full width, 2 of 32 layers, trained through
     launch.train's code path on the card: (a) the first step's loss and
     gradients against the plain-attention step, (b) the flash kernels'
     launches per step, (c) a falling nll over TRAIN_STEPS steps, (d)
@@ -2701,7 +2754,8 @@ def phase_llama_train(torch, seed: int, backend) -> dict:
     from repro_torch.train import optimizer as opt_mod
 
     t0 = time.perf_counter()
-    cfg = dataclasses.replace(get_config(LLAMA), num_layers=TRAIN_LAYERS)
+    cfg = dataclasses.replace(get_config(LLAMA),
+                              num_layers=LLAMA_TRAIN_LAYERS)
     check(cfg.dtype == "bfloat16" and cfg.attention_impl == "auto"
           and cfg.remat and cfg.remat_policy == "full",
           f"llama_train config {cfg}")
@@ -2887,16 +2941,59 @@ def phase_llama_train(torch, seed: int, backend) -> dict:
             "seconds": time.perf_counter() - t0}
 
 
-#: the SSM training phases: arch, and the config's changes that cut its
-#: depth.  mamba2-2.7b at full width and depth: 2.70e9 parameters, f32
-#: masters, gradients and two f32 moments, 43.2 GB.  jamba-v0.1-52b at full
-#: width cut to the first 2 layers of its layer_plan, (mamba, FFN) and
-#: (mamba, MoE of 16 experts top-2): 3.73e9 parameters, 59.7 GB.  A hybrid's
-#: depth is a whole number of super-blocks (transformer.num_blocks), so the
-#: cut is one super-block of period 2, whose attention offset (4) never
-#: comes; the attention sublayer would need 5 layers, which do not fit
-SSM_TRAIN = {"mamba": (MAMBA, {}),
-             "jamba": (JAMBA, {"num_layers": 2, "attn_layer_period": 2})}
+class TrainPhase(NamedTuple):
+    """One training phase of TRAIN: its arch, the config's changes that cut
+    it (its depth; a hybrid's super-block), its moments' dtype, and
+    whether the plain step's gradients wait on the host while the kernel
+    step runs (the card then holds one step and its gradients beside the
+    masters, not two sets)."""
+
+    arch: str
+    cut: dict
+    moments: str = "fp32"
+    grads_on_host: bool = False
+
+
+#: the training phases after llama_train, each at full width with f32
+#: masters and gradients, 2 x 4096 positions a step, remat "full"; the cut
+#: from the state a step holds, 16 B a parameter (masters, gradients and
+#: two f32 moments) or 10 B with int8 moments, and its activations:
+#: - mamba2-2.7b cut to 32 of its 64 layers: 1.42e9 parameters, 22.6 GB
+#:   (it ran all 64, 43.2 GB, 72 s of the script, until the other families
+#:   came; at 32 its bf16 plain versions still disagree past the gates,
+#:   9.8e-2 on the worst leaf, so its check still runs in f32 as well);
+#: - jamba-v0.1-52b cut to the first 2 layers of its layer_plan, (mamba,
+#:   FFN) and (mamba, MoE of 16 experts top-2): 3.73e9 parameters,
+#:   59.7 GB.  A hybrid's depth is a whole number of super-blocks
+#:   (transformer.num_blocks), so the cut is one super-block of period 2,
+#:   whose attention offset (4) never comes;
+#: - seamless-m4t-large-v2 at full depth (24 + 24 layers; 1024 frames of
+#:   the encoder under 4096 decoder tokens): 1.37e9 parameters, 22 GB, and
+#:   the tied 256,206-row vocabulary's f32 logits, 8.4 GB a copy;
+#: - gemma-7b cut to 4 of its 28 layers (head_dim 256): 1.89e9, 30 GB, and
+#:   its 256,000-row vocabulary's logits as seamless's;
+#: - internvl2-1b at full depth (256 patch embeddings before 3840 tokens,
+#:   the prefix dropped from the loss): 0.49e9;
+#: - dbrx-132b cut to 1 of its 40 layers (16 experts top-4) with int8
+#:   moments: 4.49e9 parameters, 45 GB, the dry run's step 75.8 GB; the
+#:   check's two gradient sets would not fit beside it, so the plain one
+#:   waits on the host;
+#: - jamba-v0.1-52b's first super-block made (mamba, FFN), (attention, MoE)
+#:   by attn_layer_period 2 and attn_layer_offset 1: its attention sublayer
+#:   (norm_mix before it) beside the SSD in one step, 3.67e9 parameters;
+#: - qwen1.5-4b cut to 16 of its 40 layers (the QKV biases; 20 query heads
+#:   on 20): 1.66e9, 27 GB.
+TRAIN = {
+    "mamba": TrainPhase(MAMBA, {"num_layers": 32}),
+    "jamba": TrainPhase(JAMBA, {"num_layers": 2, "attn_layer_period": 2}),
+    "seamless": TrainPhase(SEAMLESS, {}),
+    "gemma": TrainPhase(GEMMA, {"num_layers": 4}),
+    "internvl": TrainPhase(INTERNVL, {}),
+    "dbrx": TrainPhase(DBRX, {"num_layers": 1}, "int8", grads_on_host=True),
+    "jamba_attn": TrainPhase(JAMBA, {"num_layers": 2, "attn_layer_period": 2,
+                                     "attn_layer_offset": 1}),
+    "qwen": TrainPhase(QWEN, {"num_layers": 16}),
+}
 #: where the bf16 plain SSD chunked at the kernels' chunk and at SSD_CHUNK
 #: disagree past TRAIN_LOSS_RTOL or TRAIN_GRAD_REL_L2 at depth (mamba2's 64
 #: layers: 0.159 on its worst leaf, PERF.md §6), the bf16 kernel step is
@@ -2907,6 +3004,77 @@ SSM_TRAIN = {"mamba": (MAMBA, {}),
 #: twice that of the plain one is as close as another plain version, where
 #: a wrong term of the gradient moves its leaves by their own size
 SPREAD_MULTIPLE = 2.0
+
+
+def train_config(which: str):
+    """TRAIN[which]'s config: the arch's own, cut."""
+    from repro_torch.configs import get_config
+
+    phase = TRAIN[which]
+    return dataclasses.replace(get_config(phase.arch), **phase.cut)
+
+
+def train_launches(cfg) -> dict:
+    """Each LM kernel's launches in one train step with remat "full": the
+    flash forward twice per attention call (the forward and the remat
+    recompute) and its backward once, the same for the SSD in each mamba
+    layer (expected_launches: an enc-dec model attends enc_layers +
+    2 num_layers times)."""
+    calls = expected_launches(cfg)
+    return {"flash_attention": 2 * calls["flash_attention"],
+            "flash_attention_bwd": calls["flash_attention"],
+            "ssd_scan": 2 * calls["ssd_scan"],
+            "ssd_scan_bwd": calls["ssd_scan"]}
+
+
+def train_lengths(cfg) -> tuple:
+    """(tokens, frontend positions) of a training row of TRAIN_SEQ
+    positions, as lm_inputs and the dry run's input_specs give them: an
+    enc-dec model's TRAIN_SEQ decoder tokens on TRAIN_SEQ // 4 frames, a
+    VLM's frontend_tokens patch embeddings before the rest."""
+    if cfg.is_encdec:
+        return TRAIN_SEQ, max(128, TRAIN_SEQ // 4)
+    return TRAIN_SEQ - cfg.frontend_tokens, cfg.frontend_tokens
+
+
+def frontends(torch, cfg, seed: int, frames: int):
+    """Each step's frontend [TRAIN_BATCH, frames, frontend_dim] in bf16,
+    drawn on the card from ``seed`` (the first is the first step's)."""
+    g = torch.Generator(device="cuda").manual_seed(seed + 3)
+    while True:
+        yield torch.randn((TRAIN_BATCH, frames,
+                           cfg.frontend_dim or cfg.d_model), generator=g,
+                          device="cuda", dtype=torch.bfloat16)
+
+
+def run_with_frontend(torch, args, cfg, cs, spec, tokens: int,
+                      frontend) -> dict:
+    """launch.train.run's loop for a model whose batch carries a frontend
+    (launch/train.py feeds tokens alone, as the JAX package's does): the
+    state fresh from --seed, each step's tokens from the corpus over
+    PrefetchLoader and its frontend from ``frontend``, through
+    ``launch.train.make_train_step``, every step logged, no checkpoint."""
+    from repro_torch import convert
+    from repro_torch.data import PrefetchLoader, TokenDataset
+    from repro_torch.launch import train as ptrain
+    from repro_torch.models import build
+    from repro_torch.train import optimizer as opt_mod
+
+    model = build(cfg)
+    opt_cfg = ptrain.optimizer_config(args)
+    params = model.init(args.seed, param_dtype=torch.float32)
+    state = opt_mod.init(params, opt_cfg, convert.reference_shapes(cfg))
+    step = ptrain.make_train_step(model, opt_cfg)
+    rows = ({"tokens": b["tokens"], "labels": b["labels"]}
+            for b in TokenDataset(cs, spec).batches(args.batch, tokens))
+    loader = PrefetchLoader(rows, depth=2, device="cuda")
+    history = []
+    for i in range(args.steps):
+        batch = dict(next(loader), frontend=next(frontend))
+        params, state, metrics = step(params, state, batch)
+        history.append({**{k: float(v) for k, v in metrics.items()},
+                        "step": i + 1})
+    return {"history": history, "params": params, "opt_state": state}
 
 
 @contextlib.contextmanager
@@ -2925,9 +3093,9 @@ def plain_ssd_at(chunk: int):
 
 
 class NoCheckpoints:
-    """launch.train's checkpoint manager, saving nothing: the SSM training
-    phases hold no checkpoint (llama_train holds save and restore; a 43 GB
-    save would cost ~120 s of the run)."""
+    """launch.train's checkpoint manager, saving nothing: the training
+    phases after llama_train hold no checkpoint (llama_train holds save
+    and restore; a 43 GB save would cost ~120 s of the run)."""
 
     def save_async(self, step, state):
         pass
@@ -2949,18 +3117,21 @@ def spread_limit(gate: float, spread: float) -> float:
     return gate if spread < gate else SPREAD_MULTIPLE * spread
 
 
-def phase_ssm_train(torch, seed: int, backend, which: str) -> dict:
-    """An SSM or hybrid LM (SSM_TRAIN) trained through launch.train's code
-    path on the card: (a) the first step's loss and every gradient in bf16
-    against the same step with the plain SSD under autograd, chunked as
-    the kernels chunk, within TRAIN_LOSS_RTOL and TRAIN_GRAD_REL_L2 where
-    the plain SSD chunked at SSD_CHUNK agrees with it within them at this
-    depth, else within SPREAD_MULTIPLE times that spread and, in f32, where
-    the plain versions agree, within the gates (an MoE's routes held to the
-    first plain run's, as held_routes does for the prefill); (b) the SSD's
-    launches per step: forward, remat recompute, backward in each mamba
-    layer; (c) a falling nll over TRAIN_STEPS steps; (d) step time,
-    tokens/s, peak memory and a profiler breakdown of one step."""
+def phase_train(torch, seed: int, backend, which: str) -> dict:
+    """An LM of TRAIN trained on the card: (a) the first step's loss and
+    every gradient in bf16 against the same step with every kernel on its
+    path replaced by its plain version under autograd (attention by
+    ``ref.attention_chunked``, the SSD by the plain chunked SSD at the
+    kernels' chunk), within TRAIN_LOSS_RTOL and TRAIN_GRAD_REL_L2; where
+    the model has mamba layers, the plain SSD chunked at SSD_CHUNK gives
+    the plain versions' spread at this depth, and where that passes the
+    gates the bf16 step is held within SPREAD_MULTIPLE times it and, in
+    f32, where the plain versions agree, within the gates (an MoE's routes
+    held to the first plain run's, as held_routes does for the prefill);
+    (b) each kernel's launches per step (train_launches); (c) a falling
+    nll over TRAIN_STEPS steps, through launch.train.run, or, with a
+    frontend, run_with_frontend; (d) step time, tokens/s, each step's peak
+    memory and a profiler breakdown of one step."""
     from repro_torch.configs import get_config
     from repro_torch.data import TokenDataset, write_corpus
     from repro_torch.kernels import ssd_scan as kssd
@@ -2971,35 +3142,41 @@ def phase_ssm_train(torch, seed: int, backend, which: str) -> dict:
     from repro_torch.train import optimizer as opt_mod
 
     t0 = time.perf_counter()
-    arch, cut = SSM_TRAIN[which]
-    cfg = dataclasses.replace(get_config(arch), **cut)
-    check(cfg.dtype == "bfloat16" and cfg.remat
-          and cfg.remat_policy == "full", f"{which}_train config {cfg}")
-    plan = layer_plan(cfg)
-    mamba = sum(m == "mamba" for m, _ in plan)
-    attn = sum(m == "attn" for m, _ in plan)
-    moe = any(f == "moe" for _, f in plan)
-    per_step = {"ssd_scan": 2 * mamba, "ssd_scan_bwd": mamba,
-                "flash_attention": 2 * attn, "flash_attention_bwd": attn}
-    args = train_args(seed, arch=arch)
+    phase = TRAIN[which]
+    cfg = train_config(which)
+    check(cfg.dtype == "bfloat16" and cfg.attention_impl == "auto"
+          and cfg.remat and cfg.remat_policy == "full",
+          f"{which}_train config {cfg}")
+    plan = (None if cfg.is_encdec else layer_plan(cfg))
+    per_step = train_launches(cfg)
+    mamba = per_step["ssd_scan_bwd"]
+    attn = per_step["flash_attention_bwd"]
+    moe = cfg.is_moe
+    tokens, frames = train_lengths(cfg)
+    args = train_args(seed, arch=phase.arch, moments=phase.moments)
     cs = ptrain.make_store(None)
     spec = ptrain.corpus_spec(args, cfg)
     write_corpus(cs, spec)
-    first = next(TokenDataset(cs, spec).batches(args.batch, args.seq))
+    first = next(TokenDataset(cs, spec).batches(args.batch, tokens))
     batch = {k: torch.as_tensor(first[k]).cuda() for k in ("tokens",
                                                           "labels")}
+    if frames:
+        batch["frontend"] = next(frontends(torch, cfg, seed, frames))
     torch.cuda.reset_peak_memory_stats()
 
-    # (a) the first step: kernel against the plain chunked SSD
+    # (a) the first step: the kernels against their plain versions
     params = build(cfg).init(seed, param_dtype=torch.float32)
     names = leaf_names(params)
     n_params = sum(t.numel() for t in opt_mod.tree_leaves(params))
 
     def grads(dtype: str, chunk: Optional[int], routes=None):
-        """(loss, gradients, launches, routes recorded) of one step in
-        ``dtype`` activations; ``chunk``: the plain SSD at that chunk
-        (None: the kernel); ``routes``: the MoE held to them."""
-        model = build(dataclasses.replace(cfg, dtype=dtype))
+        """(loss, gradients, launches, routes recorded, seconds) of one
+        step in ``dtype`` activations; ``chunk``: every kernel's plain
+        version, the SSD's at that chunk (None: the kernels); ``routes``:
+        the MoE held to them."""
+        model = build(dataclasses.replace(
+            cfg, dtype=dtype, **({"attention_impl": "chunked"} if chunk
+                                 else {})))
         with contextlib.ExitStack() as stack:
             if chunk:
                 stack.enter_context(plain_ssd_at(chunk))
@@ -3016,35 +3193,44 @@ def phase_ssm_train(torch, seed: int, backend, which: str) -> dict:
     chunks = (kssd.CHUNK, SSD_CHUNK)
 
     def compare(dtype: str):
-        """The plain step at the kernels' chunk, the kernel step and the
-        plain step at SSD_CHUNK against it (routes held to the first), and
-        each reading's limit (spread_limit)."""
+        """The plain step at the kernels' chunk, the kernel step against
+        it (routes held to the first), the plain step at SSD_CHUNK too
+        where the model has mamba layers, and each reading's limit
+        (spread_limit)."""
         loss_p, g_p, _, routes, plain_s = grads(dtype, chunks[0])
+        if phase.grads_on_host:
+            g_p = [g.cpu() for g in g_p]
         loss_k, g_k, launches, _, kernel_s = grads(dtype, None, routes)
         kernel = grads_diff(torch, g_k, g_p, names)
         del g_k
-        loss_q, g_q, _, _, _ = grads(dtype, chunks[1], routes)
-        spread = grads_diff(torch, g_q, g_p, names)
-        del g_q, g_p
+        spread = None
+        if mamba:
+            loss_q, g_q, _, _, _ = grads(dtype, chunks[1], routes)
+            grads_spread = grads_diff(torch, g_q, g_p, names)
+            del g_q
+            spread = {"chunks": list(chunks),
+                      "loss_rel": abs(loss_q - loss_p) / abs(loss_p),
+                      "grads": grads_spread}
+        del g_p
         torch.cuda.empty_cache()
-        loss_spread = abs(loss_q - loss_p) / abs(loss_p)
         return {"dtype": dtype, "loss": loss_k, "plain_loss": loss_p,
                 "loss_rel": abs(loss_k - loss_p) / abs(loss_p),
-                "grads_vs_plain": kernel,
-                "plain_spread": {"chunks": list(chunks),
-                                 "loss_rel": loss_spread, "grads": spread},
+                "grads_vs_plain": kernel, "plain_spread": spread,
                 "limits": {
-                    "loss_rel": spread_limit(TRAIN_LOSS_RTOL, loss_spread),
-                    **{k: spread_limit(TRAIN_GRAD_REL_L2, spread[k])
+                    "loss_rel": spread_limit(
+                        TRAIN_LOSS_RTOL, spread["loss_rel"] if spread else 0),
+                    **{k: spread_limit(TRAIN_GRAD_REL_L2,
+                                       spread["grads"][k] if spread else 0)
                        for k in ("max_rel_l2", "median_rel_l2")}},
                 "check_launches": launches, "kernel_step_s": kernel_s,
                 "plain_step_s": plain_s,
                 "routes_held": moe}
 
     def agree(c) -> bool:
-        return (c["plain_spread"]["loss_rel"] < TRAIN_LOSS_RTOL
-                and c["plain_spread"]["grads"]["max_rel_l2"]
-                < TRAIN_GRAD_REL_L2)
+        spread = c["plain_spread"]
+        return spread is None or (
+            spread["loss_rel"] < TRAIN_LOSS_RTOL
+            and spread["grads"]["max_rel_l2"] < TRAIN_GRAD_REL_L2)
 
     checked = [compare("bfloat16")]
     if not agree(checked[0]):
@@ -3070,15 +3256,18 @@ def phase_ssm_train(torch, seed: int, backend, which: str) -> dict:
     peak_check = torch.cuda.max_memory_allocated()
     torch.cuda.reset_peak_memory_stats()
 
-    # (b), (c): the run, each step timed from a synchronise to a synchronise
+    # (b), (c): the run, each step timed from a synchronise to a
+    # synchronise, with its peak memory
     step_s = []
+    peaks = StepPeaks(torch)
 
     def timed(make):
         def make_timed(*a, **kw):
             step = make(*a, **kw)
 
             def call(*step_args):
-                out, seconds = synced(torch, lambda: step(*step_args))
+                out, seconds = synced(torch, lambda: peaks(
+                    lambda: step(*step_args)))
                 step_s.append(seconds)
                 return out
             return call
@@ -3088,7 +3277,12 @@ def phase_ssm_train(torch, seed: int, backend, which: str) -> dict:
     with patched(ptrain, "make_train_step", timed), \
             patched(ptrain, "checkpoints", lambda _: lambda *a: NoCheckpoints()), \
             patched(ptrain, "state_to_numpy", lambda _: lambda *a: None):
-        out, run_s = synced(torch, lambda: ptrain.run(args, cfg, cs))
+        if frames:
+            out, run_s = synced(torch, lambda: run_with_frontend(
+                torch, args, cfg, cs, spec, tokens,
+                frontends(torch, cfg, seed, frames)))
+        else:
+            out, run_s = synced(torch, lambda: ptrain.run(args, cfg, cs))
     launches = backend.launch_counts()
     check(all(launches[k] == n * TRAIN_STEPS for k, n in per_step.items()),
           f"{which}_train run: launches {launches}")
@@ -3097,7 +3291,8 @@ def phase_ssm_train(torch, seed: int, backend, which: str) -> dict:
     check(len(nll) == TRAIN_STEPS and all(np.isfinite(nll)),
           f"{which}_train: nll {nll}")
     check(nll[-1] < nll[0], f"{which}_train: nll did not fall: {nll}")
-    peak_train = torch.cuda.max_memory_allocated()
+    peak_train = peaks.phase_peak()
+    step_memory = list(zip(peaks.bases, peaks.steps))
 
     # (d) one more step under the profiler
     params, state = out["params"], out["opt_state"]
@@ -3109,18 +3304,21 @@ def phase_ssm_train(torch, seed: int, backend, which: str) -> dict:
         params, state, _ = step(params, state, batch)
 
     breakdown = profile_breakdown(torch, one_step, runs=1)
-    del params, state, step
+    del params, state, step, batch
     torch.cuda.empty_cache()
     device_ms = breakdown.get("device_ms_per_run", {})
     busy = breakdown.get("busy_ms_per_run")
     steady = sorted(step_s[1:])
     step_ms = statistics.median(steady) * 1e3
+    full = get_config(phase.arch)
     return {"phase": f"{which}_train", "arch": cfg.arch_id,
-            "layers": cfg.num_layers,
-            "full_layers": get_config(arch).num_layers,
-            "layer_plan": [list(p) for p in plan],
+            "layers": cfg.num_layers, "enc_layers": cfg.enc_layers,
+            "full_layers": full.num_layers,
+            "cut": phase.cut,
+            "layer_plan": [list(p) for p in plan] if plan else None,
             "mamba_layers": mamba, "attention_layers": attn, "moe": moe,
             "parameters": n_params, "batch": [TRAIN_BATCH, TRAIN_SEQ],
+            "tokens_each": tokens, "frontend_each": frames,
             "steps": TRAIN_STEPS, "lr": TRAIN_LR, "warmup": TRAIN_WARMUP,
             "dtype": cfg.dtype, "masters": "float32", "moments": args.moments,
             "remat": cfg.remat_policy, "corpus_vocab": spec.vocab_size,
@@ -3128,15 +3326,21 @@ def phase_ssm_train(torch, seed: int, backend, which: str) -> dict:
             "first_step": {"held_in": held["dtype"], "checked": checked,
                            "loss_rtol": TRAIN_LOSS_RTOL,
                            "grad_rel_l2_limit": TRAIN_GRAD_REL_L2,
-                           "spread_multiple": SPREAD_MULTIPLE},
+                           "spread_multiple": SPREAD_MULTIPLE,
+                           "plain_grads_on_host": phase.grads_on_host},
             "nll": nll, "history": hist, "run_s": run_s,
             "step_s": step_s, "step_ms": step_ms,
-            "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / (step_ms * 1e-3),
+            "tokens_per_s": TRAIN_BATCH * tokens / (step_ms * 1e-3),
             "step_breakdown": breakdown,
+            "flash_bwd_share_of_busy": (
+                device_ms.get("flash_attention_bwd", 0.0) / busy
+                if busy else None),
             "ssd_bwd_share_of_busy": (device_ms.get("ssd_scan_bwd", 0.0)
                                       / busy if busy else None),
             "peak_check_bytes": peak_check,
             "peak_train_bytes": peak_train,
+            "step_peak_bytes": max(peaks.steps),
+            "step_memory": step_memory,
             "peak_device_bytes": max(peak_check, peak_train,
                                      torch.cuda.max_memory_allocated()),
             "seconds": time.perf_counter() - t0}
@@ -3863,11 +4067,13 @@ def rank_heads(cfg, ranks: int) -> tuple:
 
 #: the dry run's cells that chip_smoke itself runs (llama_train without a
 #: mesh, mesh_train on its 1 x 1 mesh, tp_rank_train's and
-#: tp_rank_decode's rank of a 1 x 8 mesh: their shapes) and three train_4k
-#: cells on the 16 x 16 production mesh
+#: tp_rank_decode's rank of a 1 x 8 mesh, and the training phases of TRAIN
+#: whose cut is a depth, which the dry run's --layers takes (not jamba's
+#: period and offset): their shapes) and three train_4k cells on the 16 x
+#: 16 production mesh
 DRYRUN_TRAINED = {
     "llama_train": ["--arch", LLAMA, "--shape", "train_4k", "--mesh", "none",
-                    "--layers", str(TRAIN_LAYERS), "--batch",
+                    "--layers", str(LLAMA_TRAIN_LAYERS), "--batch",
                     str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--moments",
                     "fp32"],
     "mesh_train": ["--arch", LLAMA, "--shape", "train_4k", "--mesh",
@@ -3883,7 +4089,14 @@ DRYRUN_TRAINED = {
         "--arch", arch, "--shape", shape, "--mesh", "local", "--mesh-data",
         "1", "--mesh-model", str(TP_RANKS), "--batch", str(rows),
         *(["--layers", str(layers)] if layers else [])]
-       for which, (arch, shape, layers, rows) in TP_DECODE.items()}}
+       for which, (arch, shape, layers, rows) in TP_DECODE.items()},
+    **{f"{which}_train": [
+        "--arch", phase.arch, "--shape", "train_4k", "--mesh", "none",
+        *(["--layers", str(phase.cut["num_layers"])]
+          if "num_layers" in phase.cut else []),
+        "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--moments",
+        phase.moments]
+       for which, phase in TRAIN.items() if set(phase.cut) <= {"num_layers"}}}
 DRYRUN_PRODUCTION = (LLAMA, MAMBA, JAMBA)
 #: a trained cell's predicted step peak against the measured one
 DRYRUN_PEAK_BAND = (0.8, 1.25)
@@ -3898,19 +4111,21 @@ def dryrun_cores() -> set:
     return set(cores[len(cores) // 2:])
 
 
-def start_dryruns() -> dict:
+def start_dryruns(names=None) -> dict:
     """``python -m repro_torch.launch.dryrun``, each cell a process of its
     own, all started at once and pinned to ``dryrun_cores()`` (they use
     the host, not the card, and run beside the training phases, away from
     the cores this process drives the card from): the cells of
-    llama_train and mesh_train, and llama3-8b, mamba2-2.7b and
-    jamba-v0.1-52b at train_4k on the 16 x 16 mesh -> {cell: its
-    process}."""
+    DRYRUN_TRAINED, and llama3-8b, mamba2-2.7b and jamba-v0.1-52b at
+    train_4k on the 16 x 16 mesh; with ``names``, those of its cells alone
+    -> {cell: its process}."""
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     cells = dict(DRYRUN_TRAINED)
     for arch in DRYRUN_PRODUCTION:
         cells[arch] = ["--arch", arch, "--shape", "train_4k", "--mesh",
                        "single"]
+    if names is not None:
+        cells = {k: v for k, v in cells.items() if k in names}
     cores = dryrun_cores()
     procs = {}
     for name, argv in cells.items():
@@ -3980,9 +4195,10 @@ def phase_dryrun_check(torch, procs: dict, trained: dict) -> dict:
         "hbm_bytes_per_device", "collective_bytes_per_device",
         "collective_s_per_device", "roofline", "model_flops",
         "model_vs_hlo_flops", "kernel_calls", "trace_s")}
-        for name in DRYRUN_PRODUCTION}
-    return {"phase": "dryrun_check", "fake_device": records[LLAMA][
-        "fake_device"], "trained": held, "train_4k_16x16": production,
+        for name in DRYRUN_PRODUCTION if name in records}
+    return {"phase": "dryrun_check", "fake_device": next(iter(
+        records.values()))["fake_device"], "trained": held,
+            "train_4k_16x16": production,
             "trace_s": {name: rec["trace_s"] for name, rec in
                         records.items()},
             "seconds": time.perf_counter() - t0}
@@ -4009,10 +4225,62 @@ def kernel_line(name: str, results, tol, launches: int) -> dict:
         "library_ms": main_case["library_ms"]}
 
 
+def only_names() -> list:
+    """What ``--only`` takes: the flash phase, each LM_PHASES key (its
+    prefill, and its generation where it runs one), llama_train and each
+    TRAIN phase."""
+    return ["flash", *LM_PHASES, "llama_train",
+            *(f"{which}_train" for which in TRAIN)]
+
+
+def run_only(torch, seed: int, backend, device: dict, names: set) -> int:
+    """``--only``: the named phases alone, in the script's order, after the
+    build; a training phase's dry-run cell (DRYRUN_TRAINED) is started
+    beside it and held as in the whole run.  No ``kernels`` line and no
+    last line: this is not the whole run."""
+    if "flash" in names:
+        flash = phase_flash(torch, seed, device["copy_bytes_per_s"])
+        emit({k: v for k, v in flash.items() if k != "results"})
+    for which, phase in LM_PHASES.items():
+        if which not in names:
+            continue
+        line, model, params = phase_prefill(torch, seed, backend, which)
+        emit(line)
+        if phase.generate:
+            emit(phase_generate(torch, seed, backend, model, params, which))
+        del model, params
+        torch.cuda.empty_cache()
+    dryruns = start_dryruns(names)
+    try:
+        trained = {}
+        if "llama_train" in names:
+            trained["llama_train"] = phase_llama_train(torch, seed, backend)
+            emit(trained["llama_train"])
+        for which in TRAIN:
+            if f"{which}_train" in names:
+                trained[f"{which}_train"] = phase_train(torch, seed, backend,
+                                                        which)
+                emit(trained[f"{which}_train"])
+        if dryruns:
+            emit(phase_dryrun_check(torch, dryruns, trained))
+    finally:
+        stop(dryruns)
+    print(device["nvidia_smi"], flush=True)
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--only", default=None, metavar="NAME[,NAME...]",
+                    help="run these phases alone after the build (a check "
+                    "of one path, not the whole run): " + ", ".join(
+                        only_names()))
     args = ap.parse_args()
+    only = set(args.only.split(",")) if args.only else None
+    if only is not None and not only <= set(only_names()):
+        sys.exit(f"chip_smoke: --only takes {only_names()}, not "
+                 f"{sorted(only - set(only_names()))}")
 
     import torch
 
@@ -4031,6 +4299,8 @@ def main() -> int:
 
     device = phase_device(torch, build)
     emit(device)
+    if only is not None:
+        return run_only(torch, args.seed, backend, device, only)
     kernels = phase_kernels(torch, args.seed, device["copy_bytes_per_s"])
     emit({k: v for k, v in kernels.items() if k != "results"})
     grad = phase_grad_mag(torch, args.seed, device["copy_bytes_per_s"])
@@ -4085,10 +4355,12 @@ def main() -> int:
         emit(llama_train)
         lm_lines.append(llama_train)
         peak = max(peak, llama_train["peak_device_bytes"])
-        for which in SSM_TRAIN:
-            train = phase_ssm_train(torch, args.seed, backend, which)
+        trained = {}
+        for which in TRAIN:
+            train = phase_train(torch, args.seed, backend, which)
             emit(train)
             lm_lines.append(train)
+            trained[train["phase"]] = train
             peak = max(peak, train["peak_device_bytes"])
         mesh_train = phase_mesh_train(torch, args.seed, backend)
         emit(mesh_train)
@@ -4112,7 +4384,7 @@ def main() -> int:
             peak = max(peak, line["peak_device_bytes"])
         emit(phase_dryrun_check(torch, dryruns, {
             "llama_train": llama_train, "mesh_train": mesh_train,
-            "tp_rank_train": tp_rank,
+            "tp_rank_train": tp_rank, **trained,
             **{f"tp_rank_decode_{k}": v for k, v in tp_decode.items()}}))
     finally:
         stop(dryruns)

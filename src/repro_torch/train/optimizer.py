@@ -23,6 +23,13 @@ without it a leaf's own shape decides.
 tensors in place, under ``torch.no_grad()``: at llama3-8b's 8 layers the
 f32 masters and two moments are 33.5 GB, which a functional update would
 hold twice.  The returned parameter tree and state hold the same tensors.
+A leaf with int8 moments is updated whole rows at a time, at most
+:data:`UPDATE_PART` elements a part: its f32 moments, their update and the
+step live only for one part (a leaf's math is elementwise and its scales
+are per row, so the numbers are the same bits as a whole-leaf update).
+Updated whole, dbrx-132b's [16, 6144, 10752] expert stacks held four or
+more f32 copies of a 4.2 GB leaf at once, past one card beside the
+masters and gradients.
 
 On a mesh (``launch/train.py``) the update runs on each rank's local
 shards, given ``layouts``: a tree laid out as the params holding each
@@ -45,6 +52,9 @@ import torch.distributed as dist
 #: the JAX package's quantization threshold: leaves of at least this many
 #: elements (and two dimensions) get int8 moments
 Q_MIN_SIZE = 65536
+#: the most elements of a leaf with int8 moments that one part of the
+#: update takes (whole rows of its last axis; 256 MB of f32 a temporary)
+UPDATE_PART = 1 << 26
 
 
 @dataclasses.dataclass(frozen=True)
@@ -222,6 +232,32 @@ def update(grads, state: AdamState, params, cfg: OptimizerConfig,
     bc2 = 1 - torch.pow(torch.tensor(b2, device=stepf.device), stepf)
 
     def leaf_update(p, g, mu, nu, shape, layout):
+        if (isinstance(mu, QTensor) and layout is None
+                and p.numel() > UPDATE_PART and p.is_contiguous()):
+            return update_in_parts(p, g, mu, nu, shape)
+        return update_whole(p, g, mu, nu, shape, layout)
+
+    def update_in_parts(p, g, mu, nu, shape):
+        """The leaf's rows in parts of at most UPDATE_PART elements, each
+        through update_whole; its moments reassembled."""
+        last = p.shape[-1]
+        rows = p.numel() // last
+        step_rows = max(1, UPDATE_PART // last)
+        p2, g2 = p.view(rows, last), g.reshape(rows, last)
+        new = [QTensor(q=torch.empty_like(m.q), scale=torch.empty_like(
+            m.scale), shape=m.shape) for m in (mu, nu)]
+        for r0 in range(0, rows, step_rows):
+            r1 = min(rows, r0 + step_rows)
+            part = [QTensor(q=m.q.reshape(rows, last)[r0:r1],
+                            scale=m.scale.reshape(rows)[r0:r1],
+                            shape=(r1 - r0, last)) for m in (mu, nu)]
+            for out, m in zip(new, update_whole(p2[r0:r1], g2[r0:r1],
+                                                *part, shape, None)):
+                out.q.view(rows, last)[r0:r1] = m.q
+                out.scale.view(rows)[r0:r1] = m.scale
+        return tuple(new)
+
+    def update_whole(p, g, mu, nu, shape, layout):
         quantized = isinstance(mu, QTensor)
         mu_f = dequantize(mu) if quantized else mu
         nu_f = dequantize(nu) ** 2 if quantized else nu

@@ -541,6 +541,33 @@ def test_internvl_prefill_with_prefix_on_the_card(card):
     assert float(agree) > 0.95
 
 
+def test_qwen_prefill_on_the_card_launches_flash_once_per_layer(card):
+    """qwen1.5-4b-smoke (QKV biases, as many KV heads as query heads):
+    flash once per layer in a prefill, the logits against the plain
+    run's."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build
+    from repro_torch.train import make_prefill
+
+    cfg = dataclasses.replace(get_config("qwen1.5-4b", "smoke"),
+                              attention_impl="auto")
+    assert cfg.qkv_bias and cfg.num_heads == cfg.num_kv_heads
+    model = build(cfg)
+    params = model.init(0)
+    for layer in params["blocks"]:  # biases that move the scores
+        for name in ("bq", "bk", "bv"):
+            layer["attn"][name].normal_(0.0, 0.5)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 64), device=card)
+    backend.reset_launch_counts()
+    logits = make_prefill(model)(params, tokens=tokens)
+    torch.cuda.synchronize()
+    assert backend.launch_counts()["flash_attention"] == cfg.num_layers
+    plain = build(dataclasses.replace(cfg, attention_impl="chunked"))
+    want = make_prefill(plain)(params, tokens=tokens)
+    agree = (logits.argmax(-1) == want.argmax(-1)).float().mean()
+    assert float(agree) > 0.95
+
+
 def test_calibration_on_the_card_is_bit_identical_to_the_cpu(card):
     cs = ChunkStore(Festivus(InMemoryObjectStore()), "raw")
     pcal.make_raw_scene(cs, "s", 1024, 1024, seed=4)
@@ -734,6 +761,70 @@ def test_train_step_on_the_card_launches_forward_and_backward(card):
     torch.testing.assert_close(p_k["blocks"][0]["attn"]["wq"],
                                p_p["blocks"][0]["attn"]["wq"],
                                rtol=1e-4, atol=1e-5)
+
+
+def _train_step_launches(cfg, batch):
+    """One f32 train step with remat through the kernels and one through
+    the plain versions -> (each step's metrics and launches)."""
+    from repro_torch.models import build
+    from repro_torch.train import OptimizerConfig, make_train_step
+    from repro_torch.train import optimizer as opt
+
+    opt_cfg = OptimizerConfig(learning_rate=1e-3, warmup_steps=1)
+    results = []
+    for impl in ("auto", "chunked"):
+        model = build(dataclasses.replace(cfg, attention_impl=impl))
+        params = model.init(0, param_dtype=torch.float32)
+        backend.reset_launch_counts()
+        _, _, m = make_train_step(model, opt_cfg)(
+            params, opt.init(params, opt_cfg), batch)
+        torch.cuda.synchronize()
+        results.append((m, backend.launch_counts()))
+    return results
+
+
+def test_seamless_train_step_with_frames_launches_forward_and_backward(card):
+    """seamless-smoke trained on 32 frames under 64 decoder tokens: per
+    step 2 (enc_layers + 2 num_layers) forward launches (forward and remat
+    recompute; the cross-attention's 64 queries on 32 frames, no mask) and
+    enc_layers + 2 num_layers backward; the loss near the plain step's."""
+    from repro_torch.configs import get_config
+
+    cfg = dataclasses.replace(get_config("seamless-m4t-large-v2", "smoke"),
+                              attention_impl="auto", remat=True,
+                              dtype="float32")
+    tokens = torch.randint(0, cfg.vocab_size, (2, 64), device=card)
+    batch = {"tokens": tokens, "labels": tokens,
+             "frontend": torch.randn((2, 32, cfg.frontend_dim),
+                                     device=card)}
+    (m_k, n_k), (m_p, n_p) = _train_step_launches(cfg, batch)
+    calls = cfg.enc_layers + 2 * cfg.num_layers
+    assert n_k["flash_attention"] == 2 * calls
+    assert n_k["flash_attention_bwd"] == calls
+    assert n_p["flash_attention"] == n_p["flash_attention_bwd"] == 0
+    assert abs(float(m_k["loss"]) - float(m_p["loss"])) < 1e-4
+    assert abs(float(m_k["grad_norm"]) - float(m_p["grad_norm"])) < 1e-3 * \
+        float(m_p["grad_norm"])
+
+
+def test_gemma_train_step_at_head_dim_256_launches_forward_and_backward(
+        card):
+    """gemma-smoke widened to head_dim 256 (the kernels' D = 256
+    instantiations, forward and backward) in one train step."""
+    from repro_torch.configs import get_config
+
+    cfg = dataclasses.replace(get_config("gemma-7b", "smoke"), head_dim=256,
+                              attention_impl="auto", remat=True,
+                              dtype="float32")
+    tokens = torch.randint(0, cfg.vocab_size, (2, 128), device=card)
+    (m_k, n_k), (m_p, n_p) = _train_step_launches(
+        cfg, {"tokens": tokens, "labels": tokens})
+    assert n_k["flash_attention"] == 2 * cfg.num_layers
+    assert n_k["flash_attention_bwd"] == cfg.num_layers
+    assert n_p["flash_attention"] == n_p["flash_attention_bwd"] == 0
+    assert abs(float(m_k["loss"]) - float(m_p["loss"])) < 1e-4
+    assert abs(float(m_k["grad_norm"]) - float(m_p["grad_norm"])) < 1e-3 * \
+        float(m_p["grad_norm"])
 
 
 # ---------------------------------------------------------------------------

@@ -5,8 +5,9 @@ batches, on the card: does the kernel's curve alone rise?
     PYTHONPATH=src python tools/train_curves.py [--which mamba jamba]
         [--seed 0]
 
-For each of ``--which`` (chip_smoke.py's SSM_TRAIN: mamba2-2.7b at full
-width and depth, jamba-v0.1-52b at full width and 2 layers) it runs
+For each of ``--which`` (chip_smoke.py's TRAIN: mamba2-2.7b at full
+width and 32 of its 64 layers, jamba-v0.1-52b at full width and 2 layers)
+it runs
 launch.train's code path for TRAIN_STEPS steps of 2 x 4096 tokens at
 TRAIN_LR, as the ``mamba_train`` and ``jamba_train`` phases do (no
 checkpoint): once with the SSD kernels and once with every ``ops.ssd``
@@ -21,7 +22,6 @@ from __future__ import annotations
 
 import argparse
 import contextlib
-import dataclasses
 import json
 import subprocess
 import sys
@@ -42,7 +42,6 @@ def main() -> int:
     import torch
 
     import chip_smoke as cs
-    from repro_torch.configs import get_config
     from repro_torch.kernels import backend
     from repro_torch.kernels import ssd_scan as kssd
     from repro_torch.launch import train as ptrain
@@ -52,8 +51,8 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     for which in args.which:
-        arch, cut = cs.SSM_TRAIN[which]
-        cfg = dataclasses.replace(get_config(arch), **cut)
+        arch = cs.TRAIN[which].arch
+        cfg = cs.train_config(which)
         targs = cs.train_args(args.seed, arch=arch)
         spec = ptrain.corpus_spec(targs, cfg)
         rows = spec.shard_tokens // (targs.seq + 1)
