@@ -20,22 +20,23 @@ Phases, each printing one JSON line with its seconds:
    cases, and every attention and SSD case (among them one dbrx-132b
    attention layer, seamless-m4t-large-v2's encoder, decoder and
    cross-attention layers and a decode step's cross-attention, one
-   internvl2-1b, one gemma-7b, one qwen1.5-4b and one qwen2-72b layer, and
-   one jamba-v0.1-52b mamba
-   sublayer; a decode step's cross-attention also split into 8 and 16
-   shards of its 512 frames, the kernel with its log-sum-exp on each and
-   the combine, held against one launch and the plain version), are
-   timed with
-   CUDA events (median of 10; the prefill_32k attention and SSD layers,
-   median of 3), beside their bound and, for bf16 attention where its
-   mask is the kernel's (non-causal, or Sq == Sk), PyTorch's
-   ``scaled_dot_product_attention`` on the same inputs (no single PyTorch
-   call computes the SSD); then ``flash_bwd``: the flash backward kernel
-   against ``ref.attention_bwd`` (dq, dk and dv each within BWD_TOL and
-   BWD_REL_L2), f32 and bf16, at the llama_train layer ([2,32,4096,128],
-   Hkv 8, causal), llama's serving layer, internvl2-1b's and gemma-7b's
-   layers, seamless's cross-attention and ragged shapes; the timed cases
-   beside their bound (10·D operations per visible pair), the plain
+   internvl2-1b, one gemma-7b, one qwen1.5-4b and one qwen2-72b layer,
+   qwen72_train's layer, one maverick_rank_train rank's heads and one
+   jamba-v0.1-52b mamba sublayer; a decode step's cross-attention also
+   split into 8 and 16 shards of its 512 frames, the kernel with its
+   log-sum-exp on each and the combine, held against one launch and the
+   plain version), are timed with CUDA events (median of 10; the
+   prefill_32k attention and SSD layers, median of 3), beside their
+   bound and, for bf16 attention where its mask is the kernel's
+   (non-causal, or Sq == Sk), PyTorch's ``scaled_dot_product_attention``
+   on the same inputs (no single PyTorch call computes the SSD); then
+   ``flash_bwd``: the flash backward kernel against ``ref.attention_bwd``
+   (dq, dk and dv each within BWD_TOL and BWD_REL_L2), f32 and bf16, at
+   the llama_train layer ([2,32,4096,128], Hkv 8, causal), llama's serving
+   layer, internvl2-1b's and gemma-7b's layers, seamless's
+   cross-attention, qwen72_train's layer (64 query heads on 8), one
+   maverick_rank_train rank's heads (5 on 1) and ragged shapes; the timed
+   cases beside their bound (10·D operations per visible pair), the plain
    version and the backward of SDPA where its mask is the kernel's (f32:
    its memory-efficient backend); the main case run twice more, dk and dv
    bit-identical and dq's spread between the runs within
@@ -152,7 +153,16 @@ Phases, each printing one JSON line with its seconds:
    on 8, QKV biases, two 152,064-row vocabulary matrices; 33.1 GB), as
    phase 10;
 29. qwen2-72b generation, as phase 11;
-30. ``llama_train``: llama3-8b at full width, 2 of its 32 layers (f32
+30. ``llama_32k``: prefill_32k at full width and depth, one of its 32 rows
+    (1 request of 32,768 tokens; logits [1, 32768, 128256], 4.2e9 bf16
+    values, checked finite 256 positions at a time), as phase 10 but for
+    the per-layer hold, which covers the first two and the last two of the
+    32 layers (the plain attention takes 0.85 s a layer at this length);
+    32 ``flash_attention`` launches at [1,32,32768,128], Hkv 8; no
+    generation (the prompt would be fed one token at a time);
+31. ``mamba_32k``: mamba2-2.7b as phase 30, every layer held: 64
+    ``ssd_scan`` launches at x [1,32768,80,64], N 128;
+32. ``llama_train``: llama3-8b at full width, 2 of its 32 layers (f32
     masters and fp32 AdamW moments, 23.8 GB; bf16 activations; remat
     "full"), trained through ``launch.train.run`` on 2 x 4096 tokens a step
     from the token store over ``PrefetchLoader``, 10 steps at lr 3e-4:
@@ -164,7 +174,7 @@ Phases, each printing one JSON line with its seconds:
     checkpoint restored bit-identical, then ``--resume`` one step from it;
     (e) step time, tokens/s, peak memory, a profiler breakdown of one step
     and the optimizer's device time;
-31. ``mamba_train``: mamba2-2.7b at full width, 32 of its 64 layers
+33. ``mamba_train``: mamba2-2.7b at full width, 32 of its 64 layers
     (1.42e9 parameters, 22.6 GB of f32 masters, gradients and moments;
     bf16 activations; remat "full"), trained through ``launch.train.run``
     on 2 x 4096 tokens a step, 10 steps at lr 3e-4, no checkpoint: (a) the
@@ -178,12 +188,12 @@ Phases, each printing one JSON line with its seconds:
     forward + 32 remat recomputes) and 32 ``ssd_scan_bwd``, no flash; (c)
     a falling nll; (d) step time, tokens/s, each step's peak memory and a
     profiler breakdown of one step, with the SSD backward's share;
-32. ``jamba_train``: jamba-v0.1-52b at full width, its first 2 layers
+34. ``jamba_train``: jamba-v0.1-52b at full width, its first 2 layers
     ((mamba, FFN) and (mamba, MoE of 16 experts top-2), 3.73e9 parameters,
-    59.7 GB), as phase 31, the MoE's routes held to the plain run's in
+    59.7 GB), as phase 33, the MoE's routes held to the plain run's in
     (a): the SSD backward at N 16 and 128 heads, the first MoE training on
     the card;
-33-38. the other families of ``TRAIN``, as phase 31 with every kernel of
+35-41. the other families of ``TRAIN``, as phase 33 with every kernel of
     the path in (a) replaced by its plain version (attention by
     ``ref.attention_chunked``; the SSD's two chunkings give the spread
     only where the model has mamba layers, elsewhere the gates hold
@@ -197,9 +207,12 @@ Phases, each printing one JSON line with its seconds:
     tokens, the prefix dropped from the loss; 14 query heads on 2),
     ``dbrx_train`` (1 of 40 layers, int8 moments, routes held; the plain
     step's gradients wait on the host), ``jamba_attn_train`` (jamba's first
-    super-block as (mamba, FFN), (attention, MoE): period 2, offset 1) and
-    ``qwen_train`` (16 of 40 layers: the QKV biases' backward);
-39. ``mesh_train``: llama3-8b at full width, 2 layers (int8 moments),
+    super-block as (mamba, FFN), (attention, MoE): period 2, offset 1),
+    ``qwen_train`` (16 of 40 layers: the QKV biases' backward) and
+    ``qwen72_train`` (1 of 80 layers, int8 moments: 64 query heads on 8 in
+    the backward, the QKV biases at d_model 8192, 152,064-row f32
+    logits);
+42. ``mesh_train``: llama3-8b at full width, 2 layers (int8 moments),
     through ``launch.train``'s mesh path (the tensor-parallel step, each
     model-axis collective over a group of one) on a 1 x 1 NCCL mesh (world size
     1, ``cuda``; the box has one card, and NCCL takes no two ranks on one
@@ -208,52 +221,57 @@ Phases, each printing one JSON line with its seconds:
     [0, 2) and dies at step 3, the lease passes, trainer B restores step 2
     through ``restore(shardings=)`` and finishes [2, 4); (a) the first
     step's loss and gradients against the mesh-less step, (b) the restore
-    bit-identical, (c) the flash launches per step as in phase 30, (d)
+    bit-identical, (c) the flash launches per step as in phase 32, (d)
     each range completed once, (e) the step time against the mesh-less
     step's (the DTensor path's cost) and the save and restore seconds;
-40. ``grad_compression``: ``train/grad_compression.py``'s
+43. ``grad_compression``: ``train/grad_compression.py``'s
     ``compressed_psum_mean`` over a 1-rank NCCL group on mesh_train's
     first-step gradients (1.487·10⁹ f32 elements), bit-identical to the
     same arithmetic written out on one rank, the error-feedback
     invariant, its time, wire bytes against an f32 all-reduce's, and its
     rate against the copy's;
-41. ``tp_rank_train``: rank 0 of a 1 x 8 tensor-parallel mesh in one
-    process under torch's fake process group (the collectives do no work:
-    the values are not checked): llama3-8b at full width, 8 layers, 2 x
-    4096 tokens, int8 moments, through ``make_mesh_train_step``; the step
-    time, each step's peak, and the flash launches a step at the per-rank
-    shapes (4 query heads on 1 KV head);
-42. ``mesh_generate`` (run between phases 40 and 41): ``greedy_generate``
+44. the rank phases of ``RANK_TRAIN``: rank 0 of a 1 x 8 tensor-parallel
+    mesh in one process under torch's fake process group (the collectives
+    do no work: the values are not checked), 2 x 4096 tokens, int8
+    moments, through ``make_mesh_train_step``: ``tp_rank_train``
+    (llama3-8b at full width, 8 layers; 4 query heads on 1 KV head) and
+    ``maverick_rank_train`` (llama4-maverick at full width, 1 of 48 layers,
+    expert parallel: 16 of the 128 experts; 5 query heads on 1 KV head; a
+    vocabulary-parallel loss over 202,048 rows); the step time, each
+    step's peak and the update's part of it, a profiled step's device time
+    by group (an MoE's steps by CUDA events), and the flash launches a
+    step at the per-rank shapes;
+45. ``mesh_generate`` (run between phases 43 and 44): ``greedy_generate``
     on a ``launch/train.py:MeshModel`` over a 1 x 1 NCCL mesh, its caches
     split by sequence (split-K) and by KV head, and mesh-less on the same
     weights: llama3-8b at full width, 8 layers, bf16, 4 requests of 64
     prompt tokens and 32 new ones; tokens identical, each step's logits
     within PREFILL_REL_L2; each run's step time and a profiled step's idle
     share;
-43. ``tp_rank_decode``: rank 0 of a 1 x 8 mesh under the fake process
-    group (as phase 41; values not checked) decoding through
+46. ``tp_rank_decode``: rank 0 of a 1 x 8 mesh under the fake process
+    group (as phase 44; values not checked) decoding through
     ``make_mesh_decode_step`` on its shards of the bf16 weights and of
     caches split by sequence: llama3-8b at full depth, decode_32k with 32
     rows, and jamba-v0.1-52b at long_500k cut to 8 layers; the step time,
     each step's peak and a profiled step's idle share;
-44. ``dryrun_check``: ``python -m repro_torch.launch.dryrun`` (fake
+47. ``dryrun_check``: ``python -m repro_torch.launch.dryrun`` (fake
     tensors, the fake process group), each cell its own process, started
-    before phase 30 and read here (they use the host, beside the training
+    before phase 32 and read here (they use the host, beside the training
     phases, pinned to the upper half of the cores): the cells of
-    llama_train, mesh_train, tp_rank_train, tp_rank_decode's two and the
-    training phases of TRAIN whose cut is a depth (mamba, seamless, gemma,
-    internvl, dbrx and qwen), their predicted step peaks within
-    DRYRUN_PEAK_BAND of the step peaks those phases measured
+    llama_train, mesh_train, the two rank phases, tp_rank_decode's two and
+    the training phases of TRAIN whose cut is a depth (mamba, seamless,
+    gemma, internvl, dbrx, qwen and qwen72), their predicted step peaks
+    within DRYRUN_PEAK_BAND of the step peaks those phases measured
     (``step_peak_bytes``), predicted flops and roofline step beside the
     measured step; llama3-8b, mamba2-2.7b and jamba-v0.1-52b at train_4k on
     the 16 x 16 mesh, each ``ok``;
-45. summary: the ``kernels`` line, the peak device memory, the
+48. summary: the ``kernels`` line, the peak device memory, the
     ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.
 
 Each LM is freed before the next is drawn.  The launch counts are set to
-0 just before each main-path run (phases 2-7, 10-29, llama_train's run
-and resumed step, the runs of phases 31-38, mesh_train's elastic run,
-each of mesh_generate's three runs, tp_rank_train's and tp_rank_decode's
+0 just before each main-path run (phases 2-7, 10-31, llama_train's run
+and resumed step, the runs of phases 33-41, mesh_train's elastic run,
+each of mesh_generate's three runs, the rank phases' and tp_rank_decode's
 timed steps) and read just after it; the ``kernels`` line adds those
 counts.  The training phases' first-step comparisons and profiled steps
 verify: their launches stay in their lines.  The decode checks' prefills
@@ -262,11 +280,11 @@ stay in their phase's line (``prefill_check_launches``).  Each example
 process counts its own from 0, and phase 8 runs no device work.
 
 ``--only NAME[,NAME...]`` runs the named phases alone after phase 0
-(``flash``, an LM of LM_PHASES by its key, ``llama_train`` or a training
-phase of TRAIN by its line's name, e.g. ``--only qwen,gemma_train``), with
-the dry-run cells
-of those training phases, and prints no ``kernels`` line and no last
-line: a check of one path, not the run above.
+(``flash``, ``flash_bwd``, an LM of LM_PHASES by its key, ``llama_train``,
+a training phase of TRAIN or a rank phase of RANK_TRAIN by its line's
+name, e.g. ``--only llama_32k,qwen72_train,maverick_rank_train``), with
+the dry-run cells of those training phases, and prints no ``kernels``
+line and no last line: a check of one path, not the run above.
 
 Any mismatch raises and the script exits nonzero.  Without CUDA, or run
 from a directory that holds nothing else of the repository, it exits
@@ -325,6 +343,9 @@ INTERNVL = "internvl2-1b"
 QWEN = "qwen1.5-4b"
 QWEN72 = "qwen2-72b"
 PREFILL_BATCH, PREFILL_LEN = 4, 2048
+#: SHAPES["prefill_32k"]'s length (configs/base.py:32); one card takes one
+#: of its 32 rows
+PREFILL_32K_LEN = 32768
 GEN_BATCH, GEN_PROMPT, GEN_NEW = 4, 64, 32
 #: the kernel's logits against the plain run's, relative L2 over [4, 2048, V]
 PREFILL_REL_L2 = 2e-2
@@ -744,6 +765,13 @@ FLASH_CASES = [
     *[(name, shape, True, "bfloat16", TIMED_RUNS, False)
       for name, shape in [("tp8_llama_train", (2, 4, 1, 4096, 4096, 128)),
                           ("tp16_llama_train", (2, 2, 1, 4096, 4096, 128))]],
+    # the two training layers that came last, as the attention layer hands
+    # them over: qwen2-72b's (qwen72_train: 64 query heads on 8) and one
+    # rank's heads of maverick's at a model axis of 8 (maverick_rank_train:
+    # 5 query heads on 1 KV head)
+    *[(name, shape, True, "bfloat16", TIMED_RUNS, True)
+      for name, shape in [("qwen72_train", (2, 64, 8, 4096, 4096, 128)),
+                          ("maverick_rank", (2, 5, 1, 4096, 4096, 128))]],
 ]
 
 
@@ -987,6 +1015,12 @@ BWD_CASES = [
      TIMED_RUNS, False),
     ("tp16_llama_train", (2, 2, 1, 4096, 4096, 128), True, ("bfloat16",),
      TIMED_RUNS, False),
+    # qwen72_train's layer (8 query heads a KV head) and maverick_rank_train's
+    # rank (5 query heads on 1 KV head)
+    ("qwen72_train", (2, 64, 8, 4096, 4096, 128), True, ("bfloat16",),
+     TIMED_RUNS, True),
+    ("maverick_rank", (2, 5, 1, 4096, 4096, 128), True, ("bfloat16",),
+     TIMED_RUNS, True),
 ]
 #: the main case's backward run twice: dk and dv must be bit-identical, dq
 #: within BWD_DQ_RUN_SPREAD x max(1, max |dq|) of the other run (its f32
@@ -1448,7 +1482,8 @@ def moe_step_ms(torch, fn, runs: int = 3) -> dict:
     its MoE layers, from CUDA events recorded on the stream around each
     step.  In a prefill the device runs the kernels back to back (idle
     < 1 %, profile_breakdown), so the span between a step's two events is
-    its kernels' time."""
+    its kernels' time; in a train step the spans are the forward's and the
+    remat recompute's, with the step's idle share in its breakdown."""
     from repro_torch.models import moe
 
     spans = {name: [] for name in MOE_STEPS}
@@ -2167,6 +2202,14 @@ def logits_diff(torch, got, want, rows: int = 256) -> dict:
             "argmax_agreement": agree / (B * S)}
 
 
+def all_finite(torch, logits, rows: int = 256) -> bool:
+    """Whether every value of [B, S, V] ``logits`` is finite, ``rows``
+    positions at a time (prefill_32k's logits hold 4.2e9 elements)."""
+    B, S, _ = logits.shape
+    return all(bool(torch.isfinite(logits[b, s0:s0 + rows]).all())
+               for b in range(B) for s0 in range(0, S, rows))
+
+
 def plain_prefill(model, params, inputs):
     """The same weights through both kernels' plain versions: attention
     with attention_impl="chunked", the SSD with ssd_impl="chunked"."""
@@ -2193,8 +2236,10 @@ class LMPhase(NamedTuple):
     config's own), the prefill logits' relative L2 limit against the plain
     run, the same with the plain run routed as the kernel run was (MoE
     models; None otherwise), the activations' and KV cache's dtype of the
-    decode-against-prefill check (None: the model's own) and whether it
-    runs the generate phase."""
+    decode-against-prefill check (None: the model's own), whether it
+    runs the generate phase, the prefill's requests and positions each,
+    and the layers its per-layer hold covers: each kernel's first and last
+    ``held_ends`` calls (None: every one)."""
 
     arch: str
     layers: Optional[int]
@@ -2202,6 +2247,9 @@ class LMPhase(NamedTuple):
     held_routes_rel_l2_limit: Optional[float]
     check_dtype: Optional[str]
     generate: bool
+    requests: int = PREFILL_BATCH
+    tokens_each: int = PREFILL_LEN
+    held_ends: Optional[int] = None
 
 
 # mamba2-2.7b's 64 bf16 layers amplify one-ulp differences past
@@ -2222,7 +2270,14 @@ class LMPhase(NamedTuple):
 # (tools/moe_spread.py's decode_vs_prefill).  qwen2-72b is cut to 16 of its
 # 80 layers: 8.78e8 parameters a layer (attention 1.51e8, the FFN 7.27e8)
 # and two untied vocabulary matrices of 1.25e9, 16.5e9 parameters, 33.1 GB
-# in bf16.
+# in bf16.  The last two rows are prefill_32k at full width and depth, one
+# of its 32 rows: [1, 32768] tokens, logits [1, 32768, V] (llama3-8b's 4.2e9
+# elements, 8.4 GB in bf16).  They do not generate: greedy_generate feeds
+# the prompt one token at a time (train/serve_step.py), so a 32k prompt
+# would be 32,768 decode steps, none of which launches a kernel.  At this
+# length the plain attention takes 0.85 s a layer, so llama's per-layer
+# hold covers its first two and last two layers; the plain SSD takes 31 ms
+# a layer, so mamba's covers all 64.
 LM_PHASES = {
     "llama": LMPhase(LLAMA, None, PREFILL_REL_L2, None, None, True),
     "mamba": LMPhase(MAMBA, None, MAMBA_PREFILL_REL_L2, None, "float32",
@@ -2240,6 +2295,10 @@ LM_PHASES = {
                         True),
     "qwen": LMPhase(QWEN, None, PREFILL_REL_L2, None, None, True),
     "qwen72": LMPhase(QWEN72, 16, PREFILL_REL_L2, None, None, True),
+    "llama_32k": LMPhase(LLAMA, None, PREFILL_REL_L2, None, None, False,
+                         1, PREFILL_32K_LEN, held_ends=2),
+    "mamba_32k": LMPhase(MAMBA, None, MAMBA_PREFILL_REL_L2, None, None,
+                         False, 1, PREFILL_32K_LEN),
 }
 
 
@@ -2361,32 +2420,48 @@ def route_flips(torch, got, want) -> Optional[dict]:
             "tokens_flipped_share": float(token_flipped.float().mean())}
 
 
-def make_held(torch, op: str, plain, tol, l2_limit, errs, l2s, kernel):
+def make_held(torch, op: str, plain, tol, l2_limit, held: dict, kernel):
     """``kernel`` (``ops.<op>``) with its output held against ``plain`` on
     the same inputs, within ``tol`` elementwise and ``l2_limit`` relative
-    L2; each call appends its errors."""
-    def held(*args, impl="auto", chunk=None, **kw):
+    L2, at the calls ``held["layers"]`` lists (None: every call); each call
+    counts in ``held["calls"]``, each held one appends its errors."""
+    def call(*args, impl="auto", chunk=None, **kw):
         check(impl == "auto" and args[0].is_cuda, f"{op} layers: impl {impl}")
+        layer = held["calls"]
+        held["calls"] += 1
         got = kernel(*args, **kw)
+        if held["layers"] is not None and layer not in held["layers"]:
+            return got
         want = plain(*args, **kw)
         xd = str(got.dtype).removeprefix("torch.")
-        layer = len(errs)
         torch.testing.assert_close(got.float(), want.float(), rtol=tol[xd],
                                    atol=tol[xd], msg=f"{op}, layer {layer}")
-        errs.append(float((got.float() - want.float()).abs().max()))
-        l2s.append(rel_l2(torch, got, want))
-        check(l2s[-1] < l2_limit[xd], f"{op}, layer {layer}: relative L2 "
-              f"{l2s[-1]} >= {l2_limit[xd]}")
+        held["held"].append(layer)
+        held["errs"].append(float((got.float() - want.float()).abs().max()))
+        held["l2s"].append(rel_l2(torch, got, want))
+        check(held["l2s"][-1] < l2_limit[xd], f"{op}, layer {layer}: "
+              f"relative L2 {held['l2s'][-1]} >= {l2_limit[xd]}")
         return got
 
-    return held
+    return call
 
 
-def held_layers(torch, model, params, inputs, expected: dict) -> dict:
+def held_calls(n: int, ends: Optional[int]) -> Optional[list]:
+    """Which of a kernel's ``n`` calls in a prefill the per-layer hold
+    covers: the first and the last ``ends``; None (every call) where
+    ``ends`` is None or the two ends meet."""
+    if ends is None or 2 * ends >= n:
+        return None
+    return [*range(ends), *range(n - ends, n)]
+
+
+def held_layers(torch, model, params, inputs, expected: dict,
+                ends: Optional[int] = None) -> dict:
     """One bf16 prefill with each layer's kernel held against its plain
     version on that layer's own inputs (LAYER_HOLDS), every kernel of the
-    model at once.  Returns, per kernel, the largest and median errors
-    over its layers."""
+    model at once: each kernel's first and last ``ends`` calls (None:
+    every call).  Returns, per kernel, the layers held and the largest and
+    median errors over them."""
     from repro_torch.kernels import ops
     from repro_torch.train import make_prefill
 
@@ -2396,15 +2471,21 @@ def held_layers(torch, model, params, inputs, expected: dict) -> dict:
             if not n:
                 continue
             key, op, plain, tol, l2_limit = LAYER_HOLDS[kernel]
-            errs, l2s = [], []
-            holds[key] = (errs, l2s, tol, l2_limit, n, op)
+            held = {"layers": held_calls(n, ends), "calls": 0, "held": [],
+                    "errs": [], "l2s": []}
+            holds[key] = (held, tol, l2_limit, n, op)
             stack.enter_context(patched(ops, op, functools.partial(
-                make_held, torch, op, plain, tol, l2_limit, errs, l2s)))
+                make_held, torch, op, plain, tol, l2_limit, held)))
         make_prefill(model)(params, **inputs)
     out = {}
-    for key, (errs, l2s, tol, l2_limit, n, op) in holds.items():
-        check(len(errs) == n, f"{op} layers: {len(errs)} held, {n} expected")
-        out[key] = {"layers": n, "max_abs_err": max(errs),
+    for key, (held, tol, l2_limit, n, op) in holds.items():
+        errs, l2s = held["errs"], held["l2s"]
+        want = list(range(n)) if held["layers"] is None else held["layers"]
+        check(held["calls"] == n and held["held"] == want,
+              f"{op} layers: {held['calls']} calls, {held['held']} held; "
+              f"{n} calls and {want} expected")
+        out[key] = {"layers": n, "held_layers": held["held"],
+                    "max_abs_err": max(errs),
                     "median_abs_err": statistics.median(errs),
                     "max_rel_l2": max(l2s),
                     "median_rel_l2": statistics.median(l2s),
@@ -2440,12 +2521,13 @@ LAYER_HOLDS = {
 
 
 def phase_prefill(torch, seed: int, backend, which: str):
-    """An LM at full width (and depth, unless LM_PHASES cuts it): 4
-    requests of 2048 positions through ``make_prefill`` (lm_inputs: an
-    enc-dec model's 2048 decoder tokens on 512 frames, a VLM's 256 patch
-    embeddings and 1792 tokens), each kernel launched once per layer of its
-    kind, logits held against the plain run (with the share of MoE routing
-    that differs between the two runs).  Returns (line, model, params)."""
+    """An LM at full width (and depth, unless LM_PHASES cuts it): the
+    row's requests of its positions each (4 of 2048 unless it says
+    otherwise) through ``make_prefill`` (lm_inputs: an enc-dec model's 2048
+    decoder tokens on 512 frames, a VLM's 256 patch embeddings and 1792
+    tokens), each kernel launched once per layer of its kind, logits held
+    against the plain run (with the share of MoE routing that differs
+    between the two runs).  Returns (line, model, params)."""
     from repro_torch.configs import get_config
     from repro_torch.models import build
     from repro_torch.models.model_zoo import padded_vocab
@@ -2466,7 +2548,8 @@ def phase_prefill(torch, seed: int, backend, which: str):
     param_bytes = sum(t.numel() * t.element_size() for t in leaves)
     check(all(t.is_cuda for t in leaves), f"{which}: params off the card")
     g = torch.Generator(device="cuda").manual_seed(seed + 1)
-    inputs = lm_inputs(torch, cfg, g, PREFILL_BATCH, PREFILL_LEN)
+    requests, tokens_each = phase.requests, phase.tokens_each
+    inputs = lm_inputs(torch, cfg, g, requests, tokens_each)
     prefill = make_prefill(model)
     # the first prefill's logits are freed before the timed one, as a
     # server frees a response, so the timed run reuses the first one's
@@ -2479,18 +2562,22 @@ def phase_prefill(torch, seed: int, backend, which: str):
     launches = backend.launch_counts()
     check(all(launches[k] == n for k, n in expected.items()),
           f"{which} prefill: launches {launches}, expected {expected}")
-    check(tuple(logits.shape) == (PREFILL_BATCH, PREFILL_LEN,
-                                  padded_vocab(cfg))
+    check(tuple(logits.shape) == (requests, tokens_each, padded_vocab(cfg))
           and logits.dtype == torch.bfloat16, f"{which} prefill: logits shape")
-    check(bool(torch.isfinite(logits).all()), f"{which} prefill: non-finite")
+    check(all_finite(torch, logits), f"{which} prefill: non-finite")
+    # a prefill longer than the 4 x 2048 one (prefill_32k's 1.6 s) is
+    # repeated and profiled once, not twice and thrice: the script's time
+    long = requests * tokens_each > PREFILL_BATCH * PREFILL_LEN
     repeats = [watched(torch, lambda: prefill(params, **inputs))[1:]
-               for _ in range(2)]
+               for _ in range(1 if long else 2)]
 
     with recorded_routes() as plain_routes:
         want, plain_s = synced(torch, lambda: plain_prefill(model, params,
                                                             inputs))
     flips = route_flips(torch, routes, plain_routes)
     diff = logits_diff(torch, logits, want)
+    if not routes:  # nothing more to hold it against: freed before the next
+        del logits
     # the same prefill with PyTorch's attention in place of the kernel,
     # against the same plain run: how far a library's bf16 attention (P
     # rounded to bf16 as well) moves these logits
@@ -2503,16 +2590,18 @@ def phase_prefill(torch, seed: int, backend, which: str):
         with held_routes(routes):
             want = plain_prefill(model, params, inputs)
         held_diff = logits_diff(torch, logits, want)
-        del want
-    del logits, routes
+        del want, logits
+    del routes
     torch.cuda.empty_cache()
-    holds = held_layers(torch, model, params, inputs, expected)
-    breakdown = profile_breakdown(torch, lambda: prefill(params, **inputs))
+    holds = held_layers(torch, model, params, inputs, expected,
+                        phase.held_ends)
+    breakdown = profile_breakdown(torch, lambda: prefill(params, **inputs),
+                                  runs=1 if long else 3)
     moe_ms = (moe_step_ms(torch, lambda: prefill(params, **inputs))
               if cfg.is_moe else None)
     peak = torch.cuda.max_memory_allocated()
     line = {"phase": f"{which}_prefill", "arch": cfg.arch_id,
-            "requests": PREFILL_BATCH, "tokens_each": PREFILL_LEN,
+            "requests": requests, "tokens_each": tokens_each,
             "frontend_shape": (list(inputs["frontend"].shape)
                                if "frontend" in inputs else None),
             "layers": cfg.num_layers, "enc_layers": cfg.enc_layers,
@@ -2523,7 +2612,7 @@ def phase_prefill(torch, seed: int, backend, which: str):
             "prefill_watch": prefill_watch,
             "repeat_prefill_s": [r[0] for r in repeats],
             "repeat_watch": [r[1] for r in repeats],
-            "tokens_per_s": PREFILL_BATCH * PREFILL_LEN / prefill_s,
+            "tokens_per_s": requests * tokens_each / prefill_s,
             "launches": launches, "expected_launches": expected,
             "plain_prefill_s": plain_s, "vs_plain": diff,
             "library_prefill_s": library_s, "library_vs_plain": library_diff,
@@ -2982,7 +3071,13 @@ class TrainPhase(NamedTuple):
 #:   by attn_layer_period 2 and attn_layer_offset 1: its attention sublayer
 #:   (norm_mix before it) beside the SSD in one step, 3.67e9 parameters;
 #: - qwen1.5-4b cut to 16 of its 40 layers (the QKV biases; 20 query heads
-#:   on 20): 1.66e9, 27 GB.
+#:   on 20): 1.66e9, 27 GB;
+#: - qwen2-72b cut to 1 of its 80 layers with int8 moments: 3.37e9
+#:   parameters, 8.78e8 in the layer (64 query heads on 8, QKV biases at
+#:   d_model 8192) and 2.49e9 in the two untied 152,064-row vocabulary
+#:   matrices, 33.7 GB of state; the dry run's step 43.4 GB, the f32 logits
+#:   5.0 GB a copy.  The check's second gradient set (13.5 GB) fits beside
+#:   it, so the plain gradients stay on the card.
 TRAIN = {
     "mamba": TrainPhase(MAMBA, {"num_layers": 32}),
     "jamba": TrainPhase(JAMBA, {"num_layers": 2, "attn_layer_period": 2}),
@@ -2993,6 +3088,7 @@ TRAIN = {
     "jamba_attn": TrainPhase(JAMBA, {"num_layers": 2, "attn_layer_period": 2,
                                      "attn_layer_offset": 1}),
     "qwen": TrainPhase(QWEN, {"num_layers": 16}),
+    "qwen72": TrainPhase(QWEN72, {"num_layers": 1}, "int8"),
 }
 #: where the bf16 plain SSD chunked at the kernels' chunk and at SSD_CHUNK
 #: disagree past TRAIN_LOSS_RTOL or TRAIN_GRAD_REL_L2 at depth (mamba2's 64
@@ -3674,25 +3770,76 @@ def phase_grad_compression(torch, seed: int, copy_rate: float) -> dict:
             "seconds": time.perf_counter() - t0}
 
 
-#: tp_rank_train: one rank of a (1, TP_RANKS) mesh, llama3-8b at full
-#: width, TRAIN_LAYERS layers, TRAIN_BATCH x TRAIN_SEQ tokens, int8
-#: moments: a node of 8 H100s with the model axis across it
+#: the rank phases: one rank of a (1, TP_RANKS) mesh, a node of 8 H100s
+#: with the model axis across it, TRAIN_BATCH x TRAIN_SEQ tokens, int8
+#: moments -> (arch, layers at full width):
+#: - tp_rank_train: llama3-8b, TRAIN_LAYERS layers (4 query heads on 1 KV
+#:   head, a rank's FFN and vocabulary columns);
+#: - maverick_rank_train: llama4-maverick, 1 of its 48 layers, expert
+#:   parallel: 16 of the 128 experts ([16, 5120, 8192] f32 stacks, 2.7 GB
+#:   each), 5 query heads on 1 KV head, a vocabulary-parallel loss over
+#:   202,048 rows; its dry run's step 42.5 GB
+RANK_TRAIN = {"tp_rank_train": (LLAMA, TRAIN_LAYERS),
+              "maverick_rank_train": (MAVERICK, 1)}
 TP_RANKS, TP_STEPS = 8, 5
 
 
-def phase_tp_rank_train(torch, seed: int, backend) -> dict:
+def rank_launches(cfg) -> dict:
+    """The flash launches a rank's train step makes (train_launches):
+    the forward twice an attention layer (remat), the backward once."""
+    per_step = train_launches(cfg)
+    return {k: per_step[k] for k in ("flash_attention",
+                                     "flash_attention_bwd")}
+
+
+def update_memory(torch, step) -> dict:
+    """One more call of ``step`` (a train step) with the optimizer's
+    ``update`` watched: the step's peak before the update (forward and
+    backward), the memory allocated when the update starts and the
+    update's own peak; ``update_extra_bytes`` is what the update holds
+    beyond its start."""
+    from repro_torch.train import optimizer as opt_mod
+
+    cuda = torch.cuda
+    seen = {}
+
+    def wrap(update):
+        def call(*args, **kw):
+            seen["before_update_peak_bytes"] = cuda.max_memory_allocated()
+            seen["update_base_bytes"] = cuda.memory_allocated()
+            cuda.reset_peak_memory_stats()
+            out = update(*args, **kw)
+            seen["update_peak_bytes"] = cuda.max_memory_allocated()
+            return out
+        return call
+
+    cuda.reset_peak_memory_stats()
+    with patched(opt_mod, "update", wrap):
+        step()
+    check(len(seen) == 3, f"update_memory: the step called update {seen}")
+    seen["step_peak_bytes"] = max(seen["before_update_peak_bytes"],
+                                  seen["update_peak_bytes"])
+    seen["update_extra_bytes"] = (seen["update_peak_bytes"]
+                                  - seen["update_base_bytes"])
+    return seen
+
+
+def phase_tp_rank_train(torch, seed: int, backend,
+                        which: str = "tp_rank_train") -> dict:
     """Rank 0 of a (1, TP_RANKS) tensor-parallel mesh on the card, in one
     process under torch's fake process group (the dry run's): its shards
-    of llama3-8b (full width, TRAIN_LAYERS layers, f32 masters drawn on the
-    card, int8 moments), its heads, FFN columns and vocabulary columns,
-    through ``launch/train.py:make_mesh_train_step``.  The collectives do
-    no work, so the values are not meaningful and are not checked: the
-    phase measures what one rank's step costs.  It reports the step time
-    (median of TP_STEPS steps after one warm-up), each step's peak
-    (``step_peak_bytes``, held by dryrun_check against the dry run's
-    prediction of the same cell), a profiled step's device time by group
-    and idle share, and the flash launches a step at the per-rank shapes
-    (4 query heads on 1 KV head)."""
+    of RANK_TRAIN[which]'s model (full width, cut in depth, f32 masters
+    drawn on the card, int8 moments), its heads, FFN columns, experts and
+    vocabulary columns, through ``launch/train.py:make_mesh_train_step``.
+    The collectives do no work, so the values are not meaningful and are
+    not checked: the phase measures what one rank's step costs.  It
+    reports the step time (median of TP_STEPS steps after one warm-up),
+    each step's peak (``step_peak_bytes``, held by dryrun_check against
+    the dry run's prediction of the same cell), how much of it the
+    optimizer's update holds (one more step, the update's own peak), a
+    profiled step's device time by group and idle share, an MoE's steps
+    in the forward and the remat recompute (CUDA events), and the flash
+    launches a step at the per-rank shapes (rank_heads)."""
     import torch.distributed as dist
     from torch.testing._internal.distributed.fake_pg import FakeStore
 
@@ -3706,17 +3853,17 @@ def phase_tp_rank_train(torch, seed: int, backend) -> dict:
     from repro_torch.train.checkpoint import _unflatten, flatten_with_path
 
     t0 = time.perf_counter()
-    cfg = dataclasses.replace(get_config(LLAMA), num_layers=TRAIN_LAYERS)
-    L = cfg.num_layers
-    args = train_args(seed, moments="int8")
+    arch, layers = RANK_TRAIN[which]
+    cfg = dataclasses.replace(get_config(arch), num_layers=layers)
+    args = train_args(seed, arch=arch, moments="int8")
     opt_cfg = ptrain.optimizer_config(args)
-    check(not dist.is_initialized(), "tp_rank_train: a process group is up")
+    check(not dist.is_initialized(), f"{which}: a process group is up")
     dist.init_process_group("fake", store=FakeStore(), rank=0,
                             world_size=TP_RANKS)
     try:
         mesh = pmesh.make_local_mesh(1, TP_RANKS, device="cuda")
         check(mesh.device_type == "cuda" and dist.get_backend() == "fake",
-              f"tp_rank_train: mesh {mesh}, backend {dist.get_backend()}")
+              f"{which}: mesh {mesh}, backend {dist.get_backend()}")
         g = torch.Generator(device="cuda").manual_seed(seed)
         layout = ptrain.state_layout(cfg, opt_cfg)
         sh = ptrain.state_shardings(mesh, layout)
@@ -3764,34 +3911,44 @@ def phase_tp_rank_train(torch, seed: int, backend) -> dict:
             nonlocal params, state
             params, state, _ = step(params, state, batch)
 
+        update = update_memory(torch, one_step)
         breakdown = profile_breakdown(torch, one_step, runs=1)
+        moe_ms = (moe_step_ms(torch, one_step, runs=1) if cfg.is_moe
+                  else None)
         q_shape = [TRAIN_BATCH] + list(
             params["blocks"][0]["attn"]["wq"].to_local().shape[1:])
+        experts_local = {name: list(t.to_local().shape) for name, t in
+                         params["blocks"][0].get("moe", {}).items()
+                         if name in ("w_gate", "w_up", "w_down")}
         del params, state, step, model
     finally:
         dist.destroy_process_group()
         torch.cuda.empty_cache()
-    per_step = {"flash_attention": 2 * L, "flash_attention_bwd": L}
+    per_step = rank_launches(cfg)
     launches = {k: sum(c.get(k, 0) for c in counts) for k in per_step}
     check(all(c.get(k, 0) == n for c in counts for k, n in per_step.items()),
-          f"tp_rank_train: launches a step {counts}")
+          f"{which}: launches a step {counts}")
     heads = rank_heads(cfg, TP_RANKS)
     step_ms = statistics.median(step_s) * 1e3
-    return {"phase": "tp_rank_train", "arch": cfg.arch_id, "layers": L,
+    return {"phase": which, "arch": cfg.arch_id, "layers": layers,
+            "full_layers": get_config(arch).num_layers,
             "mesh": {"data": 1, "model": TP_RANKS}, "rank": 0,
             "backend": "fake", "device_type": "cuda",
             "batch": [TRAIN_BATCH, TRAIN_SEQ], "moments": args.moments,
             "local_parameters": local_params,
             "flash_shape": [TRAIN_BATCH, heads[0], heads[1], TRAIN_SEQ,
                             TRAIN_SEQ, cfg.head_dim],
-            "wq_local": q_shape, "launches": launches,
+            "wq_local": q_shape, "experts_local": experts_local or None,
+            "launches": launches,
             "launches_per_step": per_step, "warmup_s": warm_s,
             "step_s": step_s, "step_ms": step_ms,
             "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / (step_ms * 1e-3),
-            "step_breakdown": breakdown,
+            "step_breakdown": breakdown, "moe_step_ms": moe_ms,
             "step_peak_bytes": max(peaks.steps),
             "step_memory": list(zip(peaks.bases, peaks.steps)),
-            "peak_device_bytes": peaks.phase_peak(),
+            "update_memory": update,
+            "peak_device_bytes": max(peaks.phase_peak(),
+                                     update["step_peak_bytes"]),
             "values_checked": False,
             "seconds": time.perf_counter() - t0}
 
@@ -4066,7 +4223,7 @@ def rank_heads(cfg, ranks: int) -> tuple:
 
 
 #: the dry run's cells that chip_smoke itself runs (llama_train without a
-#: mesh, mesh_train on its 1 x 1 mesh, tp_rank_train's and
+#: mesh, mesh_train on its 1 x 1 mesh, the rank phases' (RANK_TRAIN) and
 #: tp_rank_decode's rank of a 1 x 8 mesh, and the training phases of TRAIN
 #: whose cut is a depth, which the dry run's --layers takes (not jamba's
 #: period and offset): their shapes) and three train_4k cells on the 16 x
@@ -4080,11 +4237,11 @@ DRYRUN_TRAINED = {
                    "local", "--layers", str(MESH_LAYERS), "--batch",
                    str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--moments",
                    "int8"],
-    "tp_rank_train": ["--arch", LLAMA, "--shape", "train_4k", "--mesh",
-                      "local", "--mesh-data", "1", "--mesh-model",
-                      str(TP_RANKS), "--layers", str(TRAIN_LAYERS),
-                      "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
-                      "--moments", "int8"],
+    **{which: ["--arch", arch, "--shape", "train_4k", "--mesh", "local",
+               "--mesh-data", "1", "--mesh-model", str(TP_RANKS),
+               "--layers", str(layers), "--batch", str(TRAIN_BATCH),
+               "--seq", str(TRAIN_SEQ), "--moments", "int8"]
+       for which, (arch, layers) in RANK_TRAIN.items()},
     **{f"tp_rank_decode_{which}": [
         "--arch", arch, "--shape", shape, "--mesh", "local", "--mesh-data",
         "1", "--mesh-model", str(TP_RANKS), "--batch", str(rows),
@@ -4147,8 +4304,9 @@ def stop(procs: dict) -> None:
 
 def phase_dryrun_check(torch, procs: dict, trained: dict) -> dict:
     """The dry-run processes of ``start_dryruns``, read: each cell must
-    end ``ok``; for llama_train, mesh_train and tp_rank_train (one rank
-    of a 1 x 8 tensor-parallel mesh), the predicted step peak
+    end ``ok``; for each cell of a phase in ``trained`` (llama_train,
+    mesh_train, the rank phases of a 1 x 8 mesh, TRAIN's depth cuts,
+    tp_rank_decode's), the predicted step peak
     against the step peak the phase measured, within DRYRUN_PEAK_BAND, and
     the predicted flops and roofline step against the measured step time,
     as ratios with no gate."""
@@ -4226,11 +4384,12 @@ def kernel_line(name: str, results, tol, launches: int) -> dict:
 
 
 def only_names() -> list:
-    """What ``--only`` takes: the flash phase, each LM_PHASES key (its
-    prefill, and its generation where it runs one), llama_train and each
-    TRAIN phase."""
-    return ["flash", *LM_PHASES, "llama_train",
-            *(f"{which}_train" for which in TRAIN)]
+    """What ``--only`` takes: the flash forward's and backward's cases,
+    each LM_PHASES key (its prefill, and its generation where it runs
+    one), llama_train, each TRAIN phase and each rank phase of
+    RANK_TRAIN."""
+    return ["flash", "flash_bwd", *LM_PHASES, "llama_train",
+            *(f"{which}_train" for which in TRAIN), *RANK_TRAIN]
 
 
 def run_only(torch, seed: int, backend, device: dict, names: set) -> int:
@@ -4241,6 +4400,9 @@ def run_only(torch, seed: int, backend, device: dict, names: set) -> int:
     if "flash" in names:
         flash = phase_flash(torch, seed, device["copy_bytes_per_s"])
         emit({k: v for k, v in flash.items() if k != "results"})
+    if "flash_bwd" in names:
+        flash_bwd = phase_flash_bwd(torch, seed, device["copy_bytes_per_s"])
+        emit({k: v for k, v in flash_bwd.items() if k != "results"})
     for which, phase in LM_PHASES.items():
         if which not in names:
             continue
@@ -4261,6 +4423,11 @@ def run_only(torch, seed: int, backend, device: dict, names: set) -> int:
                 trained[f"{which}_train"] = phase_train(torch, seed, backend,
                                                         which)
                 emit(trained[f"{which}_train"])
+        for which in RANK_TRAIN:
+            if which in names:
+                trained[which] = phase_tp_rank_train(torch, seed, backend,
+                                                     which)
+                emit(trained[which])
         if dryruns:
             emit(phase_dryrun_check(torch, dryruns, trained))
     finally:
@@ -4373,10 +4540,12 @@ def main() -> int:
         emit(mesh_generate)
         lm_lines.append(mesh_generate)
         peak = max(peak, mesh_generate["peak_device_bytes"])
-        tp_rank = phase_tp_rank_train(torch, args.seed, backend)
-        emit(tp_rank)
-        lm_lines.append(tp_rank)
-        peak = max(peak, tp_rank["peak_device_bytes"])
+        for which in RANK_TRAIN:
+            trained[which] = phase_tp_rank_train(torch, args.seed, backend,
+                                                 which)
+            emit(trained[which])
+            lm_lines.append(trained[which])
+            peak = max(peak, trained[which]["peak_device_bytes"])
         tp_decode = phase_tp_rank_decode(torch, args.seed, backend)
         for line in tp_decode.values():
             emit(line)
@@ -4384,7 +4553,7 @@ def main() -> int:
             peak = max(peak, line["peak_device_bytes"])
         emit(phase_dryrun_check(torch, dryruns, {
             "llama_train": llama_train, "mesh_train": mesh_train,
-            "tp_rank_train": tp_rank, **trained,
+            **trained,
             **{f"tp_rank_decode_{k}": v for k, v in tp_decode.items()}}))
     finally:
         stop(dryruns)

@@ -43,10 +43,11 @@ def _chip_smoke():
 
 
 CS = _chip_smoke()
-#: the phases this slice added, and their (decoder) layers and encoder
-#: layers at full width
+#: the phases after mamba's and jamba's, and their (decoder) layers and
+#: encoder layers at full width
 NEW = {"seamless": (24, 24), "gemma": (4, 0), "internvl": (24, 0),
-       "dbrx": (1, 0), "jamba_attn": (2, 0), "qwen": (16, 0)}
+       "dbrx": (1, 0), "jamba_attn": (2, 0), "qwen": (16, 0),
+       "qwen72": (1, 0)}
 #: what a cut may not change: every width, the vocabulary, the experts and
 #: the frontend
 WIDTHS = ("family", "d_model", "num_heads", "num_kv_heads", "head_dim",
@@ -63,7 +64,9 @@ def test_the_table_holds_every_training_family_in_order():
     assert list(CS.TRAIN) == ["mamba", "jamba", *NEW]
     assert {CS.TRAIN[w].arch for w in NEW} == {
         "seamless-m4t-large-v2", "gemma-7b", "internvl2-1b", "dbrx-132b",
-        "jamba-v0.1-52b", "qwen1.5-4b"}
+        "jamba-v0.1-52b", "qwen1.5-4b", "qwen2-72b"}
+    assert CS.TRAIN["qwen72"].moments == "int8"
+    assert not CS.TRAIN["qwen72"].grads_on_host
 
 
 @pytest.mark.parametrize("which", list(NEW))
@@ -103,12 +106,37 @@ def test_dry_run_holds_each_cut_it_can_express():
     (a period and an offset) has its cell, at the phase's shape."""
     cells = {k for k in CS.DRYRUN_TRAINED if k.endswith("_train")}
     assert cells == {"llama_train", "mesh_train", "tp_rank_train",
+                     "maverick_rank_train",
                      *(f"{w}_train" for w in CS.TRAIN
                        if w not in ("jamba", "jamba_attn"))}
-    argv = CS.DRYRUN_TRAINED["dbrx_train"]
-    assert argv[argv.index("--layers") + 1] == "1"
-    assert argv[argv.index("--moments") + 1] == "int8"
+    for cell in ("dbrx_train", "qwen72_train"):
+        argv = CS.DRYRUN_TRAINED[cell]
+        assert argv[argv.index("--layers") + 1] == "1"
+        assert argv[argv.index("--moments") + 1] == "int8"
     assert "--layers" not in CS.DRYRUN_TRAINED["seamless_train"]
+    argv = CS.DRYRUN_TRAINED["maverick_rank_train"]
+    assert argv == ["--arch", "llama4-maverick-400b-a17b", "--shape",
+                    "train_4k", "--mesh", "local", "--mesh-data", "1",
+                    "--mesh-model", "8", "--layers", "1", "--batch", "2",
+                    "--seq", "4096", "--moments", "int8"]
+
+
+@pytest.mark.parametrize("which, arch, layers, heads", [
+    ("tp_rank_train", "llama3-8b", 8, (4, 1)),
+    ("maverick_rank_train", "llama4-maverick-400b-a17b", 1, (5, 1))])
+def test_rank_phases_heads_and_launches(which, arch, layers, heads):
+    """The rank phases' table (RANK_TRAIN): rank 0 of a model axis of 8
+    holds llama3-8b's 4 query heads on 1 KV head, maverick's 5 on 1; each
+    attention layer launches the flash forward twice a step (remat) and
+    its backward once."""
+    assert CS.RANK_TRAIN[which] == (arch, layers)
+    assert which in CS.only_names()
+    cfg = dataclasses.replace(get_config(arch), num_layers=layers)
+    assert CS.rank_heads(cfg, CS.TP_RANKS) == heads
+    assert CS.rank_launches(cfg) == {"flash_attention": 2 * layers,
+                                     "flash_attention_bwd": layers}
+    assert layer_plan(cfg) == [("attn", "moe" if cfg.is_moe else "ffn")
+                               ] * layers
 
 
 def _smoke_cut(which):
