@@ -223,7 +223,8 @@ Phases, each printing one JSON line with its seconds:
     step's loss and gradients against the mesh-less step, (b) the restore
     bit-identical, (c) the flash launches per step as in phase 32, (d)
     each range completed once, (e) the step time against the mesh-less
-    step's (the DTensor path's cost) and the save and restore seconds;
+    step's (the DTensor path's cost) and the save and restore seconds,
+    (f) one more step's update memory, within ``update_bound``;
 43. ``grad_compression``: ``train/grad_compression.py``'s
     ``compressed_psum_mean`` over a 1-rank NCCL group on mesh_train's
     first-step gradients (1.487·10⁹ f32 elements), bit-identical to the
@@ -238,7 +239,8 @@ Phases, each printing one JSON line with its seconds:
     ``maverick_rank_train`` (llama4-maverick at full width, 1 of 48 layers,
     expert parallel: 16 of the 128 experts; 5 query heads on 1 KV head; a
     vocabulary-parallel loss over 202,048 rows); the step time, each
-    step's peak and the update's part of it, a profiled step's device time
+    step's peak and the update's part of it (within ``update_bound``: the
+    int8 moments updated in parts of rows), a profiled step's device time
     by group (an MoE's steps by CUDA events), and the flash launches a
     step at the per-rank shapes;
 45. ``mesh_generate`` (run between phases 43 and 44): ``greedy_generate``
@@ -281,10 +283,11 @@ process counts its own from 0, and phase 8 runs no device work.
 
 ``--only NAME[,NAME...]`` runs the named phases alone after phase 0
 (``flash``, ``flash_bwd``, an LM of LM_PHASES by its key, ``llama_train``,
-a training phase of TRAIN or a rank phase of RANK_TRAIN by its line's
-name, e.g. ``--only llama_32k,qwen72_train,maverick_rank_train``), with
-the dry-run cells of those training phases, and prints no ``kernels``
-line and no last line: a check of one path, not the run above.
+a training phase of TRAIN, ``mesh_train`` or a rank phase of RANK_TRAIN
+by its line's name, e.g. ``--only llama_32k,qwen72_train,mesh_train``),
+with the dry-run cells of those training phases, and prints no
+``kernels`` line and no last line: a check of one path, not the run
+above.
 
 Any mismatch raises and the script exits nonzero.  Without CUDA, or run
 from a directory that holds nothing else of the repository, it exits
@@ -3478,7 +3481,9 @@ def phase_mesh_train(torch, seed: int, backend) -> dict:
     one; (c) the flash launches per step as llama_train counts them; (d)
     every range completed once, steps re-run only from the last commit;
     (e) the step time against the mesh-less step's at the same depth (what
-    the DTensor path costs), and the seconds spent saving and restoring."""
+    the DTensor path costs), and the seconds spent saving and restoring;
+    (f) after the run, one more step's update memory (``update_memory``,
+    within ``update_bound``)."""
     import torch.distributed as dist
 
     from repro_torch.configs import get_config
@@ -3635,6 +3640,12 @@ def phase_mesh_train(torch, seed: int, backend) -> dict:
           "mesh_train: the final state")
     read = dict(tr_b.ckpt.read_stats)
     peak = peaks.phase_peak()
+
+    def one_step():  # past the run: what the update holds
+        tr_b.params, tr_b.opt_state, _ = tr_b.step_fn(
+            tr_b.params, tr_b.opt_state, batch)
+
+    update = update_memory(torch, one_step)
     del tr_b, b
     pmesh.shutdown()
     torch.cuda.empty_cache()
@@ -3666,7 +3677,8 @@ def phase_mesh_train(torch, seed: int, backend) -> dict:
             "save_s": save_s, "restore_s": restore_s,
             "restore_read": read, "step_peak_bytes": max(peaks.steps),
             "step_memory": list(zip(peaks.bases, peaks.steps)),
-            "peak_device_bytes": peak,
+            "update_memory": update,
+            "peak_device_bytes": max(peak, update["step_peak_bytes"]),
             "seconds": time.perf_counter() - t0}
 
 
@@ -3792,12 +3804,51 @@ def rank_launches(cfg) -> dict:
                                      "flash_attention_bwd")}
 
 
+def update_bound(state) -> dict:
+    """The gate on what the optimizer's update may hold beyond its start
+    (``update_extra_bytes``), from the int8 moments of the state it is
+    given (a mesh step's local shards): L, the elements of the largest
+    leaf with int8 moments, and P, those of the largest part such a leaf
+    is updated in (``optimizer.part_rows``).  The update first takes the
+    global norm, squaring one f32 gradient leaf at a time: at most L
+    elements (no leaf is larger: every leaf of two or more dimensions and
+    Q_MIN_SIZE elements has int8 moments).  It then updates each int8 leaf
+    a part at a time, the new payloads and row scales written into the old
+    ones: a part holds at most five f32 copies of itself at once (the
+    dequantized moments, their update and the step's quotients, as
+    tests/test_torch_train_families.py counts them on fake tensors), 5P;
+    besides, a part's row maxima and scales, 1 / last of it.  So the
+    update holds at most max(L, 5P) f32 elements, and the gate allows
+    twice max(L, 3P): twice the f32 bytes of the largest leaf where its
+    parts are small against it (mesh_train's embedding, 525M elements in
+    parts of 67M; maverick's expert stacks, 671M in parts of 67M), six
+    f32 copies of a part where the largest leaf is one part
+    (tp_rank_train's 65.7M-element embedding shard).  Updated whole, a
+    leaf would hold five f32 copies of itself."""
+    from repro_torch.train import optimizer as opt_mod
+
+    def local_shape(t):
+        return tuple((t.to_local() if hasattr(t, "to_local") else t).shape)
+
+    shapes = [local_shape(m.q) for m in opt_mod.tree_leaves(state.mu)
+              if isinstance(m, opt_mod.QTensor)]
+    check(bool(shapes), "update_bound: no leaf has int8 moments")
+    largest = max(math.prod(s) for s in shapes)
+    part = 0
+    for s in shapes:
+        rows, last, per_part = opt_mod.part_rows(s)
+        part = max(part, min(rows, per_part) * last)
+    return {"largest_int8_leaf": largest, "largest_part": part,
+            "bound_bytes": 2 * 4 * max(largest, 3 * part)}
+
+
 def update_memory(torch, step) -> dict:
     """One more call of ``step`` (a train step) with the optimizer's
     ``update`` watched: the step's peak before the update (forward and
     backward), the memory allocated when the update starts and the
     update's own peak; ``update_extra_bytes`` is what the update holds
-    beyond its start."""
+    beyond its start, which must lie within ``update_bound`` of the state
+    the update is given."""
     from repro_torch.train import optimizer as opt_mod
 
     cuda = torch.cuda
@@ -3807,6 +3858,7 @@ def update_memory(torch, step) -> dict:
         def call(*args, **kw):
             seen["before_update_peak_bytes"] = cuda.max_memory_allocated()
             seen["update_base_bytes"] = cuda.memory_allocated()
+            seen["update_bound"] = update_bound(args[1])
             cuda.reset_peak_memory_stats()
             out = update(*args, **kw)
             seen["update_peak_bytes"] = cuda.max_memory_allocated()
@@ -3816,11 +3868,14 @@ def update_memory(torch, step) -> dict:
     cuda.reset_peak_memory_stats()
     with patched(opt_mod, "update", wrap):
         step()
-    check(len(seen) == 3, f"update_memory: the step called update {seen}")
+    check(len(seen) == 4, f"update_memory: the step called update {seen}")
     seen["step_peak_bytes"] = max(seen["before_update_peak_bytes"],
                                   seen["update_peak_bytes"])
     seen["update_extra_bytes"] = (seen["update_peak_bytes"]
                                   - seen["update_base_bytes"])
+    check(seen["update_extra_bytes"] <= seen["update_bound"]["bound_bytes"],
+          f"update_memory: the update held {seen['update_extra_bytes']} "
+          f"bytes beyond its start, over {seen['update_bound']}")
     return seen
 
 
@@ -4386,10 +4441,11 @@ def kernel_line(name: str, results, tol, launches: int) -> dict:
 def only_names() -> list:
     """What ``--only`` takes: the flash forward's and backward's cases,
     each LM_PHASES key (its prefill, and its generation where it runs
-    one), llama_train, each TRAIN phase and each rank phase of
+    one), llama_train, each TRAIN phase, mesh_train and each rank phase of
     RANK_TRAIN."""
     return ["flash", "flash_bwd", *LM_PHASES, "llama_train",
-            *(f"{which}_train" for which in TRAIN), *RANK_TRAIN]
+            *(f"{which}_train" for which in TRAIN), "mesh_train",
+            *RANK_TRAIN]
 
 
 def run_only(torch, seed: int, backend, device: dict, names: set) -> int:
@@ -4423,6 +4479,9 @@ def run_only(torch, seed: int, backend, device: dict, names: set) -> int:
                 trained[f"{which}_train"] = phase_train(torch, seed, backend,
                                                         which)
                 emit(trained[f"{which}_train"])
+        if "mesh_train" in names:
+            trained["mesh_train"] = phase_mesh_train(torch, seed, backend)
+            emit(trained["mesh_train"])
         for which in RANK_TRAIN:
             if which in names:
                 trained[which] = phase_tp_rank_train(torch, seed, backend,

@@ -23,13 +23,14 @@ without it a leaf's own shape decides.
 tensors in place, under ``torch.no_grad()``: at llama3-8b's 8 layers the
 f32 masters and two moments are 33.5 GB, which a functional update would
 hold twice.  The returned parameter tree and state hold the same tensors.
-A leaf with int8 moments is updated whole rows at a time, at most
-:data:`UPDATE_PART` elements a part: its f32 moments, their update and the
-step live only for one part (a leaf's math is elementwise and its scales
-are per row, so the numbers are the same bits as a whole-leaf update).
-Updated whole, dbrx-132b's [16, 6144, 10752] expert stacks held four or
-more f32 copies of a 4.2 GB leaf at once, past one card beside the
-masters and gradients.
+Every leaf with int8 moments is updated whole rows at a time, at most
+:data:`UPDATE_PART` elements a part (a smaller leaf is one part): its f32
+moments, their update and the step live only for one part, and the new
+payloads and row scales are written into the moments' own rows (a leaf's
+math is elementwise and its scales are per row, so the numbers are the
+same bits as a whole-leaf update).  Updated whole, dbrx-132b's [16, 6144,
+10752] expert stacks held four or more f32 copies of a 4.2 GB leaf at
+once, past one card beside the masters and gradients.
 
 On a mesh (``launch/train.py``) the update runs on each rank's local
 shards, given ``layouts``: a tree laid out as the params holding each
@@ -37,7 +38,9 @@ leaf's ``launch.sharding.Sharding``.  The global norm is then one sum over
 every rank's shards, all-reduced, each shard's sum divided by its number
 of replicas so that a replicated leaf counts once; an int8 moment's row
 absmax is all-reduced (max) over the ranks that share the row, where the
-last axis is sharded.
+last axis is sharded, one all-reduce a part and moment.  Every rank of
+such a group cuts the same parts (:func:`part_rows`), so they make the
+same all-reduces in the same order.
 """
 
 from __future__ import annotations
@@ -127,20 +130,51 @@ def quantizable(shape) -> bool:
     return math.prod(shape) >= Q_MIN_SIZE and len(shape) >= 2
 
 
-def quantize(x: torch.Tensor, layout=None) -> QTensor:
+def quantize(x: torch.Tensor, layout=None, out=None) -> QTensor:
     """Row absmax int8; ``layout`` (a local shard's ``Sharding``) takes
-    each row's absmax over the ranks that share the row."""
+    each row's absmax over the ranks that share the row; ``out`` (a
+    QTensor of ``x``'s shape) takes the payload and row scales in place."""
     xf = x.float()
     amax = xf.abs().amax(dim=-1)
     if layout is not None:
         amax = layout.reduce_last_axis_max(amax)
     scale = (amax / 127.0).clamp_min(1e-12)
-    q = torch.round(xf / scale[..., None]).clamp(-127, 127).to(torch.int8)
-    return QTensor(q=q, scale=scale, shape=tuple(x.shape))
+    q = torch.round(xf / scale[..., None]).clamp(-127, 127)
+    if out is None:
+        return QTensor(q=q.to(torch.int8), scale=scale, shape=tuple(x.shape))
+    out.q.copy_(q)
+    out.scale.copy_(scale)
+    return out
 
 
 def dequantize(t: QTensor) -> torch.Tensor:
     return t.q.float() * t.scale[..., None]
+
+
+def part_rows(local_shape) -> tuple:
+    """(rows, last, rows a part) of a leaf's local shard: its rows of the
+    last axis, taken in parts of whole rows of at most UPDATE_PART
+    elements.  On a mesh each part's row maxima are all-reduced over the
+    ranks that share its rows, so they must all cut the same parts: they
+    do, as every rank's local shape is the global shape over its layout's
+    ``shard_counts``.  That rests on even shards
+    (``sharding.to_named_sharding`` replicates a dimension that does not
+    divide); an uneven sharding would break it."""
+    last = local_shape[-1]
+    return math.prod(local_shape[:-1]), last, max(1, UPDATE_PART // last)
+
+
+def _row_view(t: torch.Tensor, shape, *dims) -> torch.Tensor:
+    """``t`` viewed as ``dims`` without a copy, so that a part written
+    through the view lands in ``t`` itself; raises ``ValueError`` with
+    the leaf's shape where ``t``'s strides allow no such view."""
+    try:
+        return t.view(*dims)
+    except RuntimeError:
+        raise ValueError(
+            f"the leaf of shape {tuple(shape)} (local {tuple(t.shape)}, "
+            f"strides {t.stride()}) cannot be updated in parts of rows in "
+            f"place") from None
 
 
 def _zeros_moment(p: torch.Tensor, shape, cfg: OptimizerConfig):
@@ -211,7 +245,8 @@ def update(grads, state: AdamState, params, cfg: OptimizerConfig,
     shape in ``shapes`` (default: their own) has two or more dimensions;
     the new parameter rounded once to its dtype.  Parameters and f32
     moments are updated in place, and f32 gradients are clipped in place;
-    int8 moments are replaced by their new quantization.  ``layouts``:
+    int8 moments are requantized into their own payloads and row scales
+    (:func:`part_rows`' parts, with ``layouts`` or without).  ``layouts``:
     the leaves are local shards on a mesh (see the module's docstring)."""
     grads = tree_map(lambda g: g.float(), grads)
     gnorm = global_norm(grads, layouts)
@@ -232,49 +267,41 @@ def update(grads, state: AdamState, params, cfg: OptimizerConfig,
     bc2 = 1 - torch.pow(torch.tensor(b2, device=stepf.device), stepf)
 
     def leaf_update(p, g, mu, nu, shape, layout):
-        if (isinstance(mu, QTensor) and layout is None
-                and p.numel() > UPDATE_PART and p.is_contiguous()):
-            return update_in_parts(p, g, mu, nu, shape)
-        return update_whole(p, g, mu, nu, shape, layout)
+        if isinstance(mu, QTensor):
+            update_int8(p, g, mu, nu, shape, layout)
+        else:  # the f32 moments in place
+            mu.mul_(b1).add_((1 - b1) * g)
+            nu.mul_(b2).add_((1 - b2) * g * g)
+            step_param(p, mu, nu, shape)
+        return mu, nu
 
-    def update_in_parts(p, g, mu, nu, shape):
-        """The leaf's rows in parts of at most UPDATE_PART elements, each
-        through update_whole; its moments reassembled."""
-        last = p.shape[-1]
-        rows = p.numel() // last
-        step_rows = max(1, UPDATE_PART // last)
-        p2, g2 = p.view(rows, last), g.reshape(rows, last)
-        new = [QTensor(q=torch.empty_like(m.q), scale=torch.empty_like(
-            m.scale), shape=m.shape) for m in (mu, nu)]
-        for r0 in range(0, rows, step_rows):
-            r1 = min(rows, r0 + step_rows)
-            part = [QTensor(q=m.q.reshape(rows, last)[r0:r1],
-                            scale=m.scale.reshape(rows)[r0:r1],
-                            shape=(r1 - r0, last)) for m in (mu, nu)]
-            for out, m in zip(new, update_whole(p2[r0:r1], g2[r0:r1],
-                                                *part, shape, None)):
-                out.q.view(rows, last)[r0:r1] = m.q
-                out.scale.view(rows)[r0:r1] = m.scale
-        return tuple(new)
+    def update_int8(p, g, mu, nu, shape, layout):
+        """The leaf's rows in parts (part_rows), each one's moments
+        dequantized, updated, applied and requantized into the moments'
+        own rows; on a mesh the row maxima all-reduced a part at a
+        time."""
+        rows, last, per_part = part_rows(tuple(p.shape))
+        p2, g2 = (_row_view(t, shape, rows, last) for t in (p, g))
+        views = [(_row_view(m.q, shape, rows, last),
+                  _row_view(m.scale, shape, rows)) for m in (mu, nu)]
+        for r0 in range(0, rows, per_part):
+            r1 = min(rows, r0 + per_part)
+            m, n = [QTensor(q=q[r0:r1], scale=sc[r0:r1], shape=(r1 - r0, last))
+                    for q, sc in views]
+            gp = g2[r0:r1]
+            mu_f = b1 * dequantize(m) + (1 - b1) * gp
+            nu_f = b2 * dequantize(n) ** 2 + (1 - b2) * gp * gp
+            step_param(p2[r0:r1], mu_f, nu_f, shape)
+            quantize(mu_f, layout, out=m)
+            quantize(torch.sqrt(nu_f), layout, out=n)
 
-    def update_whole(p, g, mu, nu, shape, layout):
-        quantized = isinstance(mu, QTensor)
-        mu_f = dequantize(mu) if quantized else mu
-        nu_f = dequantize(nu) ** 2 if quantized else nu
-        if quantized:
-            mu_f = b1 * mu_f + (1 - b1) * g
-            nu_f = b2 * nu_f + (1 - b2) * g * g
-        else:  # the same arithmetic, in the state's own tensors
-            mu_f.mul_(b1).add_((1 - b1) * g)
-            nu_f.mul_(b2).add_((1 - b2) * g * g)
+    def step_param(p, mu_f, nu_f, shape):
+        """p's step from its new f32 moments, rounded once to its
+        dtype."""
         upd = (mu_f / bc1) / (torch.sqrt(nu_f / bc2) + cfg.eps)
         if len(shape) >= 2:  # decoupled weight decay on matrices only
             upd = upd + cfg.weight_decay * p.float()
         p.copy_((p.float() - lr * upd).to(p.dtype))
-        if quantized:
-            return (quantize(mu_f, layout),
-                    quantize(torch.sqrt(nu_f), layout))
-        return mu_f, nu_f
 
     moments = tree_map(leaf_update, params, grads, state.mu, state.nu,
                        shapes, layouts)

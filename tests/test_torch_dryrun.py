@@ -171,6 +171,35 @@ def test_decode_on_16x16_fits_an_h100_for_qwen2_dbrx_and_jamba():
         assert rec["hbm_ok"]
 
 
+def test_dbrx_int8_step_on_a_one_rank_mesh_fits_an_h100():
+    """dbrx-132b at full width, 1 layer, int8 moments, 2 x 4096 tokens, on
+    a local 1 x 1 mesh (whose step passes the optimizer its layouts) and
+    with no mesh, a process each, run at once: on the mesh the predicted
+    step peak is under 80 GB and within 1.05x of the one without, as the
+    update takes its [16, 6144, 10752] expert stacks in parts of rows
+    either way (taken whole on the mesh, they put the peak at 1.36x)."""
+    procs = {mesh: subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         "dbrx-132b", "--shape", "train_4k", "--mesh", mesh, "--layers",
+         "1", "--batch", "2", "--moments", "int8"], cwd=ROOT,
+        env=dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+                 OMP_NUM_THREADS="1"),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for mesh in ("local", "none")}
+    peak = {}
+    for mesh, p in procs.items():
+        out, err = p.communicate(timeout=600)
+        assert p.returncode == 0, err[-3000:]
+        rec = json.loads(out.strip().splitlines()[-1])
+        assert rec["status"] == "ok" and rec["batch"] == [2, 4096]
+        assert rec["layers"] == 1 and rec["options"]["moments"] == "int8"
+        assert rec["mesh"] == ({"data": 1, "model": 1} if mesh == "local"
+                               else None)
+        peak[mesh] = rec["bytes_per_device"]["peak_estimate"]
+    assert peak["local"] < 80e9
+    assert peak["none"] / 1.05 <= peak["local"] <= 1.05 * peak["none"], peak
+
+
 def test_decode_cache_shard_changes_the_step():
     """``--cache-shard`` picks the decode step's layout: split by sequence
     over a (1, 4) mesh each rank holds a quarter of the positions and

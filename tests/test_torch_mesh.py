@@ -20,7 +20,12 @@ The cases cover llama3-8b (and two microbatches), dbrx-132b (the MoE aux
 loss of global-batch fractions: a mean of the ranks' own aux losses would
 differ), mamba2-2.7b, and int8 moments with the FFN widened so that its
 matrices take them (``w_gate``'s last axis over ``model``, ``w_down``'s
-over ``data``: each row's absmax is reduced over the ranks).  A last case
+over ``data``: each row's absmax is reduced over the ranks), at 2 x 1 and
+1 x 2 also in parts of rows: the ranks' ``UPDATE_PART`` lowered so that
+each such leaf takes four parts, the last one short, each part
+all-reducing its own row maxima.  Those cases are held bit for bit
+against the same case updated whole, and each rank's update must make
+as many all-reduces as every other rank's.  A last case
 trains through ``launch.train.run`` on a 2 x 1 mesh, restores the
 checkpoint with ``restore(shardings=)`` at 2 x 1 and at 1 x 2, counting
 the bytes each rank read, and resumes at 1 x 2.
@@ -73,7 +78,17 @@ CASES = {
     "int8_2x1": ("llama3-8b", {"d_ff": 512}, (2, 1), "int8", 1, 2, 32),
     "int8_1x2": ("llama3-8b", {"d_ff": 512}, (1, 2), "int8", 1, 2, 32),
     "int8_2x2": ("llama3-8b", {"d_ff": 512}, (2, 2), "int8", 1, 2, 32),
+    "int8_parts_2x1": ("llama3-8b", {"d_ff": 512}, (2, 1), "int8", 1, 2, 32),
+    "int8_parts_1x2": ("llama3-8b", {"d_ff": 512}, (1, 2), "int8", 1, 2, 32),
 }
+#: the parts cases: the ranks' UPDATE_PART, and the case that updates the
+#: same leaves whole.  5000 elements cut the local w_gate / w_up and
+#: w_down shards ([32, 512] and [512, 32] at 2 x 1, [64, 256] and
+#: [256, 64] at 1 x 2) into 4 parts of 9, 156, 19 and 78 rows, the last
+#: part short (5, 44, 7, 22 rows)
+UPDATE_PARTS = {"int8_parts_2x1": (5000, "int8_2x1"),
+                "int8_parts_1x2": (5000, "int8_1x2")}
+PARTS_PER_LEAF = 4
 BATCH = 4
 
 
@@ -104,6 +119,7 @@ def ranks(tmp_path_factory):
                       "change": change, "data": d, "model": m,
                       "moments": moments, "micro": micro, "steps": steps,
                       "lr": LR, "tokens": tokens,
+                      "update_part": UPDATE_PARTS.get(name, (None,))[0],
                       "params": jax.tree.map(np.asarray, jparams)})
     cases.append({"name": "restore", "kind": "restore", "arch": "llama3-8b",
                   "change": {"d_ff": 512}, "data": 2, "model": 1})
@@ -141,7 +157,7 @@ def ranks(tmp_path_factory):
 @functools.lru_cache(maxsize=None)
 def _single(name):
     """The port's single-process gradients and steps, and the JAX
-    package's step, on the case's parameters and batch."""
+    package's steps (as many), on the case's parameters and batch."""
     arch, change, _, moments, micro, steps, _ = CASES[name]
     jcfg, cfg = _cfgs(arch, change)
     jparams, tokens = _inputs(name)
@@ -168,9 +184,12 @@ def _single(name):
     jstep = jax.jit(jmake_train_step(jbuild(jcfg), jopt_cfg,
                                      num_microbatches=micro))
     jbatch = {"tokens": jnp.asarray(tokens), "labels": jnp.asarray(tokens)}
-    jnew, _, jm = jstep(jparams, jopt.init(jparams, jopt_cfg), jbatch)
-    want = {"params": jax.tree.map(np.asarray, jnew),
-            "metrics": {k: float(v) for k, v in jm.items()}}
+    jnew, jstate, jms = jparams, jopt.init(jparams, jopt_cfg), []
+    for _ in range(steps):
+        jnew, jstate, jm = jstep(jnew, jstate, jbatch)
+        jms.append({k: float(v) for k, v in jm.items()})
+    want = {"params": jax.tree.map(np.asarray, jnew), "metrics": jms[0],
+            "step_metrics": jms}
     return port, want
 
 
@@ -229,7 +248,7 @@ def test_mesh_step_matches_the_single_process_step(ranks, name):
         assert got["metrics"][0]["moe_aux"] > 0
 
 
-@pytest.mark.parametrize("name", [n for n, c in CASES.items() if c[5] == 1])
+@pytest.mark.parametrize("name", list(CASES))
 def test_mesh_step_matches_the_jax_step(ranks, name):
     _, want = _single(name)
     got = ranks[name][0]
@@ -237,6 +256,39 @@ def test_mesh_step_matches_the_jax_step(ranks, name):
         np.testing.assert_allclose(got["metrics"][0][k], want["metrics"][k],
                                    rtol=1e-5, atol=1e-6, err_msg=k)
     _hold_params(got["params"], want["params"])
+
+
+@pytest.mark.parametrize("name", list(UPDATE_PARTS))
+def test_int8_update_in_parts_is_the_whole_leaf_update(ranks, name):
+    """Each rank's parameters, int8 payloads and row scales after the
+    steps in parts are those of the same case updated whole, bit for bit;
+    each int8 leaf's row maxima were all-reduced once a part and moment
+    (the global norm's all-reduce aside)."""
+    whole = ranks[UPDATE_PARTS[name][1]]
+    for got, want in zip(ranks[name], whole):
+        for part in ("params", "mu", "nu"):
+            a = jax.tree.leaves(got[part])
+            b = jax.tree.leaves(want[part])
+            assert len(a) == len(b)
+            for x, y in zip(a, b):  # a QTensor's shape gives int leaves
+                assert np.asarray(x).dtype == np.asarray(y).dtype
+                np.testing.assert_array_equal(x, y)
+        for n_parts, n_whole in zip(got["update_all_reduces"],
+                                    want["update_all_reduces"]):
+            assert n_whole > 1
+            assert n_parts - 1 == PARTS_PER_LEAF * (n_whole - 1)
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_update_makes_the_same_all_reduces_on_every_rank(ranks, name):
+    """A rank that made another number of all-reduces than the others
+    would hang the step: each step's update makes the same count on every
+    rank (one, the global norm's, with f32 moments)."""
+    counts = [r["update_all_reduces"] for r in ranks[name]]
+    assert len(counts[0]) == CASES[name][5]
+    assert all(c == counts[0] for c in counts), counts
+    moments = CASES[name][3]
+    assert all((n > 1) == (moments == "int8") for n in counts[0]), counts
 
 
 def test_storage_follows_the_rule_table(ranks):

@@ -13,6 +13,7 @@ card's backward launches (once per call) have no CPU counterpart and are
 counted on the card (tests/test_torch_cuda.py, chip_smoke.py).
 """
 
+import contextlib
 import dataclasses
 import importlib.util
 import math
@@ -251,23 +252,50 @@ def test_int8_update_in_row_parts_is_the_whole_leaf_update(monkeypatch):
                 assert torch.equal(a, b)
 
 
-def _update_temporaries(shape) -> int:
+@contextlib.contextmanager
+def _one_rank_mesh():
+    """A 1 x 1 mesh on torch's fake process group of one rank (the dry
+    run's), torn down on exit."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    from repro_torch.launch import mesh as pmesh
+
+    assert not dist.is_initialized()
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=1)
+    try:
+        yield pmesh.make_local_mesh(1, 1, device="cpu")
+    finally:
+        dist.destroy_process_group()
+
+
+def _update_temporaries(shape, leaf=None) -> int:
     """Bytes the int8 update of one f32 leaf ``shape`` holds beyond its
     arguments at its peak, counted on fake tensors by the dry run's
-    StepCounter."""
+    StepCounter.  ``leaf`` (an MoE leaf's name): the leaf is that leaf's
+    shard on a 1 x 1 mesh, updated with its ``layouts`` (the global norm
+    and each row maximum all-reduced on the fake process group)."""
     from torch._subclasses.fake_tensor import FakeTensorMode
 
     from repro_torch.launch import dryrun
+    from repro_torch.launch import sharding as shd
 
     counter = dryrun.StepCounter()
     cfg = OptimizerConfig(moments_dtype="int8")
-    with FakeTensorMode():
-        params = {"w": torch.empty(shape)}
-        state = opt.init(params, cfg)
-        grads = {"w": torch.empty(shape)}
-        held = counter.hold((params, state, grads))
-        with counter:
-            opt.update(grads, state, params, cfg)
+    with contextlib.ExitStack() as stack:
+        layouts = None
+        if leaf is not None:
+            mesh = stack.enter_context(_one_rank_mesh())
+            layouts = {"w": shd.to_named_sharding(
+                mesh, shd.param_logical_spec(["blocks", "moe", leaf]),
+                shape)}
+        with FakeTensorMode():
+            params = {"w": torch.empty(shape)}
+            state = opt.init(params, cfg)
+            grads = {"w": torch.empty(shape)}
+            held = counter.hold((params, state, grads))
+            with counter:
+                opt.update(grads, state, params, cfg, layouts=layouts)
     return counter.peak - held
 
 
@@ -275,10 +303,26 @@ def test_int8_update_holds_no_f32_copies_of_a_large_leaf(monkeypatch):
     """dbrx-132b's expert stack at d_model / 8: updated whole, the int8
     update holds four f32 copies of the leaf and more at once; in parts of
     1 << 20 elements, the global norm's square of the gradient (one copy,
-    before the update) and the new int8 moments."""
+    before the update; the new int8 moments go into the old ones' place)."""
     shape = (16, 768, 10752)
     f32_leaf = 4 * math.prod(shape)
     monkeypatch.setattr(opt, "UPDATE_PART", math.prod(shape))
     assert _update_temporaries(shape) >= 4 * f32_leaf
     monkeypatch.setattr(opt, "UPDATE_PART", 1 << 20)
     assert _update_temporaries(shape) < 1.5 * f32_leaf
+
+
+@pytest.mark.parametrize("leaf,shape", [("w_gate", (16, 768, 10752)),
+                                        ("w_down", (16, 10752, 768))])
+def test_int8_update_on_a_mesh_holds_no_f32_copies_of_a_large_leaf(
+        monkeypatch, leaf, shape):
+    """The same stacks with ``layouts``, as every mesh step updates them
+    (a 1 x 1 mesh, the fake process group): ``w_gate``'s last axis is not
+    sharded, ``w_down``'s is over ``data``, so each of its parts
+    all-reduces its row maxima.  In one part, four f32 copies of the leaf
+    and more; in parts of 1 << 20 elements, under 1.5."""
+    f32_leaf = 4 * math.prod(shape)
+    monkeypatch.setattr(opt, "UPDATE_PART", math.prod(shape))
+    assert _update_temporaries(shape, leaf) >= 4 * f32_leaf
+    monkeypatch.setattr(opt, "UPDATE_PART", 1 << 20)
+    assert _update_temporaries(shape, leaf) < 1.5 * f32_leaf

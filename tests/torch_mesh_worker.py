@@ -9,10 +9,14 @@ world, and writes what it measured as ``OUT_DIR/<case>.<rank>.pkl``.  A
 case is a dict: ``name``, ``kind`` ("step" or "restore"), the mesh
 (``data``, ``model``), the config (``arch``, ``change``), ``moments``,
 ``micro``, ``steps``, the initial parameters in the JAX layout
-(``params``, numpy) and the ``tokens``.
+(``params``, numpy), the ``tokens`` and, optionally, ``update_part``: the
+optimizer's ``UPDATE_PART`` for the case (int8 leaves in smaller parts).
+A step case also writes how many ``all_reduce`` calls each step's
+optimizer update made on the rank.
 """
 
 import argparse
+import contextlib
 import dataclasses
 import datetime
 import pickle
@@ -20,6 +24,7 @@ import sys
 from pathlib import Path
 
 import torch
+import torch.distributed as dist
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
 
@@ -55,6 +60,44 @@ def _moments(tree, cfg):
     return convert.params_to_numpy(full, cfg)
 
 
+@contextlib.contextmanager
+def counted_updates(counts):
+    """``opt.update`` appending, at each call, the ``dist.all_reduce``
+    calls it made (the global norm's, each part's row maxima)."""
+    update, all_reduce = opt.update, dist.all_reduce
+
+    def counting(*args, **kwargs):
+        calls = [0]
+
+        def reduce(*a, **kw):
+            calls[0] += 1
+            return all_reduce(*a, **kw)
+
+        dist.all_reduce = reduce
+        try:
+            return update(*args, **kwargs)
+        finally:
+            dist.all_reduce = all_reduce
+            counts.append(calls[0])
+
+    opt.update = counting
+    try:
+        yield
+    finally:
+        opt.update = update
+
+
+@contextlib.contextmanager
+def update_part(elements):
+    """``opt.UPDATE_PART`` set to ``elements`` (None: as it is)."""
+    saved = opt.UPDATE_PART
+    opt.UPDATE_PART = elements or saved
+    try:
+        yield
+    finally:
+        opt.UPDATE_PART = saved
+
+
 def run_step_case(case, mesh):
     cfg = _config(case)
     model = build(cfg, device="cpu")
@@ -82,10 +125,12 @@ def run_step_case(case, mesh):
     out = {"axes": axes, "rows": len(rows["tokens"]),
            "grads": convert.params_to_numpy(full, cfg),
            "grad_metrics": {k: float(v) for k, v in gm.items()},
-           "metrics": []}
-    for _ in range(case["steps"]):
-        params, state, m = step(params, state, batch)
-        out["metrics"].append({k: float(v) for k, v in m.items()})
+           "metrics": [], "update_all_reduces": []}
+    with update_part(case.get("update_part")), \
+            counted_updates(out["update_all_reduces"]):
+        for _ in range(case["steps"]):
+            params, state, m = step(params, state, batch)
+            out["metrics"].append({k: float(v) for k, v in m.items()})
     out["params"] = convert.params_to_numpy(
         opt.tree_map(lambda p: torch.from_numpy(_full(p)), params), cfg)
     out["mu"] = _moments(state.mu, cfg)
